@@ -5,21 +5,30 @@
 
 Phases, each fatal on failure:
   1. device: the card's name, count, and nvidia-smi name and power limit;
-  2. build: every CUDA kernel of the main path, with nvcc for sm_90a;
-  3. kernel check: each kernel held bit for bit against its plain PyTorch
-     version on the card (the RFC 8439 vector; random data at the main
-     path's sizes: a token frame, a KV leaf, the largest weight; counter
-     bases across the u32 wrap);
-  4. kernel timing: CUDA events at the largest main-path shape, beside the
-     bound and the plain version's time;
+  2. build: every CUDA kernel of the main paths (ChaCha20, paged attention),
+     one nvcc per source, all started together, for sm_90a;
+  3. kernel check: each kernel held against its plain PyTorch version on
+     the card. ChaCha20 bit for bit (the RFC 8439 vector; random data at the
+     main path's sizes: a token frame, a KV leaf, the largest weight;
+     counter bases across the u32 wrap). Paged attention (B3) and its
+     fused-unseal variant (B4) at the Llama2-7B geometry (bf16) and a GQA
+     f32 geometry, valid on and off page boundaries, an idle row, live and
+     dead pages, within the stated tolerances; and B4 on a ciphertext pool
+     bit-equal to B3 on the same pool in plaintext;
+  4. kernel timing: CUDA events at the main paths' shapes, beside the bound,
+     the plain version's time and, where one exists, a PyTorch call's;
   5. serve: Llama2-7B at full width (random weights from a seed) under a
-     TDX trust domain: seal, attest, unseal (bit-exact), then an Engine on
-     the dense slot KV backend serves a low-priority wave and a preempting
-     high-priority wave (sealed preemption), and every request's tokens
-     must equal the same request served alone on a fresh engine;
+     TDX trust domain: seal, attest, unseal (bit-exact), then two paths over
+     a low-priority wave and a preempting high-priority wave: an Engine on
+     the dense slot KV backend, then one on the paged backend with
+     kv_decode="kernel" (B3, and B4 on pages restored as ciphertext). Each
+     path runs with every kernel count set to 0 just before it; every
+     request's tokens must equal the same request served alone on a fresh
+     engine of that path, and one decode step's logits on the paged-kernel
+     path must agree with the slot path's for the same cache;
   6. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
-     memory, kernel launches on the main path, and one JSON line listing
-     every ported kernel. The last line is the device JSON.
+     memory, kernel launches on each path, and one JSON line listing every
+     ported kernel. The last line is the device JSON.
 
 Imports nothing of JAX or of the reference package ``repro``.
 """
@@ -30,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the peak rate
@@ -60,6 +70,30 @@ RFC_CIPHER = bytes.fromhex(
 # KV leaf of one slot, [32, 1, 256, 32, 128] bf16, is 1024 tiles
 W_GATE_BLOCKS = 44032 * 1024
 KV_LEAF_BLOCKS = 1024 * 1024
+
+# paged attention checks: (label, dtype, geometry, (rtol, atol) of
+# torch.testing.assert_close against the plain version). The kernel sums in
+# another order than the plain version's einsums, so a bf16 output may
+# round one ulp (2**-8 relative) the other way; f32 agrees to 4.2e-7 and
+# bf16 to 2.4e-4 absolute on these inputs (NVIDIA H100 80GB HBM3, 700 W).
+PAGED_CASES = [
+    ("llama2-7b bf16", "bfloat16",
+     dict(b=4, h=32, hk=32, hd=128, ps=16, pages=16, valid=[256, 100, 0, 17]),
+     (1e-2, 1e-3)),
+    ("gqa f32", "float32",
+     dict(b=3, h=8, hk=2, hd=64, ps=8, pages=6, valid=[48, 13, 0]),
+     (1e-5, 1e-5)),
+]
+PAGED_LAYER = 5      # counter_base = layer * blocks_per_page
+# the main path's paged call: one Llama2-7B layer, 2 slots at 256 positions
+PAGED_MAIN = dict(b=2, h=32, hk=32, hd=128, ps=16, pages=16, valid=[256, 256])
+# a larger shape where launch overhead no longer hides the kernel
+PAGED_LARGE = dict(b=16, h=32, hk=32, hd=128, ps=16, pages=128,
+                   valid=[2048] * 16)
+# one decode step's logits, paged-kernel vs slot path, bf16 Llama2-7B: the
+# slot path's sdpa casts probabilities to bf16 before p.v, the kernel does
+# not, so the two differ by bf16 rounding carried through 32 layers
+LOGITS_REL_TOL = 0.05
 
 
 def check(cond: bool, what: str) -> None:
@@ -152,6 +186,171 @@ def phase_kernel_timing(C, torch, np) -> dict:
             "bytes_ms": bytes_s * 1e3, "ops_ms": ops_s * 1e3}
 
 
+def paged_case(torch, np, dtype, *, b, h, hk, hd, ps, pages, valid,
+               live_every=2, copies=1, seed=0, sealed=True):
+    """Random q and pools on the card (``copies`` layers of them), a
+    shuffled page table, and a ciphertext copy of the pools in which every
+    ``live_every``-th mapped page is sealed as the paged backend seals an
+    [L, ps, hk, hd] page (this layer's slice placed in the pool, its
+    sidecar row armed). With ``sealed=False`` (timing only) the live pages
+    keep their plaintext bits under random nonces: the kernel's work is the
+    same, its output garbage."""
+    from repro_torch.core import SealingKey
+    from repro_torch.core.sealing import nonce_words_for, seal_tensor
+    from repro_torch.kernels import ops
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = b * pages
+    shape = (copies, n + 1, ps, hk, hd)
+    kp = torch.randn(shape, generator=g, device="cuda").to(dt)
+    vp = torch.randn(shape, generator=g, device="cuda").to(dt)
+    q = torch.randn((b, h, hd), generator=g, device="cuda").to(dt)
+    perm = np.random.default_rng(seed).permutation(n) + 1
+    table = torch.as_tensor(perm.reshape(b, pages).astype(np.int32),
+                            device="cuda")
+    key = SealingKey.generate(b"chip-smoke-paged")
+    crypts, cipher = [], []
+    live = perm[::live_every].tolist()
+    rng = np.random.default_rng(seed)
+    for leaf, pool in (("k", kp), ("v", vp)):
+        crypt = np.zeros((n + 1, 4), np.uint32)
+        cp = pool.clone() if sealed else pool
+        for phys in live if not sealed else ():
+            crypt[phys, :3] = rng.integers(0, 2**32, 3, dtype=np.uint32)
+            crypt[phys, 3] = 1
+        for phys in live if sealed else ():
+            stacked = torch.zeros((PAGED_LAYER + 1,) + pool.shape[2:],
+                                  dtype=dt, device="cuda")
+            stacked[PAGED_LAYER] = pool[0, phys]
+            name = f"smoke['{leaf}']/p{phys}"
+            st = seal_tensor(key, name, stacked)
+            bits = ops.unpack_u32(st.ciphertext, st.n_bytes).view(dt)
+            cp[0, phys] = bits.reshape(stacked.shape)[PAGED_LAYER]
+            crypt[phys, :3], crypt[phys, 3] = nonce_words_for(key, name), 1
+        crypts.append(torch.as_tensor(crypt.view(np.int32), device="cuda"))
+        cipher.append(cp)
+    bpp = ps * hk * hd * kp.element_size() // 64
+    return dict(q=q, plain=(kp, vp), cipher=tuple(cipher), table=table,
+                valid=torch.as_tensor(np.asarray(valid, np.int32),
+                                      device="cuda"),
+                crypts=tuple(crypts), key=np.frombuffer(key.key, np.uint32),
+                bpp=bpp, n_live=len(live))
+
+
+def phase_paged_check(P, torch, np) -> dict:
+    """B3 and B4 against their plain versions on the card, and B4 on
+    ciphertext against B3 on plaintext bit for bit. Returns the max
+    |kernel - plain| per kernel."""
+    worst = {"paged_attention": 0.0, "paged_attention_unseal": 0.0}
+    for label, dtype, geo, tol in PAGED_CASES:
+        c = paged_case(torch, np, dtype, **geo)
+        plain = tuple(p[0] for p in c["plain"])
+        cipher = tuple(p[0] for p in c["cipher"])
+        args = (c["table"], c["valid"])
+        b3 = P.paged_attention(c["q"], *plain, *args)
+        b4 = P.paged_attention_unseal(c["q"], *cipher, *args, PAGED_LAYER,
+                                      c["key"], *c["crypts"],
+                                      blocks_per_page=c["bpp"])
+        torch.cuda.synchronize()
+        ref3 = P.paged_attention_plain(c["q"], *plain, *args)
+        ref4 = P.paged_attention_unseal_plain(
+            c["q"], *cipher, *args, PAGED_LAYER, c["key"], *c["crypts"],
+            blocks_per_page=c["bpp"])
+        for name, out, ref in (("paged_attention", b3, ref3),
+                               ("paged_attention_unseal", b4, ref4)):
+            err = float((out.float() - ref.float()).abs().max())
+            worst[name] = max(worst[name], err)
+            try:
+                torch.testing.assert_close(out, ref, rtol=tol[0], atol=tol[1])
+            except AssertionError as e:
+                check(False, f"{name} vs plain at {label}: {e}")
+        check(torch.equal(b4, b3), f"B4 on ciphertext == B3 on plaintext, "
+                                   f"bit for bit, at {label}")
+        idle = [i for i, v in enumerate(geo["valid"]) if v == 0]
+        check(not b3[idle].any(), f"idle row attends nothing at {label}")
+        print(f"  {label}: B3 max |err| {float((b3.float() - ref3.float()).abs().max()):.3g}, "
+              f"B4 max |err| {float((b4.float() - ref4.float()).abs().max()):.3g} "
+              f"(rtol, atol {tol}); B4(ciphertext) == B3(plaintext) bit for bit; "
+              f"{c['n_live']} of {geo['b'] * geo['pages']} pages live")
+        del c, b3, b4, ref3, ref4
+    torch.cuda.empty_cache()
+    return worst
+
+
+def library_attention(F, q, k_pool, v_pool, table):
+    """The gather ``pool[table]`` plus PyTorch's scaled_dot_product_attention
+    over the same work (every table position valid): the yardstick, used
+    nowhere in the port."""
+    b, h, hd = q.shape
+    hk = k_pool.shape[2]
+    k = k_pool[table.long()].reshape(b, -1, hk, hd).transpose(1, 2)
+    v = v_pool[table.long()].reshape(b, -1, hk, hd).transpose(1, 2)
+    return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                          enable_gqa=h != hk)
+
+
+def paged_bounds(c, geo) -> dict:
+    """Least times for B3 and B4 on this case: q, out and the attended K and
+    V pages once at the memory rate; for B4 also 992 integer ops per 64-B
+    block XORed (the live attended pages) at the int32 rate."""
+    es = c["q"].element_size()
+    pages = sum(-(-v // geo["ps"]) for v in geo["valid"])
+    kv_bytes = 2 * pages * geo["ps"] * geo["hk"] * geo["hd"] * es
+    nbytes = 2 * c["q"].numel() * es + kv_bytes
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    live_frac = c["n_live"] / (geo["b"] * geo["pages"])
+    blocks = 2 * pages * live_frac * c["bpp"]
+    ops_ms = blocks * CHACHA_OPS_PER_BLOCK / INT32_OPS_PER_S * 1e3
+    return {"b3": (bytes_ms, "bytes"),
+            "b4": (max(bytes_ms, ops_ms),
+                   "operations" if ops_ms > bytes_ms else "bytes"),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes}
+
+
+def phase_paged_timing(P, torch, np, F) -> dict:
+    """CUDA events at the main path's call (8 layer copies of the pools in
+    turn, 67 MB, so the 50 MB L2 does not hold them between calls) and at
+    the larger shape."""
+    out = {}
+    for tag, geo, copies in (("main", PAGED_MAIN, 8), ("large", PAGED_LARGE, 1)):
+        c = paged_case(torch, np, "bfloat16", **geo, live_every=1,
+                       copies=copies, seed=1, sealed=False)
+        args = (c["table"], c["valid"])
+
+        def run(fn):
+            return lambda: [fn(i) for i in range(copies)]
+
+        def b3(i):
+            return P.paged_attention(c["q"], c["plain"][0][i],
+                                     c["plain"][1][i], *args)
+
+        def b4(i):
+            return P.paged_attention_unseal(
+                c["q"], c["cipher"][0][i], c["cipher"][1][i], *args,
+                PAGED_LAYER, c["key"], *c["crypts"], blocks_per_page=c["bpp"])
+
+        def lib(i):
+            return library_attention(F, c["q"], c["plain"][0][i],
+                                     c["plain"][1][i], c["table"])
+
+        r = {"ms3": time_cuda(run(b3), 20, 2) / copies,
+             "ms4": time_cuda(run(b4), 20, 2) / copies,
+             "lib3": time_cuda(run(lib), 20, 2) / copies}
+        if tag == "main":
+            plain = tuple(p[0] for p in c["plain"])
+            cipher = tuple(p[0] for p in c["cipher"])
+            r["plain3"] = time_cuda(lambda: P.paged_attention_plain(
+                c["q"], *plain, *args), 3, 1)
+            r["plain4"] = time_cuda(lambda: P.paged_attention_unseal_plain(
+                c["q"], *cipher, *args, PAGED_LAYER, c["key"], *c["crypts"],
+                blocks_per_page=c["bpp"]), 2, 1)
+        r.update(paged_bounds(c, geo))
+        out[tag] = r
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
 # (prompt length, max_new_tokens, priority): the low wave's first two share
 # the 32 bucket (one batched prefill of two rows); the last high request
 # chunks past the largest bucket (its tail feeds through decode steps).
@@ -159,6 +358,35 @@ LOW_WAVE = [(20, 16, 0), (24, 12, 0), (100, 10, 0), (40, 14, 0)]
 HIGH_WAVE = [(50, 8, 5), (150, 6, 5)]
 ENGINE_KW = dict(kv_backend="slot", max_slots=2, max_len=256,
                  prefill_buckets=(32, 64, 128))
+PAGED_KW = dict(ENGINE_KW, kv_backend="paged", page_size=16,
+                kv_decode="kernel")
+
+
+def reset_counts(C, P) -> None:
+    C.reset_launches()
+    P.reset_launches()
+
+
+def serve_waves(engine, specs, gen):
+    """The low wave, 3 steps, then the preempting high wave, to the end."""
+    reqs = [engine.submit(gen(s)) for s in specs[:len(LOW_WAVE)]]
+    for _ in range(3):
+        engine.step()
+    reqs += [engine.submit(gen(s)) for s in specs[len(LOW_WAVE):]]
+    stats = engine.run(max_steps=10_000)
+    return reqs, stats
+
+
+def check_solo(Engine, TrustDomain, model, params, specs, gen, outputs, kw):
+    """Each request alone on a fresh engine of the same path gives the
+    same tokens (comparison only)."""
+    for i, spec in enumerate(specs):
+        solo = Engine(model, params, trust_domain=TrustDomain("tdx"), **kw)
+        r = solo.submit(gen(spec))
+        solo.run(max_steps=10_000)
+        check(list(r.output) == outputs[i],
+              f"request {i} tokens equal its solo run "
+              f"({outputs[i]} vs {list(r.output)})")
 
 
 def phase_serve(torch, np) -> dict:
@@ -166,6 +394,7 @@ def phase_serve(torch, np) -> dict:
     from repro_torch.core import SealingKey, TrustDomain
     from repro_torch.core.sealing import tree_leaves_with_names
     from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import paged_attention as P
     from repro_torch.models import build_model
     from repro_torch.runtime import Engine, GenerationRequest
 
@@ -182,9 +411,9 @@ def phase_serve(torch, np) -> dict:
         return GenerationRequest(prompt=prompt.copy(), max_new_tokens=mnt,
                                  priority=prio)
 
-    # ---- the main path: every kernel count starts at 0 here -------------
+    # ---- the slot path: every kernel count starts at 0 here -------------
     torch.cuda.reset_peak_memory_stats()
-    C.reset_launches()
+    reset_counts(C, P)
     td = TrustDomain("tdx", sealing_key=SealingKey.generate(b"chip-smoke"),
                      io_key=SealingKey.generate(b"chip-smoke-io"))
     t0 = time.perf_counter()
@@ -201,16 +430,13 @@ def phase_serve(torch, np) -> dict:
     weight_launches = C.launches
     engine = Engine(model, unsealed, trust_domain=td, **ENGINE_KW)
     t0 = time.perf_counter()
-    reqs = [engine.submit(gen(s)) for s in specs[:len(LOW_WAVE)]]
-    for _ in range(3):
-        engine.step()
-    reqs += [engine.submit(gen(s)) for s in specs[len(LOW_WAVE):]]
-    stats = engine.run(max_steps=10_000)
+    reqs, stats = serve_waves(engine, specs, gen)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = C.launches
+    check(sum(P.launches.values()) == 0, "the slot path runs no paged kernel")
     peak = torch.cuda.max_memory_allocated()
-    # ---- end of the main path ---------------------------------------------
+    # ---- end of the slot path ---------------------------------------------
 
     n_weights = sum(st.n_bytes for st in sealed.values())
     leaves = dict(tree_leaves_with_names(params))
@@ -228,16 +454,68 @@ def phase_serve(torch, np) -> dict:
         check(all(0 <= t < cfg.vocab_size for t in out), "tokens in vocab")
     ch = td.channel.stats
 
-    # ---- each request alone on a fresh engine (comparison only) ---------
-    for i, spec in enumerate(specs):
-        solo = Engine(model, unsealed, trust_domain=TrustDomain("tdx"),
-                      **ENGINE_KW)
-        r = solo.submit(gen(spec))
-        solo.run(max_steps=10_000)
-        check(list(r.output) == outputs[i],
-              f"request {i} tokens equal its solo run "
-              f"({outputs[i]} vs {list(r.output)})")
-    print(f"  {len(specs)} requests: tokens equal their solo runs")
+    check_solo(Engine, TrustDomain, model, unsealed, specs, gen, outputs,
+               ENGINE_KW)
+    print(f"  slot path: {len(specs)} requests, tokens equal their solo runs")
+
+    # ---- the paged-kernel path: every kernel count starts at 0 here ------
+    reset_counts(C, P)
+    td2 = TrustDomain("tdx", sealing_key=SealingKey.generate(b"chip-smoke-2"),
+                      io_key=SealingKey.generate(b"chip-smoke-io-2"))
+    paged = Engine(model, unsealed, trust_domain=td2, **PAGED_KW)
+    t0 = time.perf_counter()
+    preqs, pstats = serve_waves(paged, specs, gen)
+    torch.cuda.synchronize()
+    paged_s = time.perf_counter() - t0
+    paged_launches = {"chacha20_xor_blocked": C.launches, **P.launches}
+    # ---- end of the paged-kernel path -------------------------------------
+    check(all(r.finished for r in preqs), "paged: every request finished")
+    check(pstats.preemptions > 0, "paged: the high wave forced a preemption")
+    for name in ("paged_attention", "paged_attention_unseal"):
+        check(paged_launches[name] > 0, f"paged: the path launched {name}")
+    check(paged.kv.fused_restore_pages > 0,
+          "paged: a restore admitted pages as ciphertext")
+    poutputs = [list(r.output) for r in preqs]
+    check_solo(Engine, TrustDomain, model, unsealed, specs, gen, poutputs,
+               PAGED_KW)
+    agree = sum(a == b for o, p in zip(outputs, poutputs)
+                for a, b in zip(o, p))
+    print(f"  paged-kernel path: {len(specs)} requests, tokens equal their "
+          f"solo runs; {paged.kv.fused_restore_pages} pages restored as "
+          f"ciphertext; {agree} of {sum(map(len, outputs))} tokens agree with "
+          f"the slot path (not required: the slot sdpa rounds probabilities "
+          f"to bf16 before p.v)")
+    pch = td2.channel.stats
+    del paged
+
+    # one decode step's logits: paged-kernel path vs slot path, same cache
+    from repro_torch.runtime.kvcache import make_backend
+    prompt = torch.as_tensor(specs[2][0][None, :], device="cuda")
+    with torch.inference_mode():
+        _, dense = model.prefill(unsealed, {"tokens": prompt},
+                                 model.init_cache(1, ENGINE_KW["max_len"]))
+        kv = make_backend("paged", model, max_slots=1,
+                          max_len=ENGINE_KW["max_len"], page_size=16,
+                          decode="kernel")
+        kv.insert_prefill(dense, [kv.acquire(0, 128)], prompt.shape[1])
+        tok = np.array([5], np.int32)
+        got = kv.decode_logits(unsealed, tok, [0])
+        ref, _ = model.decode_step(unsealed, torch.as_tensor(
+            tok[:, None], device="cuda"), dense)
+        kv_decode_s = time_host(lambda: kv.decode_logits(unsealed, tok, []),
+                                10)
+        kv_positions = int(kv.pos[0]) + 1
+    logit_err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()), "paged-kernel logits finite")
+    check(logit_err <= LOGITS_REL_TOL * scale,
+          f"paged-kernel logits within {LOGITS_REL_TOL} x max |logit| of the "
+          f"slot path's ({logit_err:.4g} vs max {scale:.4g})")
+    print(f"  one decode step's logits, paged-kernel vs slot path: max |diff| "
+          f"{logit_err:.4g}, max |logit| {scale:.4g} (tol "
+          f"{LOGITS_REL_TOL} x max); argmax equal: "
+          f"{int(got.argmax()) == int(ref.argmax())}")
+    del kv, dense
     # logits are finite on a real prompt (one prefill through the model)
     cache = model.init_cache(1, ENGINE_KW["max_len"])
     with torch.inference_mode():
@@ -263,7 +541,10 @@ def phase_serve(torch, np) -> dict:
                 serve_s=serve_s, launches=launches,
                 weight_launches=weight_launches, peak=peak,
                 weight_bytes=n_weights, n_requests=len(specs),
-                decode_s=decode_s, prefill_s=prefill_s, frame_s=frame_s)
+                decode_s=decode_s, prefill_s=prefill_s, frame_s=frame_s,
+                paged_stats=pstats, paged_channel=pch, paged_s=paged_s,
+                paged_launches=paged_launches, logit_err=logit_err,
+                kv_decode_s=kv_decode_s, kv_positions=kv_positions)
 
 
 def main() -> int:
@@ -273,8 +554,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
+    import torch.nn.functional as F
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import paged_attention as P
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -288,16 +571,21 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    C._kernel_fn()
-    log = build.BUILD_LOG["chacha20.cu"]
-    print(f"[2/6] build: chacha20.cu with nvcc for sm_90a in "
-          f"{time.perf_counter() - t0:.2f}s (cached={log['cached']})")
-    for line in log["ptxas"].splitlines():
-        if "registers" in line:
-            print(f"  {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
+        list(pool.map(lambda f: f(), (C._kernel_fn, P._kernel_fn)))
+    print(f"[2/6] build: chacha20.cu and paged_attention.cu with nvcc for "
+          f"sm_90a in {time.perf_counter() - t0:.2f}s")
+    for src in ("chacha20.cu", "paged_attention.cu"):
+        log = build.BUILD_LOG[src]
+        print(f"  {src}: {log['seconds']:.2f}s (cached={log['cached']})")
+        for line in log["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {line.strip()}")
 
-    print("[3/6] kernel check: chacha20_xor_blocked vs plain, bit for bit")
+    print("[3/6] kernel check: chacha20_xor_blocked vs plain, bit for bit; "
+          "paged_attention (B3) and paged_attention_unseal (B4) vs plain")
     max_err = phase_kernel_check(C, ops, torch, np)
+    paged_err = phase_paged_check(P, torch, np)
 
     tm = phase_kernel_timing(C, torch, np)
     print(f"[4/6] kernel timing at N={W_GATE_BLOCKS} blocks "
@@ -305,6 +593,22 @@ def main() -> int:
           f"{tm['bound_ms']:.4f} ms (bytes {tm['bytes_ms']:.4f} ms, integer "
           f"ops {tm['ops_ms']:.4f} ms -> {tm['bound_by']}), plain version "
           f"{tm['plain_ms']:.2f} ms")
+    pt = phase_paged_timing(P, torch, np, F)
+    lg = pt["large"]
+    print(f"  paged attention at {PAGED_LARGE['b']} slots x "
+          f"{PAGED_LARGE['valid'][0]} positions (one llama2-7b layer, bf16, "
+          f"every page live for B4): B3 {lg['ms3']:.4f} ms, B4 "
+          f"{lg['ms4']:.4f} ms, bound {lg['b3'][0]:.4f} / {lg['b4'][0]:.4f} "
+          f"ms ({lg['bytes']} B; ops {lg['ops_ms']:.4f} ms), gather + sdpa "
+          f"{lg['lib3']:.4f} ms")
+    mn = pt["main"]
+    print(f"  paged attention at the main path's call ({PAGED_MAIN['b']} "
+          f"slots x {PAGED_MAIN['valid'][0]} positions, one layer; 8 layer "
+          f"copies in turn): B3 {mn['ms3']:.4f} ms (bound {mn['b3'][0]:.4f} "
+          f"ms, bytes; plain {mn['plain3']:.3f} ms; gather + sdpa "
+          f"{mn['lib3']:.4f} ms); B4 {mn['ms4']:.4f} ms (bound "
+          f"{mn['b4'][0]:.4f} ms, {mn['b4'][1]}: bytes {mn['bytes_ms']:.4f} "
+          f"ms, ops {mn['ops_ms']:.4f} ms; plain {mn['plain4']:.3f} ms)")
 
     print("[5/6] serve: llama2-7b (32 layers, d_model 4096, bf16) under tdx")
     sv = phase_serve(torch, np)
@@ -327,18 +631,42 @@ def main() -> int:
           f"{sv['prefill_s'] * 1e3:.2f} ms; one egress frame (seal + MAC + "
           f"unseal + MAC) {sv['frame_s'] * 1e3:.3f} ms")
     print(f"  peak device memory on the main path: {sv['peak']} B")
-    print(f"  chacha20_xor_blocked launches on the main path: {sv['launches']} "
+    print(f"  chacha20_xor_blocked launches on the slot path: {sv['launches']} "
           f"({sv['weight_launches']} for the weights, {per_req:.1f} per served "
           f"request)")
-    check(sv["launches"] > 0, "the main path launched the ChaCha20 kernel")
+    check(sv["launches"] > 0, "the slot path launched the ChaCha20 kernel")
+    ps_, pc = sv["paged_stats"], sv["paged_channel"]
+    print(f"  paged-kernel path: {ps_.total_requests} requests / "
+          f"{ps_.total_tokens} tokens in {sv['paged_s']:.2f}s wall; "
+          f"{ps_.preemptions} preemptions; sealed KV {pc.seal_events} seals / "
+          f"{pc.seal_bytes} B out, {pc.restore_events} restores / "
+          f"{pc.restore_bytes} B back; next-token latency p50 "
+          f"{ps_.p50_latency_s * 1e3:.2f} ms; one decode step (1 row at "
+          f"{sv['kv_positions']} positions) {sv['kv_decode_s'] * 1e3:.2f} ms")
+    print(f"  launches on the paged-kernel path: {sv['paged_launches']}")
     print(f"  total {time.perf_counter() - t_start:.1f}s")
+    pl = sv["paged_launches"]
     print(json.dumps({"kernels": [{
         "name": "chacha20_xor_blocked", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chacha20.cu",
         "replaces": "src/repro/kernels/chacha20.py:98",
         "launches": sv["launches"], "max_abs_err": float(max_err),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-        "bound_by": tm["bound_by"], "library_ms": None}]}))
+        "bound_by": tm["bound_by"], "library_ms": None}, {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:269",
+        "launches": pl["paged_attention"],
+        "max_abs_err": paged_err["paged_attention"], "ms": mn["ms3"],
+        "plain_ms": mn["plain3"], "bound_ms": mn["b3"][0],
+        "bound_by": mn["b3"][1], "library_ms": mn["lib3"]}, {
+        "name": "paged_attention_unseal", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:334",
+        "launches": pl["paged_attention_unseal"],
+        "max_abs_err": paged_err["paged_attention_unseal"], "ms": mn["ms4"],
+        "plain_ms": mn["plain4"], "bound_ms": mn["b4"][0],
+        "bound_by": mn["b4"][1], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

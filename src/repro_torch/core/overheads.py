@@ -30,16 +30,20 @@ The model reproduces the *paper's* platforms; the `tpu_cc` profile is our
 forward-looking TPU estimate (B100-style: HBM + ICI encryption on by
 default), used for the confidential roofline in EXPERIMENTS.md.
 
-Port note: ``measured_link_tax``, ``fused_unseal_savings`` and
-``store_restore_savings`` price from the reference package's TPU roofline
-constants and serve mesh, paged and page-store paths this package does not
-have yet (ROADMAP.md queue A, items 10, 11, 18 and 19); they are not copied.
+Port note: ``fused_unseal_savings`` prices the page round-trip at the
+H100's memory rate (:data:`HBM_BYTES_PER_S`), where the reference used its
+TPU roofline constant. ``measured_link_tax`` and ``store_restore_savings``
+serve mesh and page-store paths this package does not have yet (ROADMAP.md
+queue A, items 11, 18 and 19); they are not copied.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional
+
+# H100 SXM device-memory rate (NVIDIA data sheet), the card the port runs on
+HBM_BYTES_PER_S = 3.35e12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,3 +186,26 @@ def sweep_batch(profile: str, compute_per_token_s: float, memory_s: float,
         terms = RooflineTerms(compute_s=compute_per_token_s * b, memory_s=memory_s)
         out[b] = predict(terms, profile).overhead
     return out
+
+
+def fused_unseal_savings(fused_pages: int, fused_bytes: int,
+                         profile: str | TEEProfile
+                         ) -> "tuple[Optional[OverheadBreakdown], str]":
+    """Price what a sealed-KV restore avoided by admitting pages as
+    ciphertext (the fused in-kernel unseal) instead of decrypting them
+    into the pool: per page a 2x page-bytes round-trip through device memory
+    and one boundary event, priced through :func:`predict` (one page-sized
+    memory term per page, ``steps=pages``). Returns (breakdown | None,
+    report line); None when nothing went fused."""
+    if fused_pages <= 0 or fused_bytes <= 0:
+        return None, "fused-unseal savings: none (no ciphertext-resident pages)"
+    per_page = fused_bytes / fused_pages
+    terms = RooflineTerms(compute_s=0.0, memory_s=2 * per_page / HBM_BYTES_PER_S)
+    brk = predict(terms, profile, steps=fused_pages)
+    line = (f"fused-unseal savings ({brk.profile}): {fused_pages} pages / "
+            f"{fused_bytes} B stayed ciphertext-resident; avoided "
+            f"{brk.t_tee_s * 1e6:.1f}us restore cost "
+            f"({brk.t_plain_s * 1e6:.1f}us HBM round-trip + "
+            f"{(brk.t_tee_s - brk.t_plain_s) * 1e6:.1f}us TEE tax incl. "
+            f"{fused_pages} boundary events)")
+    return brk, line

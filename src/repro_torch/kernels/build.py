@@ -3,8 +3,9 @@
 Route: ``nvcc`` by hand into a library with a plain C interface, bound with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``), named
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads from the earlier build. Nothing is built at import time:
+by a hash of the source, the ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds and an unchanged one loads from the
+earlier build. Nothing is built at import time:
 the first wrapper call that needs a kernel builds it.
 """
 
@@ -45,8 +46,12 @@ def load(source: str) -> ctypes.CDLL:
     if source in _LOADED:
         return _LOADED[source]
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
+    # the headers under csrc/ count too: an edited header must not load a
+    # library built from the old one
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    digest = h.hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib_path.exists():
         BUILD_LOG[source] = {"seconds": 0.0, "cached": True, "ptxas": "",
@@ -63,7 +68,7 @@ def load(source: str) -> ctypes.CDLL:
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, lib_path)   # atomic: a concurrent loader sees all or nothing
         ptxas = "\n".join(line for line in (proc.stdout + proc.stderr).splitlines()
-                          if "ptxas" in line)
+                          if "ptxas" in line or "spill" in line)
         BUILD_LOG[source] = {"seconds": seconds, "cached": False,
                              "ptxas": ptxas, "path": str(lib_path)}
     lib = ctypes.CDLL(str(lib_path))

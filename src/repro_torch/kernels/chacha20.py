@@ -74,12 +74,14 @@ def _quarter(s, a, b, c, d):
 def chacha_block_words(key_words: Sequence[int], nonce_words: Sequence[int],
                        counters: torch.Tensor) -> list:
     """ChaCha20 block function over int64 ``counters`` (values in [0, 2**32)).
-    Returns the 16 keystream words, each an int64 tensor shaped like
-    ``counters`` holding a uint32 value."""
+    Nonce words are ints, or int64 tensors that broadcast against
+    ``counters`` (one nonce per row of pages). Returns the 16 keystream
+    words, each an int64 tensor shaped like ``counters`` holding a uint32
+    value."""
     init = ([torch.full_like(counters, c) for c in CONSTANTS]
             + [torch.full_like(counters, w) for w in key_words]
             + [counters & _MASK]
-            + [torch.full_like(counters, w) for w in nonce_words])
+            + [torch.zeros_like(counters) + w for w in nonce_words])
     state = list(init)
     for _ in range(10):  # 10 double rounds = 20 rounds
         _quarter(state, 0, 4, 8, 12)

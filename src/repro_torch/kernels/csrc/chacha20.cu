@@ -26,23 +26,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chacha20_block.cuh"
+
 namespace {
 
 struct KeyNonce {
   uint32_t w[11];  // key words 0..7, nonce words 8..10
 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int n) {
-  return __funnelshift_l(x, x, n);
-}
-
-__device__ __forceinline__ void quarter(uint32_t& a, uint32_t& b, uint32_t& c,
-                                        uint32_t& d) {
-  a += b; d ^= a; d = rotl(d, 16);
-  c += d; b ^= c; b = rotl(b, 12);
-  a += b; d ^= a; d = rotl(d, 8);
-  c += d; b ^= c; b = rotl(b, 7);
-}
 
 constexpr int kThreads = 256;
 
@@ -58,30 +48,12 @@ chacha20_xor_kernel(const uint32_t* in, uint32_t* out, long long n,
 #pragma unroll
   for (int w = 0; w < 16; ++w) d[w] = in[(long long)w * n + b];
 
-  uint32_t init[16];
-  init[0] = 0x61707865u; init[1] = 0x3320646eu;
-  init[2] = 0x79622d32u; init[3] = 0x6b206574u;
+  uint32_t ks[16];
+  // the counter wraps mod 2^32 like the TPU kernel's
+  repro::chacha20_block(kn.w, kn.w[8], kn.w[9], kn.w[10],
+                        counter_base + (uint32_t)b, ks);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) init[4 + i] = kn.w[i];
-  init[12] = counter_base + (uint32_t)b;  // wraps mod 2^32 like the TPU kernel
-  init[13] = kn.w[8]; init[14] = kn.w[9]; init[15] = kn.w[10];
-
-  uint32_t x[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) x[i] = init[i];
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {  // 10 double rounds = 20 rounds
-    quarter(x[0], x[4], x[8], x[12]);
-    quarter(x[1], x[5], x[9], x[13]);
-    quarter(x[2], x[6], x[10], x[14]);
-    quarter(x[3], x[7], x[11], x[15]);
-    quarter(x[0], x[5], x[10], x[15]);
-    quarter(x[1], x[6], x[11], x[12]);
-    quarter(x[2], x[7], x[8], x[13]);
-    quarter(x[3], x[4], x[9], x[14]);
-  }
-#pragma unroll
-  for (int w = 0; w < 16; ++w) out[(long long)w * n + b] = d[w] ^ (x[w] + init[w]);
+  for (int w = 0; w < 16; ++w) out[(long long)w * n + b] = d[w] ^ ks[w];
 }
 
 }  // namespace

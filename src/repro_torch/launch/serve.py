@@ -9,8 +9,11 @@ Runs on the CUDA card unless ``--device cpu``. With a confidential mode the
 launcher performs the whole paper pipeline: seal -> attest -> unseal on the
 device -> encrypted serving, and prints the reference launcher's report
 lines. Requests are greedy: ``--sample-temp`` above 0 raises until seeded
-sampling is ported (ROADMAP.md queue A item 6). The reference's fleet, mesh,
-paged-KV, page-store and two-phase flags are not ported yet.
+sampling is ported (ROADMAP.md queue A item 6). ``--kv-backend paged``
+swaps the dense slot cache for the page pool (``--page-size``,
+``--num-pages``), and ``--kv-decode kernel`` attends through the
+table-walking paged-attention kernels. The reference's fleet, mesh,
+prefix-sharing, page-store and two-phase flags are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import numpy as np
 from repro_torch.configs import get_config, list_configs, smoke_config
 from repro_torch.core import RooflineTerms, TrustDomain
 from repro_torch.core.overheads import (STEP_COMPUTE_FRACTION,
-                                        STEP_MEMORY_FRACTION)
+                                        STEP_MEMORY_FRACTION,
+                                        fused_unseal_savings)
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.runtime import (Engine, FramePolicy, GenerationRequest,
@@ -114,7 +118,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=None,
                     help="sampling seed (reproducible per-request streams)")
     ap.add_argument("--kv-backend", default="slot", choices=["slot", "paged"],
-                    help="KV layout (only the dense slot layout is ported)")
+                    help="KV layout: dense slots or page pool + page table")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (paged backend)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="pool size in pages (default: dense-equivalent)")
+    ap.add_argument("--kv-decode", default="gather",
+                    choices=["gather", "kernel"],
+                    help="paged decode path: per-step dense gather "
+                         "(reference) or the table-walking paged-attention "
+                         "kernel with fused in-kernel page unseal")
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     metavar="K",
                     help="give every generated prompt the same K-token head")
@@ -150,7 +163,8 @@ def main(argv=None):
                     max_slots=args.slots, max_len=args.max_len,
                     prefill_len=args.prefill_len,
                     prefill_buckets=args.prefill_buckets,
-                    kv_backend=args.kv_backend,
+                    kv_backend=args.kv_backend, page_size=args.page_size,
+                    num_pages=args.num_pages, kv_decode=args.kv_decode,
                     reject_infeasible=args.reject_infeasible,
                     step_time_hint_s=(None if args.step_time_hint_ms is None
                                       else args.step_time_hint_ms * 1e-3))
@@ -181,6 +195,14 @@ def main(argv=None):
     if stats.rejected_infeasible:
         print(f"admission control: {stats.rejected_infeasible} "
               f"infeasible rejections (deadline unmeetable at submit)")
+    if args.kv_backend == "paged":
+        print(f"kv decode: mode={engine.kv.decode_mode} | fused-unseal "
+              f"{engine.kv.fused_restore_pages} pages / "
+              f"{engine.kv.fused_restore_bytes} B admitted as ciphertext")
+        _, savings_line = fused_unseal_savings(
+            engine.kv.fused_restore_pages, engine.kv.fused_restore_bytes,
+            args.tee)
+        print(savings_line)
     if td.confidential:
         print(f"boundary: {ch}")
         print(f"frame coalescing: {ch.messages_out} egress frames / "

@@ -5,18 +5,20 @@ Dataflow per the paper's protected stack:
   --> batched greedy decode loop --> tokens --(encrypted frames through the
   bounce buffer, 1..N tokens each per the request's FramePolicy)--> client.
 
-This slice ports the reference's default configuration: one compute plan,
-the dense slot KV backend, bucketed left-padded batched prefill with
-chunked prompt tails, priority/slack admission, per-priority rate budgets,
-sealed whole-slot preemption and restore, coalesced egress, drop/abort
-deadlines and admission-time deadline feasibility. Scheduler decisions are
-the reference's, so the same requests produce the same admissions,
-preemptions, seals and frames.
+This port serves one compute plan over the dense slot KV backend or the
+paged one (reservation mode, gather or kernel decode): bucketed left-padded
+batched prefill with chunked prompt tails, priority/slack admission,
+per-priority rate budgets, sealed whole-slot preemption and restore,
+page-granular partial preemption with paused victims (paged), coalesced
+egress, drop/abort deadlines and admission-time deadline feasibility.
+Scheduler decisions are the reference's, so the same requests produce the
+same admissions, preemptions, seals and frames.
 
 Not ported yet (each raises ``NotImplementedError``): seeded sampling
-(ROADMAP.md queue A item 6), the paged backend (item 10), continuous
-batching and disaggregated prefill (item 13), fleet drain and migration
-(item 14), meshes (item 18).
+(ROADMAP.md queue A item 6), prefix sharing and on-demand page allocation
+(item 10b), the page store (item 11), continuous batching and
+disaggregated prefill (item 13), fleet drain and migration (item 14),
+meshes (item 18).
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from repro_torch.runtime import sampling
 from repro_torch.runtime.api import (FINISH_ABORTED, GenerationRequest,
                                      RequestOutput)
 from repro_torch.runtime.kvcache import (KVBackend, SlotState, host_upload,
-                                         make_backend, next_pow2)
+                                         make_backend, next_pow2,
+                                         tail_blob_names)
 from repro_torch.runtime.plan import SingleDevicePlan
 from repro_torch.runtime.scheduler import Request, Scheduler, ServeStats
 
@@ -47,6 +50,16 @@ class PreemptedRequest:
     """A sealed-out request waiting for a slot: KV as ciphertext only."""
     sealed: Dict[str, Any]
     req: Request
+
+
+@dataclasses.dataclass
+class PausedSlot:
+    """A partially-evicted running slot (paged backend): its tail pages are
+    ciphertext outside the pool, the head pages stay resident, and the slot
+    sits out of the decode batch until the delta is restored."""
+    sealed: Dict[str, Any]
+    prefix: str
+    n_pages: int
 
 
 class _RateBucket:
@@ -89,11 +102,13 @@ class Engine:
                  prefill_buckets: Optional[Sequence[int]] = None,
                  batch_prefill: bool = True,
                  rate_budgets: Optional[Dict[int, float]] = None,
-                 kv_backend: str = "slot",
+                 kv_backend: str = "slot", page_size: int = 16,
+                 num_pages: Optional[int] = None,
                  prefix_sharing: bool = False,
                  kv_alloc: Optional[str] = None,
                  kv_decode: str = "gather",
                  page_store: Any = None,
+                 store_budget_pages: Optional[int] = None,
                  mesh: Optional[str] = None,
                  admission_order: str = "slack",
                  continuous_batching: bool = False,
@@ -106,20 +121,21 @@ class Engine:
         trust domain if given, must live there too). ``prefill_buckets``
         supersedes the single static ``prefill_len``; ``batch_prefill=False``
         prefills one request per call. ``rate_budgets`` maps priority ->
-        tokens/s. ``admission_order`` is ``"slack"`` (tightest deadline
-        first, priority tiebreak) or ``"priority"``. ``reject_infeasible``
-        refuses at ingest a request whose ``deadline_s`` is provably
-        unmeetable at the fastest observed (or ``step_time_hint_s``) step
-        time. The paged, sharing, store, mesh, continuous-batching and
+        tokens/s. ``kv_backend`` is ``"slot"`` (dense) or ``"paged"`` (page
+        pool + table; ``page_size``/``num_pages`` size it, ``num_pages=None``
+        matches the dense footprint; ``kv_decode`` ``"gather"`` or
+        ``"kernel"``, the table-walking paged-attention kernels).
+        ``admission_order`` is ``"slack"`` (tightest deadline first,
+        priority tiebreak) or ``"priority"``. ``reject_infeasible`` refuses
+        at ingest a request whose ``deadline_s`` is provably unmeetable at
+        the fastest observed (or ``step_time_hint_s``) step time. The
+        sharing, on-demand, store, mesh, continuous-batching and
         disaggregated options raise ``NotImplementedError``."""
         if mesh is not None:
             raise _not_ported("a mesh-spanning engine", 18)
         if continuous_batching or prefill_plan is not None:
             raise _not_ported("two-phase serving (continuous batching, "
                               "prefill_plan)", 13)
-        if (prefix_sharing or kv_alloc is not None or kv_decode != "gather"
-                or page_store):
-            raise _not_ported("the paged KV backend and its options", 10)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -145,11 +161,17 @@ class Engine:
                              f"engine runs on {self.device}")
         self.scheduler = Scheduler(order=admission_order)
         self.kv: KVBackend = make_backend(kv_backend, model,
-                                          max_slots=max_slots,
-                                          max_len=max_len, plan=self.plan)
+                                          max_slots=max_slots, max_len=max_len,
+                                          page_size=page_size,
+                                          num_pages=num_pages, plan=self.plan,
+                                          prefix_sharing=prefix_sharing,
+                                          alloc=kv_alloc, decode=kv_decode,
+                                          page_store=page_store,
+                                          store_budget_pages=store_budget_pages)
         self._active_mask = np.zeros(max_slots, bool)
         self._last_token = np.zeros(max_slots, np.int32)
         self._preempted: List[PreemptedRequest] = []
+        self._paused: Dict[int, PausedSlot] = {}
         self._buckets: Dict[int, _RateBucket] = {
             prio: _RateBucket(rate) for prio, rate in (rate_budgets or {}).items()}
         self._prefill_fn = self.plan.compile_prefill()
@@ -331,6 +353,7 @@ class Engine:
             self.scheduler.finish(slot)
             self.kv.release(slot)
             self._active_mask[slot] = False
+            self._paused.pop(slot, None)   # a paused victim's sealed tail
             self.td.close_stream(req.stream_id)
             self.td._log("abort_deadline",
                          f"rid={req.rid} deadline={req.gen.deadline_s}s "
@@ -418,8 +441,12 @@ class Engine:
             self._emit_token(slot, first_tok)
 
     def _preempt_for(self, incoming: Request) -> bool:
-        """Free a slot for ``incoming`` by sealing out the lowest-priority
-        running request it strictly outranks. Returns True if it did."""
+        """Free capacity for ``incoming`` by preempting the lowest-priority
+        running slot it strictly outranks. On the paged backend, when only
+        *pages* are short (a slot is free but the pool is not), a partial
+        eviction seals just the shortfall off the victim's tail; otherwise
+        the whole victim is sealed out. Returns True if capacity was
+        freed."""
         if not self.scheduler.running:
             return False
         victim_slot = min(self.scheduler.running,
@@ -428,10 +455,38 @@ class Engine:
         victim = self.scheduler.running[victim_slot]
         if victim.priority >= incoming.priority:
             return False
+        if (self.slots.free and victim_slot not in self._paused
+                and self.kv.supports_partial):
+            shortfall = (self.kv.pages_for(incoming.kv_need)
+                         - self.kv.free_page_reserve)
+            spare = self.kv.evictable_tail_pages(victim_slot)
+            if 0 < shortfall <= spare:
+                self.partial_preempt(victim_slot, shortfall)
+                return True
         sealed, vreq = self.seal_slot(victim_slot)
         vreq.n_preemptions += 1
         self._preempted.append(PreemptedRequest(sealed, vreq))
         return True
+
+    def _resume_paused(self) -> bool:
+        """Restore a partially-evicted slot's sealed tail once the pool has
+        room again, unless a strictly higher-priority request is still
+        waiting for the pages (the reason the tail was sealed)."""
+        for slot, paused in list(self._paused.items()):
+            victim = self.scheduler.running[slot]
+            rival = self.scheduler.peek_priority(self._admit_filter)
+            if rival is not None and rival.priority > victim.priority:
+                continue
+            if not self.kv.can_restore_tail(paused.n_pages):
+                continue
+            self.kv.restore_tail_pages(self.td.sealing_key, paused.sealed,
+                                       slot, paused.prefix)
+            self.td.record_restore(sealed_nbytes(paused.sealed),
+                                   len(paused.sealed),
+                                   f"slot={slot} rid={victim.rid} partial")
+            del self._paused[slot]
+            return True
+        return False
 
     def _admit_ready(self) -> None:
         """Admission policy, run at the top of every step:
@@ -447,6 +502,8 @@ class Engine:
         while True:
             self._drop_expired()
             self._enforce_aborts()
+            if self._paused and self._resume_paused():
+                continue
             if self._preempted and self.slots.free:
                 # only sealed requests that the strongest WAITING PRIORITY
                 # does not outrank are restorable (restoring one a waiting
@@ -467,7 +524,9 @@ class Engine:
                         best = max(eligible,
                                    key=lambda p: (p.req.priority,
                                                   -p.req.rid))
-                    if self.kv.can_restore(best.req.kv_need):
+                    if self.kv.can_restore(
+                            best.req.kv_need,
+                            n_pages=best.req.sealed_pages or None):
                         self._preempted.remove(best)
                         self.restore_slot(best.sealed, best.req)
                         continue
@@ -483,6 +542,14 @@ class Engine:
                 continue
             return
 
+    def _drain_kv_events(self) -> None:
+        """Account boundary traffic the backend generated on its own. The
+        one kind this port's backends make is ``materialize`` (a
+        ciphertext-resident page decrypted in place for another reader),
+        which the reference's catch-all branch records as a restore."""
+        for _, nb, n in self.kv.drain_events():
+            self.td.record_restore(nb, n, "shared page rematerialized")
+
     # -- serving loop ----------------------------------------------------------
     def step(self) -> int:
         """One engine iteration: admission/restoration/preemption, then one
@@ -490,8 +557,9 @@ class Engine:
         (prompt-chunk feeding steps count zero)."""
         t0 = time.monotonic()
         self._admit_ready()
-        live = list(self.slots.active)
+        live = [s for s in self.slots.active if s not in self._paused]
         if not live:
+            self._drain_kv_events()
             return 0
         feeding_prompt = {}   # slot -> tail still pending after this step?
         for slot in live:
@@ -499,15 +567,17 @@ class Engine:
             if req is not None and req.pending_input:
                 self._last_token[slot] = req.pending_input.pop(0)
                 feeding_prompt[slot] = bool(req.pending_input)
-        next_np = self.kv.decode(self.params, self._last_token)
+        next_np = self.kv.decode(self.params, self._last_token,
+                                 write_slots=live)
         produced = 0
         for slot in live:
-            if not self._active_mask[slot]:
+            if not self._active_mask[slot] or slot in self._paused:
                 continue
             if feeding_prompt.get(slot, False):
                 continue   # mid-prompt chunk: this step's output is discarded
             self._emit_token(slot, int(next_np[slot]))
             produced += 1
+        self._drain_kv_events()
         # feasibility floor: only steps that actually decoded count
         dt = time.monotonic() - t0
         if self._step_floor is None or dt < self._step_floor:
@@ -531,9 +601,10 @@ class Engine:
 
     # -- sealed KV preemption ----------------------------------------------------
     # The KV cache holds user conversation state; when a slot is preempted
-    # its KV must not land anywhere unencrypted. The slot cache is sealed
-    # with the domain key (the whole [L, max_len, ...] extent) and restored
-    # later.
+    # its KV must not land anywhere unencrypted. It is sealed with the domain
+    # key and restored later, at the backend's granularity: slot-dense moves
+    # the whole [L, max_len, ...] extent, paged moves ceil(tokens/page_size)
+    # pages.
 
     def _seal_prefix(self, req: Request) -> str:
         # unique across every seal the domain ever performs: the channel-
@@ -544,9 +615,18 @@ class Engine:
     def seal_slot(self, slot: int) -> Tuple[Dict[str, Any], Request]:
         """Evict a running slot: returns (sealed_cache_dict, request). Any
         not-yet-prefilled prompt tail travels on ``request.pending_input``
-        and not-yet-flushed egress tokens stay buffered on the request."""
+        and not-yet-flushed egress tokens stay buffered on the request.
+
+        A partially-evicted (paused) slot can be whole-sealed too: only its
+        resident remainder is encrypted now, and the already-sealed tail
+        blob rides along in the returned dict (its own epoch prefix keeps
+        the nonces apart); ``restore_slot`` reassembles both."""
+        paused = self._paused.pop(slot, None)
         req = self.scheduler.running.pop(slot)
         prefix = self._seal_prefix(req)
+        if self.kv.supports_partial:
+            req.sealed_pages = (self.kv.allocated_pages(slot)
+                                + (paused.n_pages if paused else 0))
         sealed = self.kv.seal(self.td.sealing_key, slot, prefix)
         req.seal_epoch += 1
         nb = sealed_nbytes(sealed)
@@ -554,8 +634,11 @@ class Engine:
         self.td.record_seal(nb, len(sealed),
                             f"slot={slot} rid={req.rid} stream={req.stream_id} "
                             f"epoch={req.seal_epoch - 1}")
+        if paused is not None:
+            sealed.update(paused.sealed)
         self.kv.release(slot)
         self._active_mask[slot] = False
+        self._drain_kv_events()
         return sealed, req
 
     def restore_slot(self, sealed, req: Request) -> int:
@@ -565,7 +648,14 @@ class Engine:
             raise RuntimeError("no free slot/KV room to restore into")
         prefix = f"kvslot/{req.stream_id}/{req.seal_epoch - 1}"
         try:
-            self.kv.restore(self.td.sealing_key, sealed, slot, prefix)
+            self.kv.restore(self.td.sealing_key, sealed, slot, prefix,
+                            req.kv_need)
+            # a sealed-while-paused eviction carries its earlier tail blob
+            # under an older epoch prefix: graft it back on top of the
+            # remainder (acquire() above already reserved the full need)
+            for gprefix in tail_blob_names(sealed):
+                self.kv.restore_tail_pages(self.td.sealing_key, sealed, slot,
+                                           gprefix, reserve=False)
         except Exception:
             self.kv.release(slot)   # a failed (e.g. tampered) restore must
             raise                   # not leak the slot
@@ -577,7 +667,33 @@ class Engine:
         self._last_token[slot] = req.output[-1] if req.output else 0
         self.td.record_restore(sealed_nbytes(sealed), len(sealed),
                                f"slot={slot} rid={req.rid}")
+        self._drain_kv_events()
         return slot
+
+    def partial_preempt(self, slot: int, n_pages: int) -> None:
+        """Page-granular preemption (paged backend only): seal the victim's
+        ``n_pages`` tail pages and hand them (and their reservation) back to
+        the pool. The victim stays admitted (slot and head pages intact)
+        but sits out of the decode batch until ``_resume_paused`` restores
+        the delta."""
+        if not self.kv.supports_partial:
+            raise RuntimeError(
+                f"the {self.kv.name} backend cannot seal at page granularity;"
+                f" use kv_backend='paged'")
+        if slot in self._paused:
+            raise RuntimeError(f"slot {slot} is already partially evicted")
+        req = self.scheduler.running[slot]
+        prefix = self._seal_prefix(req)
+        sealed = self.kv.seal_tail_pages(self.td.sealing_key, slot, prefix,
+                                         n_pages)
+        req.seal_epoch += 1
+        req.n_preemptions += 1
+        nb = sealed_nbytes(sealed)
+        req.sealed_bytes += nb
+        self.td.record_seal(nb, len(sealed),
+                            f"slot={slot} rid={req.rid} partial "
+                            f"pages={n_pages}")
+        self._paused[slot] = PausedSlot(sealed, prefix, n_pages)
 
     # -- fleet: drain + sealed-state migration ---------------------------------
     def drain(self) -> None:

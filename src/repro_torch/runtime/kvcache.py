@@ -1,10 +1,12 @@
-"""KV-cache backends (port of ``repro.runtime.kvcache``, slot-dense only).
+"""KV-cache backends (port of ``repro.runtime.kvcache``).
 
-The engine sees one :class:`KVBackend` interface; this slice ports the
-dense slot layout (:class:`SlotDenseBackend`): a fixed
-``[L, max_slots, max_len, ...]`` cache, one slot per in-flight sequence,
-sealed preemption of whole slots. The paged backend, its page store and the
-sharded wrapper arrive with ROADMAP.md queue A items 10, 11 and 18.
+The engine sees one :class:`KVBackend` interface. The dense slot layout
+(:class:`SlotDenseBackend`) keeps a fixed ``[L, max_slots, max_len, ...]``
+cache, one slot per in-flight sequence, and seals whole slots. The paged
+layout (:class:`~repro_torch.runtime.paged.PagedKVBackend`) keeps a page
+pool and a page table, seals per page, and can evict a victim's tail pages
+only. Prefix sharing and on-demand allocation, the page store and the
+sharded wrapper arrive with ROADMAP.md queue A items 10b, 11 and 18.
 
 Cache trees follow the model layout contract: top-level key "pos" is
 batch-major [b]; every other leaf is layer-stacked with batch at axis 1
@@ -16,6 +18,7 @@ rebuilt it.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -290,6 +293,7 @@ class KVBackend:
     """
 
     name: str = "?"
+    supports_partial = False   # page-granular (tail) eviction available?
 
     def __init__(self, model, max_slots: int, max_len: int,
                  plan: Optional[SingleDevicePlan] = None):
@@ -310,9 +314,11 @@ class KVBackend:
         """Beyond a free slot, is there KV room for ``n_tokens`` positions?"""
         return True
 
-    def can_restore(self, n_tokens: int) -> bool:
+    def can_restore(self, n_tokens: int,
+                    n_pages: Optional[int] = None) -> bool:
         """Room to re-admit a sealed-out sequence of ``n_tokens`` positions
-        (a free slot is checked separately via ``slots.free``)."""
+        (a free slot is checked separately via ``slots.free``). ``n_pages``
+        is the page count the sequence held at seal time."""
         return True
 
     def admission_check(self, need: int) -> Tuple[bool, int]:
@@ -337,9 +343,18 @@ class KVBackend:
         """Splice a prefilled dense group into backend storage."""
         raise NotImplementedError
 
-    def decode(self, params: Params, tokens: np.ndarray) -> np.ndarray:
+    def drain_events(self) -> List[Tuple[str, int, int]]:
+        """(kind, nbytes, n_tensors) boundary traffic generated outside an
+        explicit seal/restore call (page materialization on the paged
+        backend). The engine drains this into TrustDomain accounting."""
+        return []
+
+    def decode(self, params: Params, tokens: np.ndarray,
+               write_slots: Sequence[int]) -> np.ndarray:
         """One batched greedy decode step over all ``max_slots`` rows.
-        Returns the next token per row."""
+        ``write_slots`` are the slots genuinely appending a KV position this
+        step (active, not paused); a backend may route other rows' writes
+        to a scratch location. Returns the next token per row."""
         raise NotImplementedError
 
     # -- sealing --------------------------------------------------------------
@@ -351,7 +366,7 @@ class KVBackend:
         raise NotImplementedError
 
     def restore(self, key: SealingKey, sealed: Dict[str, SealedTensor],
-                slot: int, prefix: str) -> None:
+                slot: int, prefix: str, n_tokens: int) -> None:
         """Inverse of :meth:`seal` into freshly-acquired slot ``slot``."""
         raise NotImplementedError
 
@@ -380,7 +395,7 @@ class SlotDenseBackend(KVBackend):
         insert_rows(self.cache, prefilled,
                     host_upload(slots, self.device, torch.int64))
 
-    def decode(self, params, tokens) -> np.ndarray:
+    def decode(self, params, tokens, write_slots) -> np.ndarray:
         next_tokens = self._decode_fn(
             params, host_upload(tokens[:, None], self.device), self.cache)
         return next_tokens.cpu().numpy()
@@ -388,19 +403,47 @@ class SlotDenseBackend(KVBackend):
     def seal(self, key, slot, prefix) -> Dict[str, SealedTensor]:
         return seal_tree(key, extract_slot(self.cache, slot), prefix=prefix)
 
-    def restore(self, key, sealed, slot, prefix) -> None:
+    def restore(self, key, sealed, slot, prefix, n_tokens) -> None:
         single_like = self.model.abstract_cache(1, self.max_len)
         insert_slot(self.cache, unseal_tree(key, sealed, single_like,
                                             prefix=prefix), slot)
 
 
+_PAGEMETA_RE = re.compile(r"^(?P<prefix>.*)/pagemeta$")
+
+
+def tail_blob_names(sealed: Dict[str, SealedTensor]) -> List[str]:
+    """The prefix of every partial-eviction tail blob riding in a sealed
+    dict (a paused victim that was whole-sealed carries its earlier tail
+    under its own epoch prefix). The reference also returns a mesh shard
+    suffix; meshes are not ported (ROADMAP.md queue A item 18)."""
+    return [m.group("prefix") for m in map(_PAGEMETA_RE.match, sealed) if m]
+
+
 def make_backend(kind: str, model, *, max_slots: int, max_len: int,
-                 plan: Optional[SingleDevicePlan] = None) -> KVBackend:
-    """Factory behind ``Engine(kv_backend=...)``: ``"slot"`` only here."""
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 plan: Optional[SingleDevicePlan] = None,
+                 prefix_sharing: bool = False,
+                 alloc: Optional[str] = None,
+                 decode: str = "gather",
+                 page_store: Any = None,
+                 store_budget_pages: Optional[int] = None) -> KVBackend:
+    """Factory behind ``Engine(kv_backend=...)``. ``prefix_sharing``,
+    ``alloc``, ``decode`` and ``page_store`` are paged-only."""
     if kind == "slot":
+        if (prefix_sharing or alloc is not None or decode != "gather"
+                or page_store or store_budget_pages is not None):
+            raise ValueError("prefix_sharing / kv_alloc / kv_decode / "
+                             "page_store need kv_backend='paged' (the dense "
+                             "slot layout has no pages to share, grant, "
+                             "table-walk, or store)")
         return SlotDenseBackend(model, max_slots, max_len, plan)
     if kind == "paged":
-        raise NotImplementedError(
-            "the paged KV backend is not ported yet (ROADMAP.md queue A "
-            "item 10)")
+        from repro_torch.runtime.paged import PagedKVBackend
+        return PagedKVBackend(model, max_slots, max_len,
+                              page_size=page_size, num_pages=num_pages,
+                              plan=plan, prefix_sharing=prefix_sharing,
+                              alloc=alloc, decode=decode,
+                              page_store=page_store,
+                              store_budget_pages=store_budget_pages)
     raise ValueError(f"unknown kv backend {kind!r} (want 'slot' or 'paged')")

@@ -1,0 +1,606 @@
+"""Paged KV backend (port of ``repro.runtime.paged``, reservation mode).
+
+Layout. Every cache leaf with a sequence-length axis (attention ``k``/``v``)
+is stored as a pool ``[L, num_pages + 1, page_size, ...]``: physical page 0
+is the null page (the write target of rows that are not appending), pages
+``1..num_pages`` are allocatable. A host-side ``[max_slots, max_pages]``
+int32 page table maps each sequence's logical pages to physical ones
+(entry 0 = unmapped); positions live host-side too.
+
+Allocation. Admission reserves ``ceil(need / page_size)`` pages, the
+request's worst case, and physical pages are mapped as positions are
+written, so an append can never fail (allocated <= reserved <= num_pages).
+Prefix sharing, copy-on-write and on-demand allocation are not ported
+(ROADMAP.md queue A item 10b); the content-index attributes below stay empty
+so the reference's pool invariants read the same here.
+
+Decode (``decode=``). ``"gather"`` gathers each slot's pages into the dense
+``[L, max_slots, max_len, ...]`` view the model's ``decode_step`` expects,
+runs it, and writes the one appended position back into the pool in place.
+``"kernel"`` runs the dense family's layer loop itself and attends through
+``kernels/paged_attention.py`` (kernels B3 and B4 on the card), which walk
+the page table without a gather: write-then-attend, as the gather path.
+
+Sealing. Preemption seals per page: each page of each paged leaf becomes its
+own ciphertext + MAC under ``{prefix}{leaf}/p{ordinal}``, with a meta blob
+``[pos, n_alloc, 0]``. In kernel mode a whole-slot restore MAC-checks each
+full page and places its ciphertext bits straight into the pool with a
+sidecar row (nonce + live flag); B4 decrypts it on every read. Any other
+reader of such a page (seal, partial eviction, an append) first
+materializes it: decrypts it in place through the ChaCha20 kernel (B1).
+``seal_tail_pages``/``restore_tail_pages`` evict and bring back a victim's
+tail pages only.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.sealing import (SealedTensor, SealingKey,
+                                      nonce_words_for, seal_tensor,
+                                      tree_leaves_with_names, unseal_tensor,
+                                      verify_mac)
+from repro_torch.kernels import ops
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_unseal,
+                                                 supports_fused_unseal)
+from repro_torch.models import layers
+from repro_torch.models.transformer import BLOCK, SLOT, _layer
+from repro_torch.runtime import sampling
+from repro_torch.runtime.kvcache import KVBackend, host_upload
+from repro_torch.runtime.plan import SingleDevicePlan
+
+Cache = Any
+Params = Any
+
+# cache-leaf names that carry a [.., max_len, ..] sequence axis at dim 2
+_LENGTH_LEAVES = ("k", "v", "ckv", "krope")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue A item {item})")
+
+
+def _with_leaves(tree: Cache, fn, path: str = "") -> Cache:
+    """Rebuild a nested dict, each leaf replaced by ``fn(keystr, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _with_leaves(v, fn, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+class PagedKVBackend(KVBackend):
+    """See module docstring; constructed via ``Engine(kv_backend="paged")``
+    or ``kvcache.make_backend("paged", ...)``."""
+
+    name = "paged"
+    supports_partial = True
+    on_demand = False      # reservation mode only (pool invariants read it)
+
+    def __init__(self, model, max_slots: int, max_len: int, *,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 plan: Optional[SingleDevicePlan] = None,
+                 prefix_sharing: bool = False, alloc: Optional[str] = None,
+                 decode: str = "gather", page_store: Any = None,
+                 store_budget_pages: Optional[int] = None):
+        super().__init__(model, max_slots, max_len, plan)
+        if decode not in ("gather", "kernel"):
+            raise ValueError(f"decode must be 'gather' or 'kernel', "
+                             f"got {decode!r}")
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if max_len % page_size != 0:
+            raise ValueError(f"max_len={max_len} must be a multiple of "
+                             f"page_size={page_size}")
+        if alloc is None:
+            alloc = "ondemand" if prefix_sharing else "reserve"
+        if alloc not in ("reserve", "ondemand"):
+            raise ValueError(f"alloc must be 'reserve' or 'ondemand', "
+                             f"got {alloc!r}")
+        if prefix_sharing and alloc != "ondemand":
+            raise ValueError("prefix_sharing requires alloc='ondemand'")
+        if alloc == "ondemand":
+            raise _not_ported("prefix sharing and on-demand page allocation",
+                              "10b")
+        if page_store or store_budget_pages is not None:
+            raise _not_ported("the sealed page store", "11")
+        self.page_size = page_size
+        self.max_pages = max_len // page_size
+        if num_pages is None:
+            num_pages = max_slots * self.max_pages   # dense-equivalent pool
+        if num_pages < 1:
+            raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+        self.num_pages = num_pages
+
+        # classify leaves once; paged leaves move to pool layout
+        template = model.abstract_cache(max_slots, max_len)
+        template.pop("pos")
+        self._pools: Dict[str, torch.Tensor] = {}
+        for path, leaf in tree_leaves_with_names(template):
+            if not (path.endswith(tuple(f"[{k!r}]" for k in _LENGTH_LEAVES))
+                    and leaf.dim() >= 3 and leaf.shape[2] == max_len):
+                raise _not_ported(f"a recurrent-state cache leaf ({path})",
+                                  "17")
+            self._pools[path] = torch.zeros(
+                (leaf.shape[0], num_pages + 1, page_size, *leaf.shape[3:]),
+                dtype=leaf.dtype, device=self.device)
+        self.blocks = _with_leaves(template, lambda p, _: self._pools[p])
+
+        # host-side sequence state
+        self.pos = np.zeros(max_slots, np.int32)           # live KV positions
+        self.table = np.zeros((max_slots, self.max_pages), np.int32)
+        self._free_pages: List[int] = list(range(1, num_pages + 1))
+        self._alloc = np.zeros(max_slots, np.int32)        # pages mapped
+        self._reserved = np.zeros(max_slots, np.int32)     # pages promised
+        self._reserve_free = num_pages
+        # _page_ref counts live table mappings per physical page (a private
+        # page holds exactly 1). The content index (_index/_page_key),
+        # sealed references and parked blobs belong to prefix sharing and
+        # stay empty in this port.
+        self._page_ref = np.zeros(num_pages + 1, np.int32)
+        self._index: Dict[bytes, int] = {}
+        self._page_key: Dict[int, bytes] = {}
+        self._sealed_refs: Dict[bytes, int] = {}
+        self._parked: Dict[bytes, Dict[str, SealedTensor]] = {}
+        self._events: List[Tuple[str, int, int]] = []  # (kind, nbytes, n)
+        self.pages_written = 0        # physical pages taken + written
+
+        # ciphertext-resident pages (kernel mode): _cipher_pages holds the
+        # physical pages whose pool bits are ciphertext, _crypt maps each
+        # paged leaf to its [num_pages+1, 4] uint32 sidecar (nonce words
+        # 0-2, live flag word 3), _crypt_key is the key they were sealed
+        # under.
+        self.decode_mode = decode
+        self._cipher_pages: set = set()
+        self._crypt: Dict[str, np.ndarray] = {}
+        self._crypt_key: Optional[SealingKey] = None
+        self.supports_fused = False
+        self._fused_bpp = 0
+        self.fused_restore_pages = 0
+        self.fused_restore_bytes = 0
+        self._page_shape = {p: (t.shape[0], page_size) + tuple(t.shape[3:])
+                            for p, t in self._pools.items()}
+        self._page_dtype = {p: t.dtype for p, t in self._pools.items()}
+        if decode == "kernel":
+            self._init_kernel_decode()
+            self._decode_fn = self.plan.compile_decode(self._decode_kernel)
+        else:
+            self._decode_fn = self.plan.compile_decode(self._decode_gather)
+
+    # -- decode ---------------------------------------------------------------
+    def _decode_gather(self, params, tokens, table, pos, write_phys,
+                       write_off):
+        """Gather every slot's pages into the dense view, run the model's
+        ``decode_step`` on it, and write the appended position (at ``pos``)
+        back into the pool at (write_phys, write_off). Returns the logits."""
+        b = self.max_slots
+        view = {p: pool[:, table.long()].reshape(pool.shape[0], b,
+                                                 self.max_len,
+                                                 *pool.shape[3:])
+                for p, pool in self._pools.items()}
+        cache = _with_leaves(self.blocks, lambda p, _: view[p])
+        cache["pos"] = pos.clone()
+        logits, _ = self.model.decode_step(params, tokens, cache)
+        rows = torch.arange(b, device=pos.device)
+        at = pos.long().clamp(max=self.max_len - 1)
+        for p, pool in self._pools.items():
+            pool[:, write_phys, write_off] = view[p][:, rows, at]
+        return logits
+
+    def _init_kernel_decode(self) -> None:
+        """Kernel mode's page geometry and fused-unseal eligibility: pages
+        must cover whole ChaCha20 blocks and be f32 or bf16, and every leaf
+        must share one blocks-per-page (k and v do)."""
+        self._k_path = next(p for p in self._pools if p.endswith("['k']"))
+        self._v_path = next(p for p in self._pools if p.endswith("['v']"))
+        page_bytes = {p: int(np.prod(t.shape[2:])) * t.element_size()
+                      for p, t in self._pools.items()}
+        self.supports_fused = (
+            len(set(page_bytes.values())) == 1
+            and all(supports_fused_unseal(t.dtype, page_bytes[p])
+                    for p, t in self._pools.items()))
+        self._fused_bpp = (next(iter(page_bytes.values())) // 64
+                           if self.supports_fused else 0)
+        for p in self._pools:
+            self._crypt[p] = np.zeros((self.num_pages + 1, 4), np.uint32)
+
+    def _decode_kernel(self, params, tokens, table, pos, write_phys,
+                       write_off, crypts=None, key_words=None):
+        """The dense family's ``decode_step`` with the gather + sdpa
+        replaced by the table-walking kernels: per layer, append this
+        step's k/v into the pool (idle rows write the null page), then
+        attend through B3, or through B4 when ciphertext-resident pages
+        exist (``crypts`` is then the k and v sidecars). Returns the
+        logits."""
+        impl, cfg = self.model._impl, self.model.cfg
+        x = layers.embed(params["embedding"], tokens)        # [b, 1, d]
+        positions = pos[:, None]
+        valid = pos + 1
+        kp, vp = self._pools[self._k_path], self._pools[self._v_path]
+        for li in range(cfg.num_layers):
+            lp = _layer(params[BLOCK], li)[SLOT]
+            h = layers.rmsnorm(lp["pre_norm"], x, cfg.norm_eps)
+            q, k, v = layers._qkv(lp["attn"], impl.acfg, h, positions)
+            kl, vl = kp[li], vp[li]
+            kl[write_phys, write_off] = k[:, 0].to(kl.dtype)
+            vl[write_phys, write_off] = v[:, 0].to(vl.dtype)
+            q0 = q[:, 0].contiguous()
+            if crypts is None:
+                out = paged_attention(q0, kl, vl, table, valid)
+            else:
+                out = paged_attention_unseal(
+                    q0, kl, vl, table, valid, li, key_words, *crypts,
+                    blocks_per_page=self._fused_bpp)
+            x = x + torch.einsum("bshk,hkd->bsd", out.to(q.dtype)[:, None],
+                                 lp["attn"]["wo"])
+            h = layers.rmsnorm(lp["post_norm"], x, cfg.norm_eps)
+            x = x + layers.swiglu(lp["ffn"], h)
+        return impl._unembed(params, x)[:, 0]
+
+    # -- page accounting ------------------------------------------------------
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-int(n_tokens) // self.page_size)
+
+    @property
+    def free_page_reserve(self) -> int:
+        """Pages an admission may still promise (unreserved pages)."""
+        return self._reserve_free
+
+    @property
+    def free_physical_pages(self) -> int:
+        return len(self._free_pages)
+
+    def allocated_pages(self, slot: int) -> int:
+        return int(self._alloc[slot])
+
+    @property
+    def request_capacity(self) -> int:
+        # a sequence can neither outgrow max_len nor out-reserve the pool
+        return min(self.max_len, self.num_pages * self.page_size)
+
+    def admission_check(self, need: int) -> Tuple[bool, int]:
+        return need <= self.request_capacity, max(1, int(need))
+
+    def can_admit(self, n_tokens: int) -> bool:
+        return self.pages_for(n_tokens) <= self.free_page_reserve
+
+    def can_restore(self, n_tokens: int,
+                    n_pages: Optional[int] = None) -> bool:
+        return self.pages_for(n_tokens) <= self._reserve_free
+
+    def _take_pages(self, n: int) -> List[int]:
+        assert n <= len(self._free_pages), \
+            "page allocation exceeded reservation — accounting bug"
+        taken, self._free_pages = self._free_pages[:n], self._free_pages[n:]
+        for p in taken:
+            self._page_ref[p] = 1
+            self._clear_crypt(p)
+        return taken
+
+    def _drop_ref(self, phys: int) -> None:
+        phys = int(phys)
+        self._page_ref[phys] -= 1
+        assert self._page_ref[phys] >= 0, "double-free — refcount bug"
+        if self._page_ref[phys] == 0:
+            self._clear_crypt(phys)
+            self._free_pages.append(phys)
+
+    def drain_events(self) -> List[Tuple[str, int, int]]:
+        """Boundary traffic generated outside an explicit seal/restore call
+        (page materialization); the engine drains it into the TrustDomain
+        accounting."""
+        ev, self._events = self._events, []
+        return ev
+
+    # -- sequence lifecycle ---------------------------------------------------
+    def acquire(self, rid: int, n_tokens: int) -> Optional[int]:
+        need = self.pages_for(n_tokens) if n_tokens > 0 else 0
+        if need > self.free_page_reserve:
+            return None
+        slot = self.slots.acquire(rid)
+        if slot is None:
+            return None
+        self._reserved[slot] = need
+        self._reserve_free -= need
+        return slot
+
+    def release(self, slot: int) -> None:
+        for j in range(int(self._alloc[slot])):
+            self._drop_ref(self.table[slot, j])
+        self.table[slot] = 0
+        self._alloc[slot] = 0
+        self._reserve_free += int(self._reserved[slot])
+        self._reserved[slot] = 0
+        self.pos[slot] = 0
+        self.slots.release(slot)
+
+    # -- device compute -------------------------------------------------------
+    @torch.inference_mode()
+    def insert_prefill(self, prefilled: Cache, slots: List[int],
+                       written_len: int) -> None:
+        """Take fresh pages for each slot's prompt (slot by slot, in order)
+        and copy the prefilled rows' pages into them."""
+        n_pages = self.pages_for(written_len)
+        src_rows, page_ord, phys = [], [], []
+        for i, slot in enumerate(slots):
+            for j, p in enumerate(self._take_pages(n_pages)):
+                self.table[slot, j] = p
+                src_rows.append(i)
+                page_ord.append(j)
+                phys.append(p)
+            self._alloc[slot] = n_pages
+            self.pos[slot] = written_len
+        self.pages_written += len(phys)
+        idx = [torch.as_tensor(x, dtype=torch.long, device=self.device)
+               for x in (src_rows, page_ord, phys)]
+        for path, src in tree_leaves_with_names(prefilled):
+            if path in self._pools:
+                pool = self._pools[path]
+                pages = src.reshape(src.shape[0], src.shape[1],
+                                    self.max_pages, self.page_size,
+                                    *src.shape[3:])
+                pool[:, idx[2]] = pages[:, idx[0], idx[1]].to(pool.dtype)
+
+    def _prepare_write(self, slot: int) -> Tuple[int, int]:
+        """The physical (page, offset) of this slot's append, mapping a
+        fresh page at a page boundary."""
+        ordinal = int(self.pos[slot]) // self.page_size
+        if ordinal >= int(self._alloc[slot]):
+            assert ordinal == int(self._alloc[slot])
+            assert ordinal < int(self._reserved[slot])
+            self.table[slot, ordinal] = self._take_pages(1)[0]
+            self._alloc[slot] = ordinal + 1
+            self.pages_written += 1
+        p = int(self.table[slot, ordinal])
+        # backstop: an append never lands in ciphertext (restore admits only
+        # FULL pages as ciphertext, so the next append maps a fresh page)
+        if p in self._cipher_pages:
+            self._materialize_page(p)
+        return p, int(self.pos[slot]) % self.page_size
+
+    def decode(self, params, tokens, write_slots: Sequence[int]) -> np.ndarray:
+        logits = self.decode_logits(params, tokens, write_slots)
+        return sampling.greedy(logits).cpu().numpy()
+
+    def decode_logits(self, params, tokens,
+                      write_slots: Sequence[int]) -> torch.Tensor:
+        """One decode step over every row, as :meth:`decode`, returning the
+        f32 logits ``[max_slots, vocab]`` on the device instead of tokens."""
+        write_phys = np.zeros(self.max_slots, np.int64)   # default: null page
+        write_off = np.zeros(self.max_slots, np.int64)
+        for s in write_slots:
+            write_phys[s], write_off[s] = self._prepare_write(s)
+        dev = self.device
+        args = [params, host_upload(tokens[:, None], dev),
+                host_upload(self.table, dev), host_upload(self.pos, dev),
+                host_upload(write_phys, dev), host_upload(write_off, dev)]
+        if self.decode_mode == "kernel" and self._cipher_pages:
+            args += [tuple(host_upload(self._crypt[p].view(np.int32), dev)
+                           for p in (self._k_path, self._v_path)),
+                     self._crypt_key.key_words]
+        logits = self._decode_fn(*args)
+        for s in write_slots:
+            self.pos[s] += 1
+        return logits
+
+    def cache_nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self._pools.values())
+
+    # -- ciphertext-resident pages (fused-unseal restore path) ----------------
+    def _admit_cipher_page(self, key: SealingKey, phys: int,
+                           blobs: Dict[str, SealedTensor]
+                           ) -> Dict[str, torch.Tensor]:
+        """Admit a MAC-verified sealed page into the pool as raw ciphertext
+        bits (the linear RFC 8439 stream in the page's plaintext layout) and
+        arm its sidecar rows so B4 decrypts it on every read."""
+        writes: Dict[str, torch.Tensor] = {}
+        for kpath, st in blobs.items():
+            raw = ops.unpack_u32(st.ciphertext, st.n_bytes)
+            writes[kpath] = raw.view(self._page_dtype[kpath]).reshape(
+                self._page_shape[kpath])
+            self._crypt[kpath][phys, :3] = nonce_words_for(key, st.name)
+            self._crypt[kpath][phys, 3] = 1
+        self._cipher_pages.add(int(phys))
+        self.fused_restore_pages += 1
+        self.fused_restore_bytes += sum(st.n_bytes for st in blobs.values())
+        return writes
+
+    def _clear_crypt(self, phys: int) -> None:
+        if phys in self._cipher_pages:
+            self._cipher_pages.discard(phys)
+            for kpath in self._crypt:
+                self._crypt[kpath][phys] = 0
+
+    @torch.inference_mode()
+    def _materialize_page(self, phys: int) -> None:
+        """Decrypt a ciphertext-resident page in place so other readers see
+        plaintext: its words, packed as ``ops.pack_u32`` packs, XOR the
+        keystream from counter 0 (layer l's blocks start at l *
+        blocks_per_page, so one stream covers every layer) through the
+        ChaCha20 wrapper, on the pool's device."""
+        if phys not in self._cipher_pages:
+            return
+        writes: Dict[str, torch.Tensor] = {}
+        nb = 0
+        for kpath, pool in self._pools.items():
+            page = pool[:, phys].contiguous()
+            blocked, n = ops.pack_u32(page.reshape(-1).view(torch.uint8))
+            ops.unseal_u32(self._crypt_key.key_words,
+                           self._crypt[kpath][phys, :3], blocked, out=blocked)
+            writes[kpath] = ops.unpack_u32(blocked, n).view(
+                page.dtype).reshape(page.shape)
+            nb += n
+        self._clear_crypt(phys)
+        self._scatter_pages({phys: writes})
+        self._events.append(("materialize", nb, len(writes)))
+
+    # -- sealing --------------------------------------------------------------
+    def _page_arrays(self, phys: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """The given physical pages of every paged leaf, keystr ->
+        ``[L, n, page_size, ...]``, ciphertext-resident ones materialized
+        first."""
+        for p in phys:
+            self._materialize_page(int(p))
+        idx = torch.as_tensor(list(phys), dtype=torch.long, device=self.device)
+        return {kpath: pool[:, idx] for kpath, pool in self._pools.items()}
+
+    def _seal_pages(self, key: SealingKey, prefix: str,
+                    ordinals: Sequence[int], phys: Sequence[int]
+                    ) -> Dict[str, SealedTensor]:
+        sealed: Dict[str, SealedTensor] = {}
+        if not ordinals:
+            return sealed
+        for kpath, arr in self._page_arrays(phys).items():
+            for j, ordinal in enumerate(ordinals):
+                name = f"{prefix}{kpath}/p{ordinal}"
+                sealed[name] = seal_tensor(key, name, arr[:, j])
+        return sealed
+
+    def _seal_meta(self, key: SealingKey, name: str, values) -> SealedTensor:
+        return seal_tensor(key, name, np.asarray(values, np.int32),
+                           device=self.device)
+
+    def _unseal_meta(self, key: SealingKey, st: SealedTensor) -> np.ndarray:
+        return unseal_tensor(key, st).cpu().numpy()
+
+    def seal(self, key, slot, prefix) -> Dict[str, SealedTensor]:
+        n_alloc = int(self._alloc[slot])
+        # meta v2: [pos, n_alloc, n_shared]; no page is shared in this port
+        meta_name = f"{prefix}/meta"
+        sealed = {meta_name: self._seal_meta(
+            key, meta_name, [int(self.pos[slot]), n_alloc, 0])}
+        sealed.update(self._seal_pages(
+            key, prefix, list(range(n_alloc)),
+            [int(self.table[slot, j]) for j in range(n_alloc)]))
+        return sealed
+
+    @torch.inference_mode()
+    def restore(self, key, sealed, slot, prefix, n_tokens) -> None:
+        # the reservation was re-made when the engine re-acquired the slot;
+        # decrypt-then-commit: every MAC is verified before any accounting
+        # state moves, so a tampered blob fails the restore cleanly.
+        meta = self._unseal_meta(key, sealed[f"{prefix}/meta"])
+        pos, n_alloc, n_shared = int(meta[0]), int(meta[1]), int(meta[2])
+        if n_shared:
+            raise _not_ported("restoring shared (by-reference) pages", "10b")
+        ords = list(range(n_alloc))
+        # kernel mode on a fused-capable pool: FULL pages are MAC-gated here
+        # but admitted as ciphertext; the partial tail page (the next append
+        # writes into it) takes the host path.
+        fused_set = (
+            {j for j in ords if (j + 1) * self.page_size <= pos}
+            if self.decode_mode == "kernel" and self.supports_fused
+            else set())
+        if fused_set:
+            if (self._crypt_key is not None and self._cipher_pages
+                    and self._crypt_key.key != key.key):
+                # one key rides the decode step: flush residents sealed
+                # under the previous key before switching
+                for p in list(self._cipher_pages):
+                    self._materialize_page(p)
+            self._crypt_key = key
+        # phase 1: MAC-verify everything (fused pages without decrypting)
+        fused_blobs: Dict[int, Dict[str, SealedTensor]] = {}
+        pages: Dict[int, Dict[str, torch.Tensor]] = {}
+        for j in ords:
+            blobs = {kpath: sealed[f"{prefix}{kpath}/p{j}"]
+                     for kpath in self._pools}
+            if j in fused_set:
+                for st in blobs.values():
+                    verify_mac(key, st)
+                fused_blobs[j] = blobs
+            else:
+                pages[j] = {kpath: unseal_tensor(key, st)
+                            for kpath, st in blobs.items()}
+        # phase 2: commit: map, write, and account
+        assert n_alloc <= int(self._reserved[slot]), \
+            "restore into a smaller reservation — accounting bug"
+        writes: Dict[int, Dict[str, torch.Tensor]] = {}
+        for j, p in zip(ords, self._take_pages(n_alloc)):
+            self.table[slot, j] = p
+            writes[p] = (self._admit_cipher_page(key, p, fused_blobs[j])
+                         if j in fused_set else pages[j])
+        self._alloc[slot] = n_alloc
+        self.pos[slot] = pos
+        self.pages_written += len(writes)
+        self._scatter_pages(writes)
+
+    @torch.inference_mode()
+    def _scatter_pages(self, writes: Dict[int, Dict[str, torch.Tensor]]
+                       ) -> None:
+        """Write page tensors (``[L, page_size, ...]`` each) into the pool."""
+        if not writes:
+            return
+        phys = list(writes)
+        idx = torch.as_tensor(phys, dtype=torch.long, device=self.device)
+        for kpath, pool in self._pools.items():
+            pool[:, idx] = torch.stack(
+                [writes[p][kpath].to(pool.device) for p in phys], dim=1)
+
+    # -- partial eviction -----------------------------------------------------
+    def evictable_tail_pages(self, slot: int) -> int:
+        """How many tail pages ``seal_tail_pages`` may take: every page is
+        private here, and the victim always keeps one resident page."""
+        return max(0, int(self._alloc[slot]) - 1)
+
+    def seal_tail_pages(self, key: SealingKey, slot: int, prefix: str,
+                        n_pages: int) -> Dict[str, SealedTensor]:
+        """Seal and free the ``n_pages`` most recent pages of ``slot``: the
+        pages and their reservation go back to the pool while the victim
+        keeps its slot and head pages. It must not decode until
+        :meth:`restore_tail_pages` brings the delta back."""
+        n_alloc = int(self._alloc[slot])
+        if not (0 < n_pages < n_alloc):
+            raise ValueError(
+                f"partial eviction wants 0 < n_pages < allocated "
+                f"({n_alloc}), got {n_pages}")
+        ordinals = list(range(n_alloc - n_pages, n_alloc))
+        phys = [int(p) for p in self.table[slot, ordinals]]
+        meta_name = f"{prefix}/pagemeta"
+        sealed = {meta_name: self._seal_meta(key, meta_name,
+                                             [ordinals[0], n_pages])}
+        sealed.update(self._seal_pages(key, prefix, ordinals, phys))
+        self.table[slot, ordinals] = 0
+        self._alloc[slot] = n_alloc - n_pages
+        for p in phys:
+            self._drop_ref(p)
+        self._reserved[slot] -= n_pages
+        self._reserve_free += n_pages
+        return sealed
+
+    def can_restore_tail(self, n_pages: int) -> bool:
+        return n_pages <= self._reserve_free
+
+    @torch.inference_mode()
+    def restore_tail_pages(self, key: SealingKey,
+                           sealed: Dict[str, SealedTensor], slot: int,
+                           prefix: str, reserve: bool = True) -> int:
+        """Re-map and decrypt a partial eviction's pages into fresh physical
+        pages; returns the page count. ``reserve=False`` skips re-reserving
+        (the tail rides along a whole-slot restore whose ``acquire``
+        already reserved the sequence's worst case)."""
+        meta = self._unseal_meta(key, sealed[f"{prefix}/pagemeta"])
+        start, n_pages = int(meta[0]), int(meta[1])
+        if reserve:
+            assert self.can_restore_tail(n_pages), \
+                "restore_tail without can_restore_tail — accounting bug"
+            self._reserved[slot] += n_pages
+            self._reserve_free -= n_pages
+        ordinals = list(range(start, start + n_pages))
+        # decrypt first (MAC gate), then map and write
+        pages = {j: {kpath: unseal_tensor(
+                        key, sealed[f"{prefix}{kpath}/p{j}"])
+                     for kpath in self._pools}
+                 for j in ordinals}
+        writes = {}
+        for j, p in zip(ordinals, self._take_pages(n_pages)):
+            self.table[slot, j] = p
+            writes[p] = pages[j]
+        self._alloc[slot] = start + n_pages
+        self.pages_written += n_pages
+        self._scatter_pages(writes)
+        return n_pages

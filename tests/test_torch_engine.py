@@ -177,11 +177,19 @@ def test_slo_paths_match_reference(models, mode):
 def test_out_of_slice_options_raise(models):
     _, _, tm, tp = models
     kw = dict(CANONICAL_ENGINE, device="cpu")
-    for bad in (dict(kv_backend="paged"), dict(mesh="dp=2"),
-                dict(continuous_batching=True), dict(prefill_plan="dedicated"),
-                dict(prefix_sharing=True)):
+    paged = dict(kv_backend="paged", page_size=8)
+    for bad in (dict(mesh="dp=2"), dict(continuous_batching=True),
+                dict(prefill_plan="dedicated"),
+                dict(paged, prefix_sharing=True),
+                dict(paged, kv_alloc="ondemand"), dict(paged, page_store=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(tm, tp, **kw, **bad)
+    # the paged backend is in the slice; its options need kv_backend="paged"
+    for decode in ("gather", "kernel"):
+        assert TEngine(tm, tp, **kw, **paged, num_pages=12,
+                       kv_decode=decode).kv.num_pages == 12
+    with pytest.raises(ValueError, match="kv_backend='paged'"):
+        TEngine(tm, tp, **kw, prefix_sharing=True)
     eng = TEngine(tm, tp, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.submit(TGen(prompt=np.arange(1, 5, dtype=np.int32),

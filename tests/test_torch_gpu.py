@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from repro_torch.configs import smoke_config
-from repro_torch.core import TrustDomain
-from repro_torch.core.sealing import tree_map
+from repro_torch.core import SealingKey, TrustDomain
+from repro_torch.core.sealing import nonce_words_for, seal_tensor, tree_map
 from repro_torch.kernels import chacha20 as C
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as P
 from repro_torch.models import build_model
 from repro_torch.runtime import Engine, GenerationRequest
 
@@ -44,9 +46,81 @@ def test_cuda_kernel_matches_plain_on_card(card):
     assert C.launches == before + 6
 
 
-def _serve(device, params, model):
+def _paged_case(card, dtype, *, b, h, hk, hd, ps, pages, valid, layer=3):
+    """A shuffled page table over a random pool on the card, with every
+    other mapped page ciphertext-resident (sealed as the backend seals an
+    [L, ps, hk, hd] page; this layer's slice placed in the pool). Returns
+    (q, plaintext pools, ciphertext pools, table, valid, crypts, key, bpp)."""
+    g = torch.Generator(device="cpu").manual_seed(b * 100 + h)
+    n = b * pages
+    kp, vp = (torch.randn(n + 1, ps, hk, hd, generator=g).to(dtype).to(card)
+              for _ in range(2))
+    q = torch.randn(b, h, hd, generator=g).to(dtype).to(card)
+    table = (torch.randperm(n, generator=g) + 1).reshape(b, pages)
+    table = table.to(torch.int32).to(card)
+    key = SealingKey.generate(b"gpu-paged")
+    crypts, cipher = [], []
+    for leaf, pool in (("k", kp), ("v", vp)):
+        crypt = torch.zeros(n + 1, 4, dtype=torch.int32)
+        cp = pool.clone()
+        for phys in table.flatten().tolist()[::2]:
+            stacked = torch.zeros((layer + 1,) + pool.shape[1:], dtype=dtype,
+                                  device=card)
+            stacked[layer] = pool[phys]
+            name = f"t['{leaf}']/p{phys}"
+            st = seal_tensor(key, name, stacked)
+            bits = ops.unpack_u32(st.ciphertext, st.n_bytes).view(dtype)
+            cp[phys] = bits.reshape(stacked.shape)[layer]
+            crypt[phys, :3] = torch.from_numpy(
+                nonce_words_for(key, name).view(np.int32).copy())
+            crypt[phys, 3] = 1
+        crypts.append(crypt.to(card))
+        cipher.append(cp)
+    bpp = ps * hk * hd * kp.element_size() // 64
+    return (q, (kp, vp), tuple(cipher), table,
+            torch.tensor(valid, dtype=torch.int32, device=card),
+            tuple(crypts), np.frombuffer(key.key, np.uint32), bpp, layer)
+
+
+CASES = [  # (dtype, geometry, tolerance)
+    (torch.bfloat16, dict(b=4, h=32, hk=32, hd=128, ps=16, pages=4,
+                          valid=[64, 37, 0, 17]), 1e-2),
+    (torch.float32, dict(b=3, h=8, hk=2, hd=64, ps=8, pages=6,
+                         valid=[48, 13, 0]), 1e-4),
+]
+
+
+@pytest.mark.parametrize("dtype,geo,tol", CASES)
+def test_paged_kernels_match_plain_on_card(card, dtype, geo, tol):
+    """B3 and B4 against their plain versions (valid on and off page
+    boundaries, an idle row, live and dead pages), and B4 on ciphertext
+    equal to B3 on the plaintext pool bit for bit."""
+    q, plain, cipher, table, valid, crypts, key, bpp, layer = \
+        _paged_case(card, dtype, **geo)
+    before = dict(P.launches)
+    b3 = P.paged_attention(q, *plain, table, valid)
+    b4 = P.paged_attention_unseal(q, *cipher, table, valid, layer, key,
+                                  *crypts, blocks_per_page=bpp)
+    torch.cuda.synchronize()
+    assert P.launches["paged_attention"] == before["paged_attention"] + 1
+    assert (P.launches["paged_attention_unseal"]
+            == before["paged_attention_unseal"] + 1)
+    torch.testing.assert_close(
+        b3, P.paged_attention_plain(q, *plain, table, valid),
+        rtol=tol, atol=tol)
+    torch.testing.assert_close(
+        b4, P.paged_attention_unseal_plain(q, *cipher, table, valid, layer,
+                                           key, *crypts,
+                                           blocks_per_page=bpp),
+        rtol=tol, atol=tol)
+    assert torch.equal(b4, b3)
+    assert not b3[2].any()                       # the idle row
+
+
+def _serve(device, params, model, **kv):
     td = TrustDomain("tdx", device=device)
-    eng = Engine(model, params, trust_domain=td, kv_backend="slot",
+    eng = Engine(model, params, trust_domain=td,
+                 **(kv or dict(kv_backend="slot")),
                  max_slots=2, max_len=64, prefill_buckets=(4, 8),
                  device=device)
     prompts = [np.arange(1, 5), np.arange(1, 9), np.full(8, 7), np.arange(1, 13)]
@@ -61,6 +135,8 @@ def _serve(device, params, model):
              for p, n, pr in waves[1]]
     stats = eng.run(max_steps=10_000)
     assert stats.preemptions > 0
+    if kv:
+        assert eng.kv.fused_restore_pages > 0
     return [list(r.output) for r in reqs]
 
 
@@ -76,3 +152,19 @@ def test_engine_on_card_matches_cpu(card):
                  build_model(cfg, device=card))
     assert got == expect
     assert C.launches > before
+
+
+def test_paged_kernel_engine_on_card_matches_cpu(card):
+    """The f32 smoke model's paged-kernel engine serves the preempting
+    scenario on the card with the CPU run's tokens, through B3 and B4."""
+    cfg = smoke_config("deepseek-7b")
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init_params(seed=3)
+    kv = dict(kv_backend="paged", page_size=8, kv_decode="kernel")
+    expect = _serve("cpu", params, cpu_model, **kv)
+    P.reset_launches()
+    got = _serve(card, tree_map(lambda t: t.to(card), params),
+                 build_model(cfg, device=card), **kv)
+    assert got == expect
+    assert P.launches["paged_attention"] > 0
+    assert P.launches["paged_attention_unseal"] > 0
