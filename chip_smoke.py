@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure:
   1. device: the card's name, count, and nvidia-smi name and power limit;
-  2. build: every CUDA kernel of the main paths (ChaCha20, paged attention),
-     one nvcc per source, all started together, for sm_90a;
+  2. build: every CUDA kernel of the main paths (ChaCha20, paged attention,
+     int8 matmul, flash attention), one nvcc per source, all started
+     together, for sm_90a;
   3. kernel check: each kernel held against its plain PyTorch version on
      the card. ChaCha20 bit for bit (the RFC 8439 vector; random data at the
      main path's sizes: a token frame, a KV leaf, the largest weight;
@@ -14,7 +15,12 @@ Phases, each fatal on failure:
      fused-unseal variant (B4) at the Llama2-7B geometry (bf16) and a GQA
      f32 geometry, valid on and off page boundaries, an idle row, live and
      dead pages, within the stated tolerances; and B4 on a ciphertext pool
-     bit-equal to B3 on the same pool in plaintext;
+     bit-equal to B3 on the same pool in plaintext. The int8 matmul (B5)
+     bit for bit at Llama2-7B's FFN shapes for M = 1, 16, 128 and 2048,
+     with an all-zero weight column. Flash attention (B2) at [1, s, 32,
+     128] bf16 for s = 128 and 4096, a ragged s = 200 (padded as
+     ops.mha_flash pads it, and unpadded through the kernel's own edge
+     masks), and a GQA f32 case, within the stated tolerances;
   4. kernel timing: CUDA events at the main paths' shapes, beside the bound,
      the plain version's time and, where one exists, a PyTorch call's;
   5. serve: Llama2-7B at full width (random weights from a seed) under a
@@ -26,7 +32,14 @@ Phases, each fatal on failure:
      request's tokens must equal the same request served alone on a fresh
      engine of that path, and one decode step's logits on the paged-kernel
      path must agree with the slot path's for the same cache;
-  6. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
+  6. int8 weight path: the same model's weights quantized on the card
+     (quant.quantize_params), sealed, attested and unsealed bit for bit,
+     then ops.qmm (B5) on layer 0's unsealed w_gate, w_up and w_down and
+     ops.mha_flash (B2) on layer 0's q, k, v for a 128-token prompt, with
+     every kernel count set to 0 just before; qmm bit-equal to its plain
+     version and near the bf16 product with the original weights, flash
+     near layers.sdpa;
+  7. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
      memory, kernel launches on each path, and one JSON line listing every
      ported kernel. The last line is the device JSON.
 
@@ -35,6 +48,7 @@ Imports nothing of JAX or of the reference package ``repro``.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -49,6 +63,11 @@ from pathlib import Path
 # are not the limit: the kernel measured faster than 67e12 / 4 ops/s allows.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
+# time_cuda holds the card with a sleep kernel of this many clocks per
+# timed call (about 1 ms at the H100's 1.98 GHz boost) while the host
+# queues the calls: a wrapper's host work (checks, allocation, the ctypes
+# call) is some tens of us, as long as a short kernel itself
+SLEEP_CYCLES_PER_CALL = 2_000_000
 
 # ChaCha20 per 64-byte block: 80 quarter rounds x 12 ops (4 add, 4 xor,
 # 4 rotate) + 16 feed-forward adds + 16 data xors; 64 B read + 64 B written.
@@ -96,19 +115,79 @@ PAGED_LARGE = dict(b=16, h=32, hk=32, hd=128, ps=16, pages=128,
 LOGITS_REL_TOL = 0.05
 
 
+# H100 SXM dense tensor-core peaks (NVIDIA data sheet): int8 ops/s and
+# bf16 flop/s
+INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
+
+# B5 at Llama2-7B's FFN shapes: (label, K, N) and the rows M of the checks;
+# the main path's call is w_gate at M = 128 (a 128-token prompt)
+QMM_WEIGHTS = [("w_gate", 4096, 11008), ("w_down", 11008, 4096)]
+QMM_ROWS = (1, 16, 128, 2048)
+QMM_MAIN = ("w_gate", 128)
+# B2 checks: (label, dtype, q [b, s, h, d], kv heads, blocks (bq, bkv),
+# (rtol, atol) of torch.testing.assert_close against the plain version).
+# The kernel tiles by 64 rows and the plain version by the reference's
+# blocks, so the online softmax rescales at other points and f32 sums run
+# in another order: f32 agrees to about 1e-6, and a bf16 output may round
+# one ulp (2**-8 relative) the other way.
+FLASH_CASES = [
+    ("llama2-7b s=128 bf16", "bfloat16", (1, 128, 32, 128), 32, (128, 128),
+     (1e-2, 1e-2)),
+    ("llama2-7b s=4096 bf16", "bfloat16", (1, 4096, 32, 128), 32, (128, 128),
+     (1e-2, 1e-2)),
+    ("ragged s=200 bf16, padded", "bfloat16", (1, 200, 32, 128), 32, None,
+     (1e-2, 1e-2)),
+    ("ragged s=200 bf16, unpadded", "bfloat16", (1, 200, 32, 128), 32,
+     (40, 40), (1e-2, 1e-2)),
+    ("gqa f32", "float32", (2, 256, 8, 64), 2, (128, 128), (1e-5, 1e-5)),
+]
+# the int8 path: ops.qmm against the bf16 product with the original weights
+# by relative error (||diff|| / ||product||), within QMM_ERR_MARGIN times
+# what int8 rounding predicts for those operands (qmm_err_limit). A fixed
+# limit does not fit both inputs: the reference's test allows 0.05 (max
+# |diff| / max |product|) on Gaussian x, but w_down's input silu(gate) * up
+# has a crest (max / rms) near 20, so its per-tensor step, and its error,
+# is about 4x that of a Gaussian x. ops.mha_flash against layers.sdpa
+# within (rtol, atol): sdpa rounds probabilities to bf16 before p.v, the
+# kernel keeps them f32
+QMM_ERR_MARGIN = 1.5
+FLASH_SDPA_TOL = (2e-2, 2e-2)
+QUANT_PROMPT = 128
+
+
+def qmm_err_limit(x, w) -> float:
+    """QMM_ERR_MARGIN times the relative error that int8 rounding predicts
+    for ``x @ w``: x per tensor and w per column, each rounded to a step of
+    max / 127, add uniform noise of step / sqrt(12), which relative to the
+    operand's rms is crest / (127 sqrt(12)) with crest = max |.| / rms; the
+    two add in quadrature (w's worst column taken)."""
+    import math
+    xf, wf = x.float(), w.float()
+    crest_x = float(xf.abs().max() / xf.square().mean().sqrt())
+    crest_w = float((wf.abs().amax(0) / wf.square().mean(0).sqrt()).max())
+    return (QMM_ERR_MARGIN * math.hypot(crest_x, crest_w)
+            / (127 * math.sqrt(12)))
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
 def time_cuda(fn, iters: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call, by CUDA events around ``iters`` calls."""
+    """Mean milliseconds per call, by CUDA events around ``iters`` calls.
+    The calls are queued behind a sleep kernel, so the card runs them back
+    to back and the events time the device's work, not the rate at which
+    the host issues it (for work whose host side outlasts the sleep, the
+    plain versions' thousands of launches, the time stays host-bound)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -351,6 +430,161 @@ def phase_paged_timing(P, torch, np, F) -> dict:
     return out
 
 
+def qmm_case(torch, k, n, rows, seed=0, copies=1):
+    """Random int8 x ``[max(rows), k]`` and ``copies`` int8 w ``[k, n]``
+    with column 5 all zero, and an f32 scale ``[1, n]`` (activation scale
+    folded in), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(-127, 128, (max(rows), k), generator=g, device="cuda",
+                      dtype=torch.int8)
+    ws = []
+    for _ in range(copies):
+        w = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                          dtype=torch.int8)
+        w[:, 5] = 0
+        ws.append(w)
+    scale = torch.rand((1, n), generator=g, device="cuda") * 1e-3 + 1e-5
+    return x, ws, scale
+
+
+def phase_qmm_check(Q, torch) -> int:
+    """B5 against its plain version (float64, exact) bit for bit at
+    Llama2-7B's FFN shapes; returns the max |kernel - plain| (0)."""
+    worst = 0.0
+    for label, k, n in QMM_WEIGHTS:
+        x, (w,), scale = qmm_case(torch, k, n, QMM_ROWS)
+        for m in QMM_ROWS:
+            for out_dtype in ((torch.bfloat16, torch.float32) if m == 16
+                              else (torch.bfloat16,)):
+                got = Q.qmatmul(x[:m], w, scale, out_dtype=out_dtype)
+                ref = Q.qmatmul_plain(x[:m], w, scale, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                worst = max(worst, err)
+                check(torch.equal(got, ref), f"qmatmul == plain at {label} "
+                      f"[{m}, {k}] x [{k}, {n}] {out_dtype} (max |diff| {err})")
+                check(not got[:, 5].any(), "the all-zero weight column gives 0")
+        print(f"  qmatmul {label} [M, {k}] x [{k}, {n}], M in {QMM_ROWS}: "
+              f"bit-equal to plain (bf16 out; f32 out too at M=16)")
+        del x, w, scale
+    torch.cuda.empty_cache()
+    return worst
+
+
+def flash_inputs(torch, dtype, shape, hk, seed=0):
+    """Random q ``[b, s, h, d]`` and k/v ``[b, s, hk, d]`` on the card."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, s, h, d = shape
+    q = torch.randn((b, s, h, d), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((b, s, hk, d), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    return q, k, v
+
+
+def to_heads(x, s_pad=None):
+    """[b, s, h, d] -> contiguous [b * h, s_pad, d], zero rows past s (the
+    layout and padding of ops.mha_flash)."""
+    import torch
+    b, s, h, d = x.shape
+    y = x.transpose(1, 2).reshape(b * h, s, d)
+    if s_pad and s_pad != s:
+        y = torch.cat([y, y.new_zeros(b * h, s_pad - s, d)], dim=1)
+    return y.contiguous()
+
+
+def phase_flash_check(FA, torch) -> float:
+    """B2 against its plain version within the stated tolerances; returns
+    the max |kernel - plain| over the checks."""
+    worst = 0.0
+    for label, dtype, shape, hk, blocks, tol in FLASH_CASES:
+        q, k, v = flash_inputs(torch, dtype, shape, hk)
+        s = shape[1]
+        bq, bkv = blocks or (128, 128)
+        s_pad = s + (-s) % bq
+        qf, kf, vf = (to_heads(t, s_pad) for t in (q, k, v))
+        got = FA.flash_attention(qf, kf, vf, bq=bq, bkv=bkv)
+        torch.cuda.synchronize()
+        ref = FA.flash_attention_plain(qf, kf, vf, bq=bq, bkv=bkv)
+        got, ref = got[:, :s], ref[:, :s]
+        err = float((got.float() - ref.float()).abs().max())
+        worst = max(worst, err)
+        check(bool(torch.isfinite(got).all()), f"flash finite at {label}")
+        try:
+            torch.testing.assert_close(got, ref, rtol=tol[0], atol=tol[1])
+        except AssertionError as e:
+            check(False, f"flash_attention vs plain at {label}: {e}")
+        print(f"  flash {label} (kernel s={s_pad}, plain blocks {bq}x{bkv}): "
+              f"max |err| {err:.3g} (rtol, atol {tol})")
+        del q, k, v, qf, kf, vf, got, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def library_qmm(torch, x, w, scale):
+    """torch._int_mm plus the scale multiply and the bf16 cast: the
+    yardstick, used nowhere in the port."""
+    return (torch._int_mm(x, w).float() * scale).to(torch.bfloat16)
+
+
+def phase_qmm_timing(Q, torch) -> dict:
+    """CUDA events at every checked shape, cycling two weight copies (90 MB,
+    past the 50 MB L2) so each call reads its weight from device memory."""
+    out = {}
+    for label, k, n in QMM_WEIGHTS:
+        x, ws, scale = qmm_case(torch, k, n, QMM_ROWS, seed=1, copies=2)
+        for m in QMM_ROWS:
+            xm = x[:m].contiguous()
+
+            def cycle(fn):
+                return lambda: [fn(w) for w in ws]
+
+            r = {"ms": time_cuda(cycle(lambda w: Q.qmatmul(xm, w, scale)),
+                                 20, 2) / 2,
+                 "plain_ms": time_cuda(lambda: Q.qmatmul_plain(
+                     xm, ws[0], scale), 3, 1)}
+            r["lib_ms"] = None
+            if m > 16:      # torch._int_mm takes M > 16, K and N % 8 == 0
+                r["lib_ms"] = time_cuda(cycle(lambda w: library_qmm(
+                    torch, xm, w, scale)), 20, 2) / 2
+            nbytes = m * k + k * n + 4 * n + 2 * m * n
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+            r.update(bytes_ms=bytes_ms, ops_ms=ops_ms,
+                     bound_ms=max(bytes_ms, ops_ms),
+                     bound_by="operations" if ops_ms > bytes_ms else "bytes")
+            out[(label, m)] = r
+        del x, ws, scale
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_flash_timing(FA, torch, F) -> dict:
+    """CUDA events at [1, s, 32, 128] bf16 for s = 128 (the path's call)
+    and 4096, beside the plain version and scaled_dot_product_attention."""
+    out = {}
+    for s in (128, 4096):
+        q, k, v = flash_inputs(torch, "bfloat16", (1, s, 32, 128), 32, seed=1)
+        qf, kf, vf = (to_heads(t) for t in (q, k, v))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        iters = 20 if s == 128 else 5
+        r = {"ms": time_cuda(lambda: FA.flash_attention(qf, kf, vf), iters, 2),
+             "plain_ms": time_cuda(lambda: FA.flash_attention_plain(
+                 qf, kf, vf), 2, 1),
+             "lib_ms": time_cuda(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True), iters, 2)}
+        bh, d = 32, 128
+        bytes_ms = 4 * bh * s * d * 2 / HBM_BYTES_PER_S * 1e3
+        flops_ms = 4 * d * (s * (s + 1) // 2) * bh / BF16_FLOPS_PER_S * 1e3
+        r.update(bytes_ms=bytes_ms, flops_ms=flops_ms,
+                 bound_ms=max(bytes_ms, flops_ms),
+                 bound_by="operations" if flops_ms > bytes_ms else "bytes")
+        out[s] = r
+        del q, k, v, qf, kf, vf, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
 # (prompt length, max_new_tokens, priority): the low wave's first two share
 # the 32 bucket (one batched prefill of two rows); the last high request
 # chunks past the largest bucket (its tail feeds through decode steps).
@@ -362,9 +596,9 @@ PAGED_KW = dict(ENGINE_KW, kv_backend="paged", page_size=16,
                 kv_decode="kernel")
 
 
-def reset_counts(C, P) -> None:
-    C.reset_launches()
-    P.reset_launches()
+def reset_counts(*kernels) -> None:
+    for K in kernels:
+        K.reset_launches()
 
 
 def serve_waves(engine, specs, gen):
@@ -394,7 +628,9 @@ def phase_serve(torch, np) -> dict:
     from repro_torch.core import SealingKey, TrustDomain
     from repro_torch.core.sealing import tree_leaves_with_names
     from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
     from repro_torch.models import build_model
     from repro_torch.runtime import Engine, GenerationRequest
 
@@ -413,7 +649,7 @@ def phase_serve(torch, np) -> dict:
 
     # ---- the slot path: every kernel count starts at 0 here -------------
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(C, P)
+    reset_counts(C, P, Q, FA)
     td = TrustDomain("tdx", sealing_key=SealingKey.generate(b"chip-smoke"),
                      io_key=SealingKey.generate(b"chip-smoke-io"))
     t0 = time.perf_counter()
@@ -434,7 +670,8 @@ def phase_serve(torch, np) -> dict:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = C.launches
-    check(sum(P.launches.values()) == 0, "the slot path runs no paged kernel")
+    check(sum(P.launches.values()) + Q.launches + FA.launches == 0,
+          "the slot path runs no paged, int8 or flash kernel")
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the slot path ---------------------------------------------
 
@@ -459,7 +696,7 @@ def phase_serve(torch, np) -> dict:
     print(f"  slot path: {len(specs)} requests, tokens equal their solo runs")
 
     # ---- the paged-kernel path: every kernel count starts at 0 here ------
-    reset_counts(C, P)
+    reset_counts(C, P, Q, FA)
     td2 = TrustDomain("tdx", sealing_key=SealingKey.generate(b"chip-smoke-2"),
                       io_key=SealingKey.generate(b"chip-smoke-io-2"))
     paged = Engine(model, unsealed, trust_domain=td2, **PAGED_KW)
@@ -468,6 +705,8 @@ def phase_serve(torch, np) -> dict:
     torch.cuda.synchronize()
     paged_s = time.perf_counter() - t0
     paged_launches = {"chacha20_xor_blocked": C.launches, **P.launches}
+    check(Q.launches + FA.launches == 0,
+          "the paged path runs no int8 or flash kernel")
     # ---- end of the paged-kernel path -------------------------------------
     check(all(r.finished for r in preqs), "paged: every request finished")
     check(pstats.preemptions > 0, "paged: the high wave forced a preemption")
@@ -547,6 +786,141 @@ def phase_serve(torch, np) -> dict:
                 kv_decode_s=kv_decode_s, kv_positions=kv_positions)
 
 
+def phase_quant(torch, np) -> dict:
+    """The int8 weight path at full width: quantize Llama2-7B's weights on
+    the card, seal, attest, unseal (bit-exact), then ops.qmm on layer 0's
+    FFN weights and ops.mha_flash on layer 0's q, k, v."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core import SealingKey, TrustDomain
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.models import build_model, layers
+    from repro_torch.quant import QTensor, quantize_params, quantized_bytes
+
+    cfg = get_config("llama2-7b")
+    model = build_model(cfg)            # the card
+    params = model.init_params(seed=0)
+    blk = params["layers"]["slot_0"]
+    # layer 0's original bf16 weights, kept for the comparisons
+    attn0 = {n: blk["attn"][n][0].clone() for n in ("wq", "wk", "wv")}
+    ffn0 = {n: blk["ffn"][n][0].clone() for n in ("w_gate", "w_up", "w_down")}
+    norm0 = {"scale": blk["pre_norm"]["scale"][0].clone()}
+    table = params["embedding"]["table"].clone()
+    bf16_bytes = quantized_bytes(params)
+    torch.cuda.synchronize()
+
+    # ---- the int8 path: every kernel count starts at 0 here --------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(C, P, Q, FA)
+    t0 = time.perf_counter()
+    qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del params, blk
+    gc.collect()
+    torch.cuda.empty_cache()
+    td = TrustDomain("tdx", sealing_key=SealingKey.generate(b"chip-smoke-q"),
+                     io_key=SealingKey.generate(b"chip-smoke-q-io"))
+    t0 = time.perf_counter()
+    sealed = td.seal_params(qparams)
+    torch.cuda.synchronize()
+    seal_s = time.perf_counter() - t0
+    verifier = td.make_verifier(cfg.name)
+    verifier.verify(td.quote(verifier.challenge(), cfg.name))
+    t0 = time.perf_counter()
+    unsealed = td.load_sealed(sealed, qparams)
+    torch.cuda.synchronize()
+    unseal_s = time.perf_counter() - t0
+    weight_launches = C.launches
+
+    acfg = layers.AttentionConfig(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
+        qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+    prompt = torch.as_tensor(np.random.default_rng(11).integers(
+        1, cfg.vocab_size, (1, QUANT_PROMPT)), device="cuda")
+    positions = torch.arange(QUANT_PROMPT, device="cuda")[None, :]
+    ffn = unsealed["layers"]["slot_0"]["ffn"]
+    wq0 = {n: QTensor(ffn[n].values[0], ffn[n].scale[0]) for n in ffn0}
+    with torch.inference_mode():
+        x = layers.embed({"table": table}, prompt)
+        h = layers.rmsnorm(norm0, x, cfg.norm_eps)
+        q, k, v = layers._qkv(attn0, acfg, h, positions)
+        t0 = time.perf_counter()
+        flash = ops.mha_flash(q, k, v)                          # B2
+        h2 = h[0]
+        gate = ops.qmm(h2, wq0["w_gate"])                       # B5
+        up = ops.qmm(h2, wq0["w_up"])
+        act = F.silu(gate) * up
+        down = ops.qmm(act, wq0["w_down"])
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+    launches = {"chacha20_xor_blocked": C.launches, **P.launches,
+                "qmatmul": Q.launches, "flash_attention": FA.launches}
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the int8 path ----------------------------------------------
+
+    n_leaves = 0
+    for (name, a), (name2, b) in zip(tree_leaves_with_names(unsealed),
+                                     tree_leaves_with_names(qparams)):
+        check(name == name2 and a.dtype == b.dtype and torch.equal(a, b),
+              f"unsealed quantized leaf {name} equals the original")
+        n_leaves += 1
+    n_q = sum(name.endswith(".values") for name in sealed)
+    check(n_q > 0 and len(sealed) == n_leaves, "every quantized leaf sealed")
+    q_bytes = quantized_bytes(qparams)
+    sealed_bytes = sum(st.n_bytes for st in sealed.values())
+    print(f"  quantized {n_q} leaves in {quant_s:.2f}s ({bf16_bytes} B bf16 "
+          f"-> {q_bytes} B); sealed + attested + unsealed {len(sealed)} "
+          f"tensors / {sealed_bytes} B: every .values and .scale bit-equal")
+    del sealed, qparams
+
+    qmm_err = {}
+    with torch.inference_mode():
+        for name, xin, out in (("w_gate", h2, gate), ("w_up", h2, up),
+                               ("w_down", act, down)):
+            w = wq0[name]
+            plain = ops.qmm(xin.cpu(), QTensor(w.values.cpu(), w.scale.cpu()))
+            check(torch.equal(out.cpu(), plain),
+                  f"ops.qmm({name}) on the card == its plain version")
+            ref = (xin @ ffn0[name]).float()
+            diff = out.float() - ref
+            rel = float(diff.norm() / ref.norm())
+            limit = qmm_err_limit(xin, ffn0[name])
+            qmm_err[name] = (rel, limit, float(diff.abs().max()
+                                               / ref.abs().max()))
+            check(rel <= limit, f"ops.qmm({name}) within {limit:.4g} of the "
+                  f"bf16 product (||diff|| / ||product|| {rel:.4g})")
+        ref = layers.sdpa(q, k, v, causal=True)
+    flash_err = float((flash.float() - ref.float()).abs().max())
+    check(bool(torch.isfinite(flash).all()) and flash.shape == ref.shape,
+          "mha_flash finite, of sdpa's shape")
+    try:
+        torch.testing.assert_close(flash, ref, rtol=FLASH_SDPA_TOL[0],
+                                   atol=FLASH_SDPA_TOL[1])
+    except AssertionError as e:
+        check(False, f"ops.mha_flash vs layers.sdpa: {e}")
+    print(f"  ops.qmm on layer 0 (x [{QUANT_PROMPT}, d]): bit-equal to the "
+          f"plain version; ||diff|| / ||bf16 product|| (limit; max |diff| / "
+          f"max |product|) "
+          + ", ".join(f"{n} {e:.4g} ({lim:.4g}; {mx:.4g})"
+                      for n, (e, lim, mx) in qmm_err.items())
+          + f"; ops.mha_flash on layer 0's q, k, v: max |diff| vs sdpa {flash_err:.4g} (rtol, atol {FLASH_SDPA_TOL})")
+    for name, n in launches.items():
+        want = n > 0 if name in ("chacha20_xor_blocked", "qmatmul",
+                                 "flash_attention") else n == 0
+        check(want, f"int8 path launches of {name}: {n}")
+    return dict(launches=launches, weight_launches=weight_launches,
+                quant_s=quant_s, seal_s=seal_s, unseal_s=unseal_s,
+                path_s=path_s, peak=peak, q_bytes=q_bytes,
+                bf16_bytes=bf16_bytes, n_leaves=n_leaves)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -557,7 +931,9 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -567,28 +943,34 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[1/6] device: {name} x{count}; torch {torch.__version__} "
+    print(f"[1/7] device: {name} x{count}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
-        list(pool.map(lambda f: f(), (C._kernel_fn, P._kernel_fn)))
-    print(f"[2/6] build: chacha20.cu and paged_attention.cu with nvcc for "
-          f"sm_90a in {time.perf_counter() - t0:.2f}s")
-    for src in ("chacha20.cu", "paged_attention.cu"):
+    kernels = (C, P, Q, FA)
+    sources = ("chacha20.cu", "paged_attention.cu", "qmatmul.cu",
+               "flash_attention.cu")
+    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
+        list(pool.map(lambda K: K._kernel_fn(), kernels))
+    print(f"[2/7] build: {', '.join(sources)} with nvcc for sm_90a in "
+          f"{time.perf_counter() - t0:.2f}s")
+    for src in sources:
         log = build.BUILD_LOG[src]
         print(f"  {src}: {log['seconds']:.2f}s (cached={log['cached']})")
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}")
 
-    print("[3/6] kernel check: chacha20_xor_blocked vs plain, bit for bit; "
-          "paged_attention (B3) and paged_attention_unseal (B4) vs plain")
+    print("[3/7] kernel check: chacha20_xor_blocked vs plain, bit for bit; "
+          "paged_attention (B3) and paged_attention_unseal (B4) vs plain; "
+          "qmatmul (B5) vs plain, bit for bit; flash_attention (B2) vs plain")
     max_err = phase_kernel_check(C, ops, torch, np)
     paged_err = phase_paged_check(P, torch, np)
+    qmm_err = phase_qmm_check(Q, torch)
+    flash_err = phase_flash_check(FA, torch)
 
     tm = phase_kernel_timing(C, torch, np)
-    print(f"[4/6] kernel timing at N={W_GATE_BLOCKS} blocks "
+    print(f"[4/7] kernel timing at N={W_GATE_BLOCKS} blocks "
           f"({W_GATE_BLOCKS * 64} B): kernel {tm['ms']:.4f} ms, bound "
           f"{tm['bound_ms']:.4f} ms (bytes {tm['bytes_ms']:.4f} ms, integer "
           f"ops {tm['ops_ms']:.4f} ms -> {tm['bound_by']}), plain version "
@@ -610,12 +992,32 @@ def main() -> int:
           f"{mn['b4'][0]:.4f} ms, {mn['b4'][1]}: bytes {mn['bytes_ms']:.4f} "
           f"ms, ops {mn['ops_ms']:.4f} ms; plain {mn['plain4']:.3f} ms)")
 
-    print("[5/6] serve: llama2-7b (32 layers, d_model 4096, bf16) under tdx")
+    qt = phase_qmm_timing(Q, torch)
+    for (label, m), r in qt.items():
+        lib = f"{r['lib_ms']:.4f} ms" if r["lib_ms"] is not None else "n/a"
+        print(f"  qmatmul {label} M={m}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms (bytes {r['bytes_ms']:.4f}, int8 ops "
+              f"{r['ops_ms']:.4f} -> {r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms, _int_mm + scale {lib}")
+    ft = phase_flash_timing(FA, torch, F)
+    for s_, r in ft.items():
+        print(f"  flash_attention [1, {s_}, 32, 128] bf16: kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes "
+              f"{r['bytes_ms']:.4f}, flops {r['flops_ms']:.4f} -> "
+              f"{r['bound_by']}), plain {r['plain_ms']:.3f} ms, sdpa "
+              f"{r['lib_ms']:.4f} ms")
+
+    print("[5/7] serve: llama2-7b (32 layers, d_model 4096, bf16) under tdx")
     sv = phase_serve(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[6/7] int8 weight path: llama2-7b quantized, sealed, unsealed; "
+          "ops.qmm and ops.mha_flash on layer 0")
+    qp = phase_quant(torch, np)
 
     st, ch = sv["stats"], sv["channel"]
     per_req = (sv["launches"] - sv["weight_launches"]) / sv["n_requests"]
-    print(f"[6/6] served {st.total_requests} requests / {st.total_tokens} "
+    print(f"[7/7] served {st.total_requests} requests / {st.total_tokens} "
           f"tokens in {sv['serve_s']:.2f}s wall; {st.preemptions} preemptions")
     print(f"  sealed KV: {ch.seal_events} seals / {ch.seal_bytes} B out, "
           f"{ch.restore_events} restores / {ch.restore_bytes} B back; egress "
@@ -644,8 +1046,16 @@ def main() -> int:
           f"{ps_.p50_latency_s * 1e3:.2f} ms; one decode step (1 row at "
           f"{sv['kv_positions']} positions) {sv['kv_decode_s'] * 1e3:.2f} ms")
     print(f"  launches on the paged-kernel path: {sv['paged_launches']}")
+    print(f"  int8 path: quantize {qp['quant_s']:.2f}s ({qp['bf16_bytes']} B "
+          f"-> {qp['q_bytes']} B), seal {qp['seal_s']:.2f}s + unseal "
+          f"{qp['unseal_s']:.2f}s for {qp['n_leaves']} leaves, layer 0's "
+          f"mha_flash + 3 qmm {qp['path_s'] * 1e3:.2f} ms (host clock); peak "
+          f"device memory {qp['peak']} B")
+    print(f"  launches on the int8 path: {qp['launches']} "
+          f"({qp['weight_launches']} chacha20 for the weights)")
     print(f"  total {time.perf_counter() - t_start:.1f}s")
     pl = sv["paged_launches"]
+    fm, qm = ft[128], qt[QMM_MAIN]
     print(json.dumps({"kernels": [{
         "name": "chacha20_xor_blocked", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chacha20.cu",
@@ -666,7 +1076,21 @@ def main() -> int:
         "launches": pl["paged_attention_unseal"],
         "max_abs_err": paged_err["paged_attention_unseal"], "ms": mn["ms4"],
         "plain_ms": mn["plain4"], "bound_ms": mn["b4"][0],
-        "bound_by": mn["b4"][1], "library_ms": None}]}))
+        "bound_by": mn["b4"][1], "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": qp["launches"]["flash_attention"],
+        "max_abs_err": flash_err, "ms": fm["ms"], "plain_ms": fm["plain_ms"],
+        "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
+        "library_ms": fm["lib_ms"]}, {
+        "name": "qmatmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
+        "replaces": "src/repro/kernels/qmatmul.py:54",
+        "launches": qp["launches"]["qmatmul"],
+        "max_abs_err": qmm_err, "ms": qm["ms"], "plain_ms": qm["plain_ms"],
+        "bound_ms": qm["bound_ms"], "bound_by": qm["bound_by"],
+        "library_ms": qm["lib_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.quant.quantize import QTensor
 
 Params = Any
 
@@ -172,24 +173,33 @@ def unseal_tensor(key: SealingKey, sealed: SealedTensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# trees: nested dicts with tensor leaves, named like jax.tree_util.keystr
+# trees: nested dicts with tensor or QTensor leaves, named like
+# jax.tree_util.keystr
 # ---------------------------------------------------------------------------
 
 def tree_leaves_with_names(tree: Params, path: str = ""
                            ) -> Iterator[Tuple[str, Any]]:
     """(keystr, leaf) over a nested dict in jax's flattening order (sorted
-    keys); a name reads ``['a']['b']`` like ``jax.tree_util.keystr``."""
+    keys); a name reads ``['a']['b']`` like ``jax.tree_util.keystr``. A
+    :class:`QTensor` flattens as jax flattens a NamedTuple: ``.values``
+    then ``.scale`` (``['w_gate'].values``)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves_with_names(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, QTensor):
+        for field in QTensor._fields:
+            yield from tree_leaves_with_names(getattr(tree, field),
+                                              f"{path}.{field}")
     else:
         yield path, tree
 
 
 def tree_map(fn, tree: Params) -> Params:
-    """Apply ``fn`` to every leaf of a nested dict."""
+    """Apply ``fn`` to every leaf of a nested dict, through QTensors."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(*(tree_map(fn, c) for c in tree))
     return fn(tree)
 
 
@@ -203,11 +213,14 @@ def seal_tree(key: SealingKey, tree: Params, prefix: str = "params",
 def unseal_tree(key: SealingKey, sealed: Dict[str, SealedTensor],
                 treedef_like: Params, prefix: str = "params",
                 suffix: str = "") -> Params:
-    """Inverse of :func:`seal_tree` into the dict structure of
+    """Inverse of :func:`seal_tree` into the dict and QTensor structure of
     ``treedef_like`` (its leaves are not read)."""
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, f"{path}[{k!r}]") for k, v in node.items()}
+        if isinstance(node, QTensor):
+            return QTensor(*(walk(getattr(node, f), f"{path}.{f}")
+                             for f in QTensor._fields))
         return unseal_tensor(key, sealed[prefix + path + suffix])
     return walk(treedef_like, "")
 

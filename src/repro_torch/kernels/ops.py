@@ -1,19 +1,31 @@
-"""Packing around the ChaCha20 kernel: arbitrary bytes <-> blocked layout.
+"""Public wrappers around the kernels (port of ``repro.kernels.ops``).
 
-Port of the sealing half of ``repro.kernels.ops``. The layout and padding
-are the reference's, byte for byte: bytes are zero-padded to a multiple of
-64 KiB (one :data:`BLOCKS_PER_TILE` tile), read as little-endian uint32
-words in blocks of 16, and stored word-major as ``[16, N]``. The port packs
-and unpacks on the tensor's own device (the reference did it on the host).
+Handles padding and packing so callers see natural shapes:
+  * seal_u32 / unseal_u32 — arbitrary tensors <-> blocked ciphertext layout
+  * qmm — bf16 activations x QTensor weights, padded to tiles (kernel B5)
+  * mha_flash — [b, s, h, d] causal attention with GQA (kernel B2)
+
+Sealing: the layout and padding are the reference's, byte for byte: bytes
+are zero-padded to a multiple of 64 KiB (one :data:`BLOCKS_PER_TILE` tile),
+read as little-endian uint32 words in blocks of 16, and stored word-major
+as ``[16, N]``. The port packs and unpacks on the tensor's own device (the
+reference did it on the host).
+
+A CPU tensor goes through each kernel's plain version; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels.chacha20 import BLOCKS_PER_TILE, chacha20_xor_blocked
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.qmatmul import qmatmul
+from repro_torch.quant.quantize import QTensor, quantize_activations
 
 TILE_BYTES = 64 * BLOCKS_PER_TILE
 
@@ -44,3 +56,66 @@ def seal_u32(key_words, nonce_words, blocked: torch.Tensor,
 
 
 unseal_u32 = seal_u32  # stream-cipher involution
+
+
+# ---------------------------------------------------------------------------
+# quantized matmul
+# ---------------------------------------------------------------------------
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    size = x.shape[axis]
+    pad = (-size) % mult
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def qmm(x: torch.Tensor, w: QTensor, *, bm: int = 128, bn: int = 128,
+        bk: int = 128) -> torch.Tensor:
+    """bf16 [M, K] x QTensor([K, N]) -> [M, N] in x's dtype via the int8
+    kernel.
+
+    Dynamically quantizes activations per-tensor (AMX dataflow), folds the
+    activation scale into the per-channel weight scale in f32, pads to tile
+    multiples, and un-pads the result. The kernel emits bf16, which is then
+    cast to x's dtype, as in the reference.
+    """
+    m, kdim = x.shape
+    k2, n = w.values.shape
+    if kdim != k2:
+        raise ValueError(f"x [{m}, {kdim}] does not contract with w "
+                         f"[{k2}, {n}]")
+    xq, xscale = quantize_activations(x)
+    xq = _pad_to(_pad_to(xq, 0, bm), 1, bk)
+    wq = _pad_to(_pad_to(w.values, 0, bk), 1, bn)
+    scale = _pad_to(w.scale.reshape(1, n) * xscale, 1, bn)
+    out = qmatmul(xq, wq, scale)
+    return out[:m, :n].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              bq: int = 128, bkv: int = 128) -> torch.Tensor:
+    """Causal attention, [b, s, h, d] layout with GQA broadcast: kv head
+    ``i // (h // hk)`` serves q head i, read in place (the reference
+    repeats k and v)."""
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    qf = q.transpose(1, 2).reshape(b * h, s, d)
+    kf = k.transpose(1, 2).reshape(b * hk, s, d)
+    vf = v.transpose(1, 2).reshape(b * hk, s, d)
+    bq_ = min(bq, s)
+    bkv_ = min(bkv, s)
+    # non-block-multiple sequence: zero-pad to a common block multiple. The
+    # causal mask sends every padded kv position (k_pos >= s > q_pos for all
+    # real rows) to NEG_INF, and padded query rows are sliced away below, so
+    # padding is invisible to the result.
+    mult = math.lcm(bq_, bkv_)
+    qf, kf, vf = (_pad_to(a, 1, mult).contiguous() for a in (qf, kf, vf))
+    out = flash_attention(qf, kf, vf, bq=bq_, bkv=bkv_)
+    return out[:, :s].reshape(b, h, s, d).transpose(1, 2)

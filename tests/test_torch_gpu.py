@@ -13,9 +13,12 @@ from repro_torch.configs import smoke_config
 from repro_torch.core import SealingKey, TrustDomain
 from repro_torch.core.sealing import nonce_words_for, seal_tensor, tree_map
 from repro_torch.kernels import chacha20 as C
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as P
+from repro_torch.kernels import qmatmul as Q
 from repro_torch.models import build_model
+from repro_torch.quant import quantize_int8
 from repro_torch.runtime import Engine, GenerationRequest
 
 pytestmark = pytest.mark.gpu
@@ -168,3 +171,98 @@ def test_paged_kernel_engine_on_card_matches_cpu(card):
     assert got == expect
     assert P.launches["paged_attention"] > 0
     assert P.launches["paged_attention_unseal"] > 0
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 128, 128), (1, 4096, 256),
+                                   (100, 208, 132)])
+def test_qmatmul_kernel_bit_equal_on_card(card, m, k, n):
+    """B5 against its plain version (float64, exact) bit for bit, bf16 and
+    f32 out, with ragged M and N edges and an all-zero weight column."""
+    g = torch.Generator(device="cpu").manual_seed(m + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    w[:, 2] = 0
+    scale = torch.rand((1, n), generator=g) * 1e-2 + 1e-4
+    x, w, scale = x.to(card), w.to(card), scale.to(card)
+    before = Q.launches
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = Q.qmatmul(x, w, scale, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        assert torch.equal(got, Q.qmatmul_plain(x, w, scale,
+                                                out_dtype=out_dtype))
+        assert not got[:, 2].any()
+    assert Q.launches == before + 2
+
+
+def test_qmm_on_card_equals_cpu(card):
+    """ops.qmm through the kernel on the card gives the CPU's bits."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn((7, 130), generator=g).to(torch.bfloat16)
+    w = quantize_int8(torch.randn((130, 129), generator=g))
+    before = Q.launches
+    got = ops.qmm(x.to(card), type(w)(*(t.to(card) for t in w)))
+    assert Q.launches == before + 1
+    assert torch.equal(got.cpu(), ops.qmm(x, w))
+
+
+FLASH_CASES = [  # (dtype, bh, bhk, s, d, (bq, bkv), tolerance)
+    (torch.float32, 4, 4, 256, 64, (128, 128), 1e-5),
+    (torch.bfloat16, 4, 4, 256, 128, (64, 128), 1e-2),
+    (torch.float32, 8, 2, 128, 64, (128, 128), 1e-5),    # GQA
+    (torch.bfloat16, 2, 1, 200, 32, (40, 40), 1e-2),     # ragged s, GQA
+]
+
+
+@pytest.mark.parametrize("dtype,bh,bhk,s,d,blocks,tol", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(card, dtype, bh, bhk, s, d,
+                                            blocks, tol):
+    """B2 against its plain version: f32 and bf16, GQA, and an s that is
+    not a multiple of the kernel's 64-row tiles."""
+    g = torch.Generator(device="cpu").manual_seed(s + d)
+    q = torch.randn((bh, s, d), generator=g).to(dtype).to(card)
+    k, v = (torch.randn((bhk, s, d), generator=g).to(dtype).to(card)
+            for _ in range(2))
+    bq, bkv = blocks
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, bq=bq, bkv=bkv)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(
+        got, FA.flash_attention_plain(q, k, v, bq=bq, bkv=bkv),
+        rtol=tol, atol=tol)
+
+
+def test_mha_flash_on_card_matches_cpu(card):
+    """ops.mha_flash with GQA and a ragged s on the card against the same
+    call on the CPU (the plain version), in f32."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q = torch.randn((2, 77, 8, 64), generator=g)
+    k, v = (torch.randn((2, 77, 2, 64), generator=g) for _ in range(2))
+    before = FA.launches
+    got = ops.mha_flash(q.to(card), k.to(card), v.to(card))
+    assert FA.launches == before + 1
+    torch.testing.assert_close(got.cpu(), ops.mha_flash(q, k, v),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_kernels_raise_on_what_they_do_not_take(card):
+    """A CUDA tensor of a dtype or shape the kernel does not take raises
+    and launches nothing; there is no fallback."""
+    x = torch.zeros((4, 32), dtype=torch.int8, device=card)
+    w = torch.zeros((32, 8), dtype=torch.int8, device=card)
+    scale = torch.ones((1, 8), device=card)
+    q = torch.zeros((2, 64, 64), device=card)
+    before = (Q.launches, FA.launches)
+    with pytest.raises(TypeError):
+        Q.qmatmul(x.to(torch.int16), w, scale)
+    with pytest.raises(TypeError):
+        Q.qmatmul(x, w, scale.half())
+    with pytest.raises(ValueError):       # K not a multiple of 16
+        Q.qmatmul(x[:, :24], w[:24], scale)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):       # no kernel for head_dim 48
+        FA.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                           q[..., :48].contiguous(), bq=64, bkv=64)
+    assert (Q.launches, FA.launches) == before
