@@ -118,7 +118,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dividing bh, ``s % bq == s % bkv == 0``; returns ``[bh, s, d]`` in q's
     dtype. ``bq``/``bkv`` are the reference's blocks: the plain version
     walks them, the kernel keeps its own 64-row tiles (the result differs
-    only in the order of f32 sums).
+    in the order of f32 sums and, in bf16, where the kernel's tensor-core
+    p.v carries p as a bf16 pair hi + lo).
 
     A CUDA tensor launches the kernel (building it on first use) and raises
     if it cannot; a CPU tensor goes to the plain version."""

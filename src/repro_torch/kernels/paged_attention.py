@@ -16,10 +16,14 @@ has a live flag is XORed with its ChaCha20 keystream before use. Linear word
 w of the page's bytes takes word ``w % 16`` of block ``layer * bpp + w // 16``.
 
 On the card the work is the hand-written CUDA kernel
-``csrc/paged_attention.cu``; a tensor on the CPU goes to the plain version
-(:func:`_emulated_walk`, the reference's page walk as torch loops over the
-table's columns). ``chip_smoke.py`` also runs the plain version on the card,
-as the reference the kernel is held to.
+``csrc/paged_attention.cu``, split-KV decode attention: the table's columns
+are cut into splits of :func:`split_geometry`'s size, one CTA per (split,
+kv head, slot) writes f32 partials, and a second launch merges them in split
+order. A tensor on the CPU goes to the plain version (:func:`_emulated_walk`,
+the reference's page walk as torch loops over the table's columns).
+``chip_smoke.py`` also runs the plain version on the card, as the reference
+the kernel is held to. :func:`_split_walk` is the kernel's split-and-combine
+walk in torch, for the tests only.
 """
 
 from __future__ import annotations
@@ -37,10 +41,34 @@ NEG_INF = -1e30
 # pool dtypes the in-kernel XOR path supports; anything else restores
 # through the host-decrypt path instead
 FUSED_DTYPES = (torch.float32, torch.bfloat16)
+# the largest row of one head the kernel takes (csrc: 32 lanes x kMaxWords)
+MAX_ROW_BYTES = 1024
 
 # Launches of each CUDA kernel since the last reset (the plain version never
 # counts): a run reads them to show the main path went through the kernels.
+# One wrapper call counts one, though it launches the split pass and the
+# combine pass.
 launches = {"paged_attention": 0, "paged_attention_unseal": 0}
+
+# The kernel's split of a walk: about SPLITS splits of the table, each at
+# least SPLIT_POSITIONS[0] and at most SPLIT_POSITIONS[1] positions (whole
+# pages). Measured on an H100 at Llama2-7B's decode shapes (PERF.md): of
+# 32, 64 and 128 positions a split, 32 was fastest on a 16-page table (the
+# serving path's call and the engine's decode step) and 128 on a 128-page
+# table (16 slots x 2048 positions).
+SPLITS = 8
+SPLIT_POSITIONS = (32, 128)
+
+
+def split_geometry(max_pages: int, page_size: int) -> tuple[int, int]:
+    """(pages per split, number of splits) of the kernel's walk over a table
+    ``max_pages`` wide. It reads the table width and the page size only,
+    never the batch or any slot's ``valid``: a slot's splits, and so its
+    output bits, are the same alone and in any batch."""
+    lo = max(1, -(-SPLIT_POSITIONS[0] // page_size))
+    hi = max(lo, SPLIT_POSITIONS[1] // page_size)
+    per = min(max(-(-max_pages // SPLITS), lo), hi)
+    return per, -(-max_pages // per)
 
 
 def reset_launches() -> None:
@@ -134,22 +162,18 @@ def _attend_page_math(q32, k, v, j: int, valid, m_prev, l_prev, acc_prev, *,
     return m_new, l_new, acc_prev * alpha + pv.reshape(b, h, hd)
 
 
-@torch.inference_mode()
-def _emulated_walk(table, valid, q, k_pool, v_pool, unseal=None):
-    """The kernel's page walk in plain torch: a loop over table columns,
-    every slot's page of that column loaded at once, the same update per
-    page, and slots whose ``valid`` ends before the column keeping their
-    state. Columns past every slot's ``valid`` are not visited."""
-    b, h, hd = q.shape
+def _walk_state(table, valid, q32, k_pool, v_pool, cols, unseal=None):
+    """The page walk over table columns ``cols`` in plain torch: every
+    slot's page of a column loaded at once, the same update per page, and
+    slots whose ``valid`` ends before the column keeping their state.
+    Returns (m, l, acc): ``[b, h, 1]``, ``[b, h, 1]``, ``[b, h, hd]``."""
+    b, h, hd = q32.shape
     ps = k_pool.shape[1]
     scale = 1.0 / np.sqrt(hd)
-    q32 = q.float()
-    valid = valid.to(torch.int32)
-    m = torch.full((b, h, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
-    top = int(valid.max()) if b else 0
-    for j in range(min(table.shape[1], -(-top // ps))):
+    m = torch.full((b, h, 1), NEG_INF, dtype=torch.float32, device=q32.device)
+    l = torch.zeros((b, h, 1), dtype=torch.float32, device=q32.device)
+    acc = torch.zeros((b, h, hd), dtype=torch.float32, device=q32.device)
+    for j in cols:
         phys = table[:, j].long()
         k, v = k_pool[phys], v_pool[phys]
         if unseal is not None:
@@ -160,6 +184,44 @@ def _emulated_walk(table, valid, q, k_pool, v_pool, unseal=None):
         m = torch.where(live, m2, m)
         l = torch.where(live, l2, l)
         acc = torch.where(live, a2, acc)
+    return m, l, acc
+
+
+@torch.inference_mode()
+def _emulated_walk(table, valid, q, k_pool, v_pool, unseal=None):
+    """The reference's page walk in plain torch, one state over every
+    column up to the largest ``valid`` (columns past every slot's ``valid``
+    are not visited)."""
+    valid = valid.to(torch.int32)
+    top = int(valid.max()) if q.shape[0] else 0
+    cols = range(min(table.shape[1], -(-top // k_pool.shape[1])))
+    _, l, acc = _walk_state(table, valid, q.float(), k_pool, v_pool, cols,
+                            unseal)
+    return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+
+
+@torch.inference_mode()
+def _split_walk(table, valid, q, k_pool, v_pool, unseal=None):
+    """The kernel's split-and-combine walk in plain torch (tests only):
+    every split of :func:`split_geometry` walks its own columns from the
+    empty state, then the splits merge in split order, m = max m_i,
+    l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m),
+    out = acc / max(l, 1e-30). A split past a slot's ``valid`` keeps the
+    empty state and adds exact zeros."""
+    per, n_splits = split_geometry(table.shape[1], k_pool.shape[1])
+    valid = valid.to(torch.int32)
+    parts = [_walk_state(table, valid, q.float(), k_pool, v_pool,
+                         range(i * per, min((i + 1) * per, table.shape[1])),
+                         unseal) for i in range(n_splits)]
+    m = parts[0][0]
+    for mi, _, _ in parts[1:]:
+        m = torch.maximum(m, mi)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for mi, li, ai in parts:
+        w = torch.exp(mi - m)
+        l = l + li * w
+        acc = acc + ai * w
     return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
 
@@ -190,8 +252,10 @@ def _kernel_fn():
     from repro_torch.kernels import build
     fn = build.load("paged_attention.cu").repro_paged_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p,                 # q k v table valid out
-                   i, i, i, i, i, i, i,              # b h hk hd ps pages bf16
+    fn.argtypes = [p, p, p, p, p, p, p, p,           # q k v table valid out
+                                                     # part_acc part_ml
+                   i, i, i, i, i, i, i, i,           # b h hk hd ps pages
+                                                     # per_split bf16
                    ctypes.c_float,                   # scale
                    p, p, ctypes.POINTER(ctypes.c_uint32),  # crypts, key
                    ctypes.c_uint32, p]               # counter_base, stream
@@ -230,20 +294,29 @@ def _launch(name, q, k_pool, v_pool, table, valid, crypts=(None, None),
         raise ValueError(f"no paged-attention kernel for device {q.device}")
     b, h, hd = q.shape
     _, ps, hk, _ = k_pool.shape
+    if (hd * q.element_size()) % 4 or hd * q.element_size() > MAX_ROW_BYTES:
+        raise ValueError(f"a head's row must be whole u32 words of at most "
+                         f"{MAX_ROW_BYTES} B, got hd={hd} in {q.dtype}")
+    per, n_splits = split_geometry(table.shape[1], ps)
     out = torch.empty_like(q)
+    part_acc = torch.empty((b, h, n_splits, hd), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, h, n_splits, 2), dtype=torch.float32,
+                          device=q.device)
     fn = _kernel_fn()
     kc, vc = (c.data_ptr() if c is not None else None for c in crypts)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 table.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                b, h, hk, hd, ps, table.shape[1],
+                part_acc.data_ptr(), part_ml.data_ptr(),
+                b, h, hk, hd, ps, table.shape[1], per,
                 int(q.dtype == torch.bfloat16), float(1.0 / np.sqrt(hd)),
                 kc, vc, (ctypes.c_uint32 * 8)(*key), counter_base & _MASK,
                 stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches[name] += 1
+    launches[name] += 1     # one per call: the split and combine passes
     return out
 
 

@@ -90,6 +90,12 @@ CASES = [  # (dtype, geometry, tolerance)
                           valid=[64, 37, 0, 17]), 1e-2),
     (torch.float32, dict(b=3, h=8, hk=2, hd=64, ps=8, pages=6,
                          valid=[48, 13, 0]), 1e-4),
+    # rows that are not whole 16-byte vectors: 72 B (8-byte copies) and
+    # 20 B (4-byte copies)
+    (torch.float32, dict(b=3, h=4, hk=2, hd=18, ps=8, pages=5,
+                         valid=[40, 13, 0]), 1e-4),
+    (torch.bfloat16, dict(b=3, h=4, hk=2, hd=10, ps=16, pages=4,
+                          valid=[64, 21, 0]), 1e-2),
 ]
 
 
@@ -118,6 +124,62 @@ def test_paged_kernels_match_plain_on_card(card, dtype, geo, tol):
         rtol=tol, atol=tol)
     assert torch.equal(b4, b3)
     assert not b3[2].any()                       # the idle row
+
+
+def _split_geometry(dtype, ps, width=24):
+    """The shapes of the split tests: h, hk, hd by dtype, a table ``width``
+    pages wide (several splits), and one split's positions S."""
+    per, n_splits = P.split_geometry(width, ps)
+    assert n_splits >= 3
+    geo = (dict(h=32, hk=32, hd=128) if dtype == torch.bfloat16
+           else dict(h=8, hk=2, hd=64))
+    return dict(geo, ps=ps, pages=width), per * ps
+
+
+@pytest.mark.parametrize("dtype,ps,tol", [(torch.bfloat16, 16, 1e-2),
+                                          (torch.float32, 8, 1e-4)])
+def test_paged_kernels_split_walk_on_card(card, dtype, ps, tol):
+    """B3 and B4 over a table three splits wide, valid mid-split (in the
+    last split, in the first) and an idle row, against the plain versions;
+    B4 on ciphertext bit-equal to B3 on plaintext."""
+    geo, S = _split_geometry(dtype, ps)
+    q, plain, cipher, table, valid, crypts, key, bpp, layer = _paged_case(
+        card, dtype, b=3, valid=[2 * S + S // 2 + 3, S // 2 + 1, 0], **geo)
+    b3 = P.paged_attention(q, *plain, table, valid)
+    b4 = P.paged_attention_unseal(q, *cipher, table, valid, layer, key,
+                                  *crypts, blocks_per_page=bpp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        b3, P.paged_attention_plain(q, *plain, table, valid),
+        rtol=tol, atol=tol)
+    torch.testing.assert_close(
+        b4, P.paged_attention_unseal_plain(q, *cipher, table, valid, layer,
+                                           key, *crypts,
+                                           blocks_per_page=bpp),
+        rtol=tol, atol=tol)
+    assert torch.equal(b4, b3)
+    assert not b3[2].any()
+
+
+@pytest.mark.parametrize("dtype,ps", [(torch.bfloat16, 16),
+                                      (torch.float32, 8)])
+def test_paged_kernels_slot_bits_alone_and_in_batch(card, dtype, ps):
+    """Each slot's B3 and B4 output is bit-equal alone (b = 1) and inside a
+    batch of 4 whose valid lengths differ: the split never depends on the
+    batch."""
+    geo, S = _split_geometry(dtype, ps)
+    q, plain, cipher, table, valid, crypts, key, bpp, layer = _paged_case(
+        card, dtype, b=4, valid=[3 * S, 2 * S - 3, 0, S + 1], **geo)
+    unseal = dict(layer=layer, key_words=key, k_crypt=crypts[0],
+                  v_crypt=crypts[1], blocks_per_page=bpp)
+    b3 = P.paged_attention(q, *plain, table, valid)
+    b4 = P.paged_attention_unseal(q, *cipher, table, valid, **unseal)
+    for i in range(4):
+        one = [t[i:i + 1].contiguous() for t in (q, table, valid)]
+        assert torch.equal(P.paged_attention(one[0], *plain, *one[1:]),
+                           b3[i:i + 1])
+        assert torch.equal(P.paged_attention_unseal(one[0], *cipher, *one[1:],
+                                                    **unseal), b4[i:i + 1])
 
 
 def _serve(device, params, model, **kv):
@@ -211,6 +273,7 @@ FLASH_CASES = [  # (dtype, bh, bhk, s, d, (bq, bkv), tolerance)
     (torch.bfloat16, 4, 4, 256, 128, (64, 128), 1e-2),
     (torch.float32, 8, 2, 128, 64, (128, 128), 1e-5),    # GQA
     (torch.bfloat16, 2, 1, 200, 32, (40, 40), 1e-2),     # ragged s, GQA
+    (torch.bfloat16, 2, 2, 512, 128, (128, 128), 1e-2),  # 8 q blocks
 ]
 
 

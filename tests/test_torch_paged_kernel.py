@@ -10,6 +10,8 @@ products in different orders and use different exp implementations), bf16
 outputs within 1e-2 (one bf16 ulp of an O(1) value is 2**-8). The keystream
 and the XOR are integer functions and must agree bit for bit."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -228,3 +230,76 @@ def test_plain_version_never_counts_launches():
                              k_crypt=crypt, v_crypt=crypt,
                              blocks_per_page=8 * 2 * 16 * 4 // 64)
     assert P.launches == before
+
+
+# -- the kernel's split-and-combine walk (csrc/paged_attention.cu) ----------
+
+def test_split_geometry_reads_only_table_width_and_page_size():
+    """The split depends on the page size and the table width, never on the
+    batch or a slot's valid length, so a slot's bits do not depend on its
+    batch."""
+    assert list(inspect.signature(P.split_geometry).parameters) == [
+        "max_pages", "page_size"]
+    lo, hi = P.SPLIT_POSITIONS
+    for ps in (1, 8, 16, 48, lo, hi, 2 * hi):
+        for width in (1, 5, 16, 128, 1000):
+            per, n = P.split_geometry(width, ps)
+            assert per >= 1 and n == -(-width // per)
+            assert (n - 1) * per < width <= n * per
+            # at least lo positions (one page if a page is longer), at most
+            # hi (unless lo needs more), and about SPLITS splits between
+            assert per * ps >= lo or per == 1
+            assert per * ps <= hi or per == max(1, -(-lo // ps))
+            assert per == -(-width // P.SPLITS) or per * ps < lo + ps \
+                or per * ps > hi - ps
+
+
+WIDTH = 24   # table columns of the split cases (page size 8)
+
+
+def split_case(rng, valid_of, *, h=4, hk=2, slots=2):
+    """A pool and a table WIDTH pages wide (page size 8, several splits),
+    valid lengths given in units of one split's positions S."""
+    ps = 8
+    per, n_splits = P.split_geometry(WIDTH, ps)
+    assert n_splits >= 3
+    q, kp, vp, table, _ = make_pool(rng, slots=slots, pages=WIDTH, ps=ps,
+                                    h=h, hk=hk)
+    valid = np.array(valid_of(per * ps), np.int32)
+    return q, kp, vp, table, valid
+
+
+SPLIT_CASES = {   # valid per slot, from one split's positions S
+    "valid 0": lambda S: [0, S + 5],
+    "valid on a split boundary": lambda S: [S, 2 * S],
+    "a split wholly past valid": lambda S: [5, 2 * S + 3],
+}
+
+
+@pytest.mark.parametrize("case,h,hk", [(c, 4, 4) for c in SPLIT_CASES]
+                         + [("gqa f32", 8, 2)])
+def test_split_walk_matches_reference(case, h, hk):
+    rng = np.random.default_rng(len(case))
+    valid_of = SPLIT_CASES.get(case, lambda S: [2 * S + 7, S - 1])
+    q, kp, vp, table, valid = split_case(rng, valid_of, h=h, hk=hk)
+    ref = J.paged_attention(*(jnp.asarray(a) for a in (q, kp, vp, table,
+                                                        valid)))
+    out = P._split_walk(*(torch.from_numpy(a) for a in (table, valid, q, kp,
+                                                         vp)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+    for i in np.flatnonzero(valid == 0):
+        assert not out[i].any()                 # an idle slot gives 0
+
+
+def test_split_walk_slot_bits_alone_and_in_batch():
+    """Slot 1's row is bit-equal alone (b = 1) and inside a batch of 4 with
+    other slots' valid lengths on either side of its own."""
+    rng = np.random.default_rng(3)
+    q, kp, vp, table, valid = split_case(
+        rng, lambda S: [3 * S, 2 * S - 3, 0, S + 1], slots=4)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    batch = P._split_walk(t(table), t(valid), t(q), t(kp), t(vp))
+    alone = P._split_walk(t(table[1:2]), t(valid[1:2]), t(q[1:2]), t(kp),
+                          t(vp))
+    assert torch.equal(batch[1:2], alone)
