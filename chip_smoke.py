@@ -8,7 +8,7 @@ Phases, each fatal on failure:
   2. build: every CUDA kernel of the main paths (ChaCha20, paged attention,
      int8 matmul, flash attention), one nvcc per source, all started
      together, for sm_90a; each kernel's registers, stack and spills as
-     nvcc -Xptxas -v reports them;
+     nvcc -Xptxas -v reports them (B4's and B5's summed up on a line each);
   3. kernel check: each kernel held against its plain PyTorch version on
      the card. ChaCha20 bit for bit (the RFC 8439 vector; random data at the
      main path's sizes: a token frame, a KV leaf, the largest weight;
@@ -18,15 +18,19 @@ Phases, each fatal on failure:
      dead pages, within the stated tolerances; B4 on a ciphertext pool
      bit-equal to B3 on the same pool in plaintext; and every slot's B3 and
      B4 output bit-equal alone and in a batch of 16 at the larger timed
-     shape (the split of the walk never depends on the batch). The int8
-     matmul (B5) bit for bit at Llama2-7B's FFN shapes for M = 1, 16, 128
-     and 2048, with an all-zero weight column. Flash attention (B2) at [1, s, 32,
+     shape (the split of the walk never depends on the batch); B4's
+     keystream configuration (blocks a page, producer threads, ring
+     stages) at each geometry. The int8 matmul (B5) bit for bit at
+     Llama2-7B's FFN shapes for M = 1, 16, 128 and 2048, with an all-zero
+     weight column, and the plan (regime, tiles, split of K) of each shape. Flash attention (B2) at [1, s, 32,
      128] bf16 for s = 128 and 4096, a ragged s = 200 (padded as
      ops.mha_flash pads it, and unpadded through the kernel's own edge
      masks), and a GQA f32 case, within the stated tolerances (and the
      share of each tolerance used);
   4. kernel timing: CUDA events at the main paths' shapes, beside the bound,
-     the plain version's time and, where one exists, a PyTorch call's;
+     the plain version's time and, where one exists, a PyTorch call's; B4
+     also with every page dead (its walk without keystream), beside its
+     keystream blocks timed at B1's measured rate;
   5. serve: Llama2-7B at full width (random weights from a seed) under a
      TDX trust domain: seal, attest, unseal (bit-exact), then two paths over
      a low-priority wave and a preempting high-priority wave: an Engine on
@@ -38,7 +42,8 @@ Phases, each fatal on failure:
      path must agree with the slot path's for the same cache;
   6. int8 weight path: the same model's weights quantized on the card
      (quant.quantize_params), sealed, attested and unsealed bit for bit,
-     then ops.qmm (B5) on layer 0's unsealed w_gate, w_up and w_down and
+     then ops.qmm (B5) on layer 0's unsealed w_gate, w_up and w_down (and
+     on w_gate at M = 1, a decode-shaped call in the small-M regime) and
      ops.mha_flash (B2) on layer 0's q, k, v for a 128-token prompt, with
      every kernel count set to 0 just before; qmm bit-equal to its plain
      version and near the bf16 product with the original weights, flash
@@ -173,6 +178,43 @@ def qmm_err_limit(x, w) -> float:
     crest_w = float((wf.abs().amax(0) / wf.square().mean(0).sqrt()).max())
     return (QMM_ERR_MARGIN * math.hypot(crest_x, crest_w)
             / (127 * math.sqrt(12)))
+
+
+def ptxas_summary(ptxas: str) -> list:
+    """(kernel with its template arguments, registers, spill bytes) per
+    entry function in nvcc -Xptxas -v output."""
+    import re
+    out, name = [], None
+    for line in ptxas.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\S+?)'?( for|$)", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
+            name = (f"{k.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', k.group(2) + 'E'))}>"
+                    if k else mangled)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+            out.append([name, None, spill])
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            if out and out[-1][0] == name and out[-1][1] is None:
+                out[-1][1] = int(m.group(1))
+            else:
+                out.append([name, int(m.group(1)), 0])
+    return out
+
+
+def paged_keystream_text(P, hk, hd, ps, es) -> str:
+    """B4's keystream configuration at one geometry."""
+    nb = P.keystream_blocks(hk, ps, hd * es // 4)
+    return (f"{nb} keystream blocks a page for K and {nb} for V (of "
+            f"{ps * hk * hd * es // 64} in the page), {P.PRODUCERS} producer "
+            f"threads beside 128 consumers, a ring of {P.KS_STAGES} pages, "
+            f"block stride {P.KS_STRIDE} words")
 
 
 def check(cond: bool, what: str) -> None:
@@ -356,6 +398,8 @@ def phase_paged_check(P, torch, np) -> dict:
               f"B4 max |err| {float((b4.float() - ref4.float()).abs().max()):.3g} "
               f"(rtol, atol {tol}); B4(ciphertext) == B3(plaintext) bit for bit; "
               f"{c['n_live']} of {geo['b'] * geo['pages']} pages live")
+        print(f"    B4 at {label}: " + paged_keystream_text(
+            P, geo["hk"], geo["hd"], geo["ps"], c["q"].element_size()))
         del c, b3, b4, ref3, ref4
     torch.cuda.empty_cache()
     return worst
@@ -423,7 +467,8 @@ def paged_bounds(c, geo) -> dict:
     return {"b3": (bytes_ms, "bytes"),
             "b4": (max(bytes_ms, ops_ms),
                    "operations" if ops_ms > bytes_ms else "bytes"),
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes}
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes,
+            "ks_blocks": blocks}
 
 
 def phase_paged_timing(P, torch, np, F) -> dict:
@@ -448,12 +493,20 @@ def phase_paged_timing(P, torch, np, F) -> dict:
                 c["q"], c["cipher"][0][i], c["cipher"][1][i], *args,
                 PAGED_LAYER, c["key"], *c["crypts"], blocks_per_page=c["bpp"])
 
+        dead = torch.zeros_like(c["crypts"][0])
+
+        def b4_dead(i):     # every sidecar dead: B4's walk without keystream
+            return P.paged_attention_unseal(
+                c["q"], c["cipher"][0][i], c["cipher"][1][i], *args,
+                PAGED_LAYER, c["key"], dead, dead, blocks_per_page=c["bpp"])
+
         def lib(i):
             return library_attention(F, c["q"], c["plain"][0][i],
                                      c["plain"][1][i], c["table"])
 
         r = {"ms3": time_cuda(run(b3), 20, 2) / copies,
              "ms4": time_cuda(run(b4), 20, 2) / copies,
+             "ms4_dead": time_cuda(run(b4_dead), 20, 2) / copies,
              "lib3": time_cuda(run(lib), 20, 2) / copies}
         if tag == "main":
             plain = tuple(p[0] for p in c["plain"])
@@ -487,6 +540,17 @@ def qmm_case(torch, k, n, rows, seed=0, copies=1):
     return x, ws, scale
 
 
+def qmm_plan_text(Q, m, n, k) -> str:
+    """B5's plan for one shape as the wrapper picks it on this card."""
+    import torch
+    p = Q.qmm_plan(m, n, k, torch.cuda.get_device_properties(0)
+                   .multi_processor_count)
+    ctas = -(-n // Q.BN) * -(-m // p.bm) * p.splits
+    return (f"{p.regime}-M regime, {p.bm} x {Q.BN} tiles, {p.stages}-stage "
+            f"ring, K split {p.splits} x {p.k_per_split} (cluster of "
+            f"{p.splits}), {ctas} CTAs")
+
+
 def phase_qmm_check(Q, torch) -> int:
     """B5 against its plain version (float64, exact) bit for bit at
     Llama2-7B's FFN shapes; returns the max |kernel - plain| (0)."""
@@ -506,6 +570,8 @@ def phase_qmm_check(Q, torch) -> int:
                 check(not got[:, 5].any(), "the all-zero weight column gives 0")
         print(f"  qmatmul {label} [M, {k}] x [{k}, {n}], M in {QMM_ROWS}: "
               f"bit-equal to plain (bf16 out; f32 out too at M=16)")
+        for m in QMM_ROWS:
+            print(f"    plan at M={m}: {qmm_plan_text(Q, m, n, k)}")
         del x, w, scale
     torch.cuda.empty_cache()
     return worst
@@ -594,6 +660,7 @@ def phase_qmm_timing(Q, torch) -> dict:
                  "plain_ms": time_cuda(lambda: Q.qmatmul_plain(
                      xm, ws[0], scale), 3, 1)}
             r["lib_ms"] = None
+            r["plan"] = qmm_plan_text(Q, m, n, k)
             if m > 16:      # torch._int_mm takes M > 16, K and N % 8 == 0
                 r["lib_ms"] = time_cuda(cycle(lambda w: library_qmm(
                     torch, xm, w, scale)), 20, 2) / 2
@@ -909,6 +976,7 @@ def phase_quant(torch, np) -> dict:
         flash = ops.mha_flash(q, k, v)                          # B2
         h2 = h[0]
         gate = ops.qmm(h2, wq0["w_gate"])                       # B5
+        gate1 = ops.qmm(h2[-1:], wq0["w_gate"])   # decode-shaped: small M
         up = ops.qmm(h2, wq0["w_up"])
         act = F.silu(gate) * up
         down = ops.qmm(act, wq0["w_down"])
@@ -936,19 +1004,21 @@ def phase_quant(torch, np) -> dict:
 
     qmm_err = {}
     with torch.inference_mode():
-        for name, xin, out in (("w_gate", h2, gate), ("w_up", h2, up),
-                               ("w_down", act, down)):
+        for label, name, xin, out in (
+                ("w_gate", "w_gate", h2, gate), ("w_up", "w_up", h2, up),
+                ("w_down", "w_down", act, down),
+                ("w_gate M=1", "w_gate", h2[-1:], gate1)):
             w = wq0[name]
             plain = ops.qmm(xin.cpu(), QTensor(w.values.cpu(), w.scale.cpu()))
             check(torch.equal(out.cpu(), plain),
-                  f"ops.qmm({name}) on the card == its plain version")
+                  f"ops.qmm({label}) on the card == its plain version")
             ref = (xin @ ffn0[name]).float()
             diff = out.float() - ref
             rel = float(diff.norm() / ref.norm())
             limit = qmm_err_limit(xin, ffn0[name])
-            qmm_err[name] = (rel, limit, float(diff.abs().max()
-                                               / ref.abs().max()))
-            check(rel <= limit, f"ops.qmm({name}) within {limit:.4g} of the "
+            qmm_err[label] = (rel, limit, float(diff.abs().max()
+                                                / ref.abs().max()))
+            check(rel <= limit, f"ops.qmm({label}) within {limit:.4g} of the "
                   f"bf16 product (||diff|| / ||product|| {rel:.4g})")
         ref = layers.sdpa(q, k, v, causal=True)
     flash_err = float((flash.float() - ref.float()).abs().max())
@@ -959,7 +1029,9 @@ def phase_quant(torch, np) -> dict:
                                    atol=FLASH_SDPA_TOL[1])
     except AssertionError as e:
         check(False, f"ops.mha_flash vs layers.sdpa: {e}")
-    print(f"  ops.qmm on layer 0 (x [{QUANT_PROMPT}, d]): bit-equal to the "
+    print(f"  ops.qmm on layer 0 (x [{QUANT_PROMPT}, d], and [1, d] on w_gate: "
+          f"{qmm_plan_text(Q, 1, *wq0['w_gate'].values.shape[::-1])}): "
+          f"bit-equal to the "
           f"plain version; ||diff|| / ||bf16 product|| (limit; max |diff| / "
           f"max |product|) "
           + ", ".join(f"{n} {e:.4g} ({lim:.4g}; {mx:.4g})"
@@ -1014,6 +1086,10 @@ def main() -> int:
         for line in log["ptxas"].splitlines():   # nvcc -Xptxas -v, per kernel
             if any(w in line for w in ("entry function", "registers", "spill")):
                 print(f"  {line.strip()}")
+    for src, tag in (("paged_attention.cu", "B3/B4"), ("qmatmul.cu", "B5")):
+        print(f"  {tag} registers and spills (-Xptxas -v): " + "; ".join(
+            f"{n} {r} regs, {sp} B spilled"
+            for n, r, sp in ptxas_summary(build.BUILD_LOG[src]["ptxas"])))
 
     print("[3/7] kernel check: chacha20_xor_blocked vs plain, bit for bit; "
           "paged_attention (B3) and paged_attention_unseal (B4) vs plain; "
@@ -1038,6 +1114,16 @@ def main() -> int:
           f"{lg['ms4']:.4f} ms, bound {lg['b3'][0]:.4f} / {lg['b4'][0]:.4f} "
           f"ms ({lg['bytes']} B; ops {lg['ops_ms']:.4f} ms), gather + sdpa "
           f"{lg['lib3']:.4f} ms")
+    print("  B4 at both timed shapes: " + paged_keystream_text(
+        P, PAGED_LARGE["hk"], PAGED_LARGE["hd"], PAGED_LARGE["ps"], 2))
+    b1_rate = W_GATE_BLOCKS / tm["ms"]      # ChaCha20 blocks a ms, B1
+    for tag, geo in (("large", PAGED_LARGE), ("main", PAGED_MAIN)):
+        r = pt[tag]
+        print(f"  B4 split at {geo['b']} x {geo['valid'][0]}: every page live "
+              f"{r['ms4']:.4f} ms; every page dead (the walk and the hand-over, "
+              f"no keystream) {r['ms4_dead']:.4f} ms; its {r['ks_blocks']:.0f} "
+              f"keystream blocks alone at B1's rate ({b1_rate:.0f} blocks/ms) "
+              f"{r['ks_blocks'] / b1_rate:.4f} ms")
     mn = pt["main"]
     print(f"  paged attention at the main path's call ({PAGED_MAIN['b']} "
           f"slots x {PAGED_MAIN['valid'][0]} positions, one layer; 8 layer "
@@ -1050,7 +1136,8 @@ def main() -> int:
     qt = phase_qmm_timing(Q, torch)
     for (label, m), r in qt.items():
         lib = f"{r['lib_ms']:.4f} ms" if r["lib_ms"] is not None else "n/a"
-        print(f"  qmatmul {label} M={m}: kernel {r['ms']:.4f} ms, bound "
+        print(f"  qmatmul {label} M={m} ({r['plan']}): kernel "
+              f"{r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms (bytes {r['bytes_ms']:.4f}, int8 ops "
               f"{r['ops_ms']:.4f} -> {r['bound_by']}), plain "
               f"{r['plain_ms']:.3f} ms, _int_mm + scale {lib}")
@@ -1105,7 +1192,7 @@ def main() -> int:
     print(f"  int8 path: quantize {qp['quant_s']:.2f}s ({qp['bf16_bytes']} B "
           f"-> {qp['q_bytes']} B), seal {qp['seal_s']:.2f}s + unseal "
           f"{qp['unseal_s']:.2f}s for {qp['n_leaves']} leaves, layer 0's "
-          f"mha_flash + 3 qmm {qp['path_s'] * 1e3:.2f} ms (host clock); peak "
+          f"mha_flash + 4 qmm {qp['path_s'] * 1e3:.2f} ms (host clock); peak "
           f"device memory {qp['peak']} B")
     print(f"  launches on the int8 path: {qp['launches']} "
           f"({qp['weight_launches']} chacha20 for the weights)")

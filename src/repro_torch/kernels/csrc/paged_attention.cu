@@ -12,8 +12,9 @@
 //
 // Bound on an H100 SXM: decode attention reads each attended K and V element
 // once, 2 * hd * bytes per token per kv head, and does 4 flops per element,
-// so bytes bind at 3.35 TB/s (B4 adds 992 integer ops per 64-byte block,
-// which stays under the bytes at 33.5 T ops/s). What the design does about
+// so B3 is bound by bytes at 3.35 TB/s (B4 adds 992 integer ops per 64-byte
+// block of a live page, which binds over the bytes at 33.5 T ops/s: B4 is
+// bound by integer ops, below). What the design does about
 // what held the first version (one CTA per (slot, kv head) walking every page
 // serially, element-wide loads, a one-thread softmax) far from that bound:
 //
@@ -26,7 +27,7 @@
 //  - Loads. Each K and V row of the head is copied with cp.async in 16-byte
 //    units (8 or 4 bytes where the row or the pool is not 16-byte aligned)
 //    into a two-stage ring in shared memory: page j + 1 is in flight while
-//    page j computes, with one __syncthreads per stage.
+//    page j computes, with one barrier of the consumer warps per stage.
 //  - Scores and softmax in parallel. Warp w owns rows w, w + 4, ... of each
 //    page; lane i owns u32 words i, i + 32, ... of a row (two bf16 elements
 //    or one f32 element each), sums its q.k products and a fixed xor-shuffle
@@ -50,12 +51,28 @@
 // the page's bytes takes word w % 16 of ChaCha20 block counter_base + w / 16
 // (counter_base = layer * blocks_per_page) under the sidecar's nonce; a bf16
 // pair is one little-endian word (the even element the low half), so the
-// XOR applies to whole words. The keystream stage is the first version's:
-// per page of its split, a CTA computes every block that touches its rows
-// (while that page's copy is in flight), even where a neighbouring head's
-// CTA computes it too. A dead page passes through bit for bit, so B4 on a
-// ciphertext page gives the bits of B3 on its plaintext.
+// XOR applies to whole words. A dead page passes through bit for bit, so B4
+// on a ciphertext page gives the bits of B3 on its plaintext. The keystream
+// stage is built for the integer-ops bound:
 //
+//  - Warp specialisation. A B4 CTA has 4 more warps, producers, which
+//    compute the keystream of page j + 1 into a two-stage ring while the 4
+//    consumer warps copy and attend page j. Named barriers hand the stages
+//    over (FULL: producers arrive, consumers wait; EMPTY: the reverse), so
+//    the integer pipe works while the copies and the score math run.
+//  - Exact work. The blocks that touch the kv head's rows of a page (the
+//    same for every page) are listed once at CTA start: 64 for K and 64
+//    for V at Llama2-7B's 256-byte rows, so 128 producer threads compute
+//    one block each and none waits on a second. Rows that straddle blocks,
+//    or that share one (hk * row bytes < 64), count each block once.
+//  - Sidecars hoisted. The split's table columns and every page's nonce
+//    and live flag are read into shared memory once, at CTA start.
+//  - Conflict-free stores. A block's 16 words sit at a stride of 17 words
+//    from the next block's: the 32 threads of a warp store word i of 32
+//    consecutive blocks into 32 banks.
+//  - Dead pages are free: a dead K or V costs no keystream, only the
+//    barrier hand-over.
+
 // Rows must be whole u32 words (every f32 row; bf16 rows of even hd) of at
 // most 32 * kMaxWords words.
 //
@@ -70,8 +87,13 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;         // consumer threads (B3: all of them)
 constexpr int kWarps = kThreads / 32;
+constexpr int kProducers = 128;       // B4's keystream threads
+constexpr int kKsStages = 2;          // keystream ring depth (pages)
+constexpr int kKsStride = 17;         // words from one block to the next
+// named barriers: 0 is __syncthreads; the consumers' own, then the ring's
+constexpr int kBarConsumers = 1, kBarFull = 2, kBarEmpty = 2 + kKsStages;
 constexpr int kMaxWords = 8;          // u32 words of a row per lane
 constexpr int kRows = 4;              // rows of a page a warp scores together
 constexpr int kCombineThreads = 128;
@@ -87,7 +109,8 @@ struct Geometry {
   int row_words;           // u32 words in one head's row: hd * bytes / 4
   int row_stride;          // shared-memory row stride in words (multiple of 4)
   int copy_bytes;          // cp.async unit: 16, 8 or 4
-  int nbr;                 // keystream blocks kept per row (B4)
+  int nbr;                 // keystream blocks a page holds for one kv
+                           // head's rows, the most over the kv heads (B4)
   float scale;
   uint32_t counter_base;   // layer * blocks_per_page (B4)
 };
@@ -175,44 +198,83 @@ __device__ __forceinline__ void word_f32(uint32_t w, float* out) {
   }
 }
 
-// Where word w of row t (kv head kh) of a page sits in the K half of the
-// keystream stage [2, ps, nbr, 16]: linear page word pw takes word pw % 16
-// of the row's block pw / 16 - (first word of the row) / 16.
-__device__ __forceinline__ int ks_word(int t, int w, int kh,
-                                       const Geometry& G) {
-  const long long w0 = ((long long)t * G.hk + kh) * G.row_words;
-  const long long pw = w0 + w;
-  return (int)(((long long)t * G.nbr + (pw >> 4) - (w0 >> 4)) * 16 + (pw & 15));
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Shared memory of a split CTA, in u32 words from the start: the K/V copy
+// ring [2][K, V][ps, row_stride]; for B4 the sidecar rows [K, V][pages,
+// 4], the keystream ring [kKsStages][K, V][nbr blocks, kKsStride], the
+// slot of each row's first block [ps] plus the block count, and the page
+// block of each slot [nbr]; then q [g, hd], the warps' m, l [warps, g] and
+// acc [warps, g, hd], and the split's table columns [pages].
+struct Layout {
+  int side, ks, row_slot, blk, qs, st_m, st_l, st_acc, pages, words;
+};
+
+__host__ __device__ inline Layout layout(const Geometry& G, bool unseal) {
+  const int g = G.h / G.hk;
+  Layout L;
+  int o = 4 * G.ps * G.row_stride;
+  L.side = o;                 // 16-byte aligned: row_stride % 4 == 0
+  if (unseal) o += 2 * G.pages_per_split * 4;
+  L.ks = o;
+  if (unseal) o += kKsStages * 2 * G.nbr * kKsStride;
+  L.row_slot = o;
+  if (unseal) o += G.ps + 1;
+  L.blk = o;
+  if (unseal) o += G.nbr;
+  L.qs = o;
+  o += g * G.hd;
+  L.st_m = o;
+  o += kWarps * g;
+  L.st_l = o;
+  o += kWarps * g;
+  L.st_acc = o;
+  o += kWarps * g * G.hd;
+  L.pages = o;
+  o += G.pages_per_split;
+  L.words = o;
+  return L;
 }
 
 template <bool kBf16, bool kUnseal, int kWords>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kUnseal ? kThreads + kProducers : kThreads)
 split_kernel(const void* q, const void* k_pool, const void* v_pool,
              const int* table, const int* valid, float* part_acc,
              float* part_ml, const int* k_crypt, const int* v_crypt, Key key,
              Geometry G) {
   constexpr int kPer = kBf16 ? 2 : 1;       // elements per word
   constexpr int kElems = kWords * kPer;     // elements a lane owns
+  constexpr int kAll = kUnseal ? kThreads + kProducers : kThreads;
   extern __shared__ __align__(16) uint32_t smem[];
   const int split = blockIdx.x, kh = blockIdx.y, slot = blockIdx.z;
-  const int g = G.h / G.hk, hd = G.hd, ps = G.ps;
+  const int g = G.h / G.hk, hd = G.hd, ps = G.ps, pps = G.pages_per_split;
   const int stage_words = ps * G.row_stride;
+  const Layout L = layout(G, kUnseal);
   uint32_t* stages = smem;                                  // [2][K, V][ps, stride]
-  float* qs = reinterpret_cast<float*>(smem + 4 * stage_words);  // [g, hd]
-  float* st_m = qs + g * hd;                                // [warps, g]
-  float* st_l = st_m + kWarps * g;                          // [warps, g]
-  float* st_acc = st_l + kWarps * g;                        // [warps, g, hd]
-  uint32_t* ks = reinterpret_cast<uint32_t*>(st_acc + kWarps * g * hd);
-                                                            // [2, ps, nbr, 16]
+  int* side = reinterpret_cast<int*>(smem + L.side);        // [K, V][pages, 4]
+  uint32_t* ks = smem + L.ks;                 // [kKsStages][K, V][nbr, 17]
+  int* row_slot = reinterpret_cast<int*>(smem + L.row_slot);  // [ps + 1]
+  int* blk = reinterpret_cast<int*>(smem + L.blk);          // [nbr]
+  float* qs = reinterpret_cast<float*>(smem + L.qs);        // [g, hd]
+  float* st_m = reinterpret_cast<float*>(smem + L.st_m);    // [warps, g]
+  float* st_l = reinterpret_cast<float*>(smem + L.st_l);    // [warps, g]
+  float* st_acc = reinterpret_cast<float*>(smem + L.st_acc);  // [warps, g, hd]
+  int* pages = reinterpret_cast<int*>(smem + L.pages);      // [pages]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long head0 = (long long)slot * G.h + (long long)kh * g;
   const int n_valid = valid[slot];
-  const int first = split * G.pages_per_split;
+  const int first = split * pps;
   const int live_cols = min(G.max_pages, n_valid > 0 ? (n_valid + ps - 1) / ps : 0);
-  const int n_pages = min(first + G.pages_per_split, live_cols) - first;
+  const int n_pages = min(first + pps, live_cols) - first;
 
   if (n_pages <= 0) {   // the split lies wholly past valid: the empty state
-    for (int i = tid; i < g * hd; i += kThreads) {
+    for (int i = tid; i < g * hd; i += kAll) {
       const long long at = (head0 + i / hd) * G.n_splits + split;
       part_acc[at * hd + i % hd] = 0.f;
       if (i % hd == 0) {
@@ -224,60 +286,97 @@ split_kernel(const void* q, const void* k_pool, const void* v_pool,
   }
 
   const int* row_table = table + (long long)slot * G.max_pages;
-  issue_page(stages, stages + stage_words, k_pool, v_pool, row_table[first],
-             kh, G);
-  cp_async_commit();
-
-  for (int i = tid; i < g * hd; i += kThreads) {
-    qs[i] = elem_f32<kBf16>(q, head0 * hd + i);
-  }
-  for (int i = tid; i < kWarps * g * hd; i += kThreads) st_acc[i] = 0.f;
-  for (int i = tid; i < kWarps * g; i += kThreads) {
-    st_m[i] = kNegInf;
-    st_l[i] = 0.f;
-  }
-  for (int j = 0; j < n_pages; ++j) {
-    const int col = first + j;
-    __syncthreads();   // page j - 1 is consumed: its stage and ks are free
-    if (j + 1 < n_pages) {
-      uint32_t* nk = stages + ((j + 1) & 1) * 2 * stage_words;
-      issue_page(nk, nk + stage_words, k_pool, v_pool, row_table[col + 1], kh,
-                 G);
-    }
-    cp_async_commit();   // possibly empty: the wait below counts groups
-
-    bool live_k = false, live_v = false;
+  // the split's table columns and, for B4, their sidecar rows, once
+  for (int i = tid; i < n_pages; i += kAll) {
+    const int phys = row_table[first + i];
+    pages[i] = phys;
     if (kUnseal) {
-      const long long phys = row_table[col];
-      live_k = k_crypt[phys * 4 + 3] != 0;
-      live_v = v_crypt[phys * 4 + 3] != 0;
-      // the keystream blocks that touch this head's ps rows, for K and V
-      for (int i = tid; i < 2 * ps * G.nbr; i += kThreads) {
-        const int which = i / (ps * G.nbr);
-        const int t = (i / G.nbr) % ps;
-        const int bi = i % G.nbr;
-        if (!(which ? live_v : live_k)) continue;
-        const int* crypt = which ? v_crypt : k_crypt;
-        const long long w0 = ((long long)t * G.hk + kh) * G.row_words;
-        const long long b0 = w0 >> 4;
-        const long long b1 = (w0 + G.row_words - 1) >> 4;
-        if (b0 + bi > b1) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        side[i * 4 + c] = k_crypt[(long long)phys * 4 + c];
+        side[(pps + i) * 4 + c] = v_crypt[(long long)phys * 4 + c];
+      }
+    }
+  }
+  if (tid < kThreads) {
+    issue_page(stages, stages + stage_words, k_pool, v_pool, row_table[first],
+               kh, G);
+    cp_async_commit();
+    for (int i = tid; i < g * hd; i += kThreads) {
+      qs[i] = elem_f32<kBf16>(q, head0 * hd + i);
+    }
+    for (int i = tid; i < kWarps * g * hd; i += kThreads) st_acc[i] = 0.f;
+    for (int i = tid; i < kWarps * g; i += kThreads) {
+      st_m[i] = kNegInf;
+      st_l[i] = 0.f;
+    }
+  } else if (kUnseal && tid == kThreads) {
+    // the blocks that touch this kv head's rows of a page, each once, in
+    // order; row t's first block is slot row_slot[t], and its later
+    // blocks follow it
+    int n = 0;
+    long long last = -1;
+    for (int t = 0; t < ps; ++t) {
+      const long long w0 = ((long long)t * G.hk + kh) * G.row_words;
+      const long long b0 = w0 >> 4, b1 = (w0 + G.row_words - 1) >> 4;
+      row_slot[t] = b0 <= last ? n - 1 : n;
+      for (long long b = last + 1 > b0 ? last + 1 : b0; b <= b1; ++b)
+        blk[n++] = (int)b;
+      last = b1;
+    }
+    row_slot[ps] = n;
+  }
+  __syncthreads();
+
+  if (kUnseal && tid >= kThreads) {
+    // ---- producers: the keystream of page j into ring stage j % 2 ----
+    const int p = tid - kThreads, nb = row_slot[ps];
+    for (int j = 0; j < n_pages; ++j) {
+      const int s = j % kKsStages;
+      if (j >= kKsStages) bar_sync(kBarEmpty + s, kAll);  // page j - 2 read
+      for (int i = p; i < 2 * nb; i += kProducers) {
+        const int which = i >= nb, b = which ? i - nb : i;
+        const int* sd = side + ((which ? pps : 0) + j) * 4;
+        if (sd[3] == 0) continue;     // a dead page costs no keystream
         uint32_t words[16];
-        repro::chacha20_block(key.w, (uint32_t)crypt[phys * 4 + 0],
-                              (uint32_t)crypt[phys * 4 + 1],
-                              (uint32_t)crypt[phys * 4 + 2],
-                              G.counter_base + (uint32_t)(b0 + bi), words);
-        uint32_t* dst = ks + ((long long)(which * ps + t) * G.nbr + bi) * 16;
+        repro::chacha20_block(key.w, (uint32_t)sd[0], (uint32_t)sd[1],
+                              (uint32_t)sd[2],
+                              G.counter_base + (uint32_t)blk[b], words);
+        uint32_t* dst = ks + ((s * 2 + which) * G.nbr + b) * kKsStride;
 #pragma unroll
         for (int w = 0; w < 16; ++w) dst[w] = words[w];
       }
+      __threadfence_block();
+      bar_arrive(kBarFull + s, kAll);
     }
-    cp_async_wait_one();
-    __syncthreads();   // page j's rows (and keystream) are in shared memory
+    return;
+  }
 
+  // ---- consumers: copy and attend ----
+  for (int j = 0; j < n_pages; ++j) {
+    const int col = first + j;
+    bar_sync(kBarConsumers, kThreads);   // page j - 1 is consumed: its stage is free
+    if (j + 1 < n_pages) {
+      uint32_t* nk = stages + ((j + 1) & 1) * 2 * stage_words;
+      issue_page(nk, nk + stage_words, k_pool, v_pool, pages[j + 1], kh, G);
+    }
+    cp_async_commit();   // possibly empty: the wait below counts groups
+    cp_async_wait_one();
+    bar_sync(kBarConsumers, kThreads);   // page j's rows are in shared memory
+
+    bool xor_k = false, xor_v = false;
+    const uint32_t* ksk = ks;
+    const uint32_t* ksv = ks;
+    if (kUnseal) {
+      const int s = j % kKsStages;
+      xor_k = side[j * 4 + 3] != 0;
+      xor_v = side[(pps + j) * 4 + 3] != 0;
+      ksk = ks + (s * 2) * G.nbr * kKsStride;
+      ksv = ksk + G.nbr * kKsStride;
+      bar_sync(kBarFull + s, kAll);      // page j's keystream is in its stage
+    }
     const uint32_t* kst = stages + (j & 1) * 2 * stage_words;
     const uint32_t* vst = kst + stage_words;
-    const bool xor_k = kUnseal && live_k, xor_v = kUnseal && live_v;
     for (int gi = 0; gi < g; ++gi) {
       const int si = warp * g + gi;
       float m = st_m[si], l = st_l[si];
@@ -297,18 +396,25 @@ split_kernel(const void* q, const void* k_pool, const void* v_pool,
       for (int t0 = warp; t0 < ps; t0 += kWarps * kRows) {
         float sc[kRows];
         bool live[kRows];
+        // B4: the ring word lane's word `lane` of the row XORs; word
+        // lane + 32 i sits two blocks further per i
+        int ks0[kRows] = {};
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const int t = t0 + r * kWarps;
           live[r] = t < ps && col * ps + t < n_valid;   // warp-uniform
           float sum = 0.f;
           if (live[r]) {
+            if (kUnseal) {
+              const int off = (((t * G.hk + kh) * G.row_words) & 15) + lane;
+              ks0[r] = (row_slot[t] + (off >> 4)) * kKsStride + (off & 15);
+            }
 #pragma unroll
             for (int i = 0; i < kWords; ++i) {
               const int w = lane + 32 * i;
               if (w >= G.row_words) continue;
               uint32_t kw = kst[t * G.row_stride + w];
-              if (xor_k) kw ^= ks[ks_word(t, w, kh, G)];
+              if (xor_k) kw ^= ksk[ks0[r] + 2 * kKsStride * i];
               float kf[kPer];
               word_f32<kBf16>(kw, kf);
 #pragma unroll
@@ -344,7 +450,7 @@ split_kernel(const void* q, const void* k_pool, const void* v_pool,
             const int w = lane + 32 * i;
             if (w >= G.row_words) continue;
             uint32_t vw = vst[t * G.row_stride + w];
-            if (xor_v) vw ^= ks[ps * G.nbr * 16 + ks_word(t, w, kh, G)];
+            if (xor_v) vw ^= ksv[ks0[r] + 2 * kKsStride * i];
             float vf[kPer];
             word_f32<kBf16>(vw, vf);
 #pragma unroll
@@ -367,8 +473,10 @@ split_kernel(const void* q, const void* k_pool, const void* v_pool,
         st_l[si] = l;
       }
     }
+    if (kUnseal && j + kKsStages < n_pages)
+      bar_arrive(kBarEmpty + j % kKsStages, kAll);   // its stage is free
   }
-  __syncthreads();
+  bar_sync(kBarConsumers, kThreads);
 
   // merge the warps' states in warp order and write this split's partials
   for (int i = tid; i < g * hd; i += kThreads) {
@@ -431,7 +539,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
     if (rc != cudaSuccess) return (int)rc;
   }
   const dim3 grid((unsigned)G.n_splits, (unsigned)G.hk, (unsigned)b);
-  split_kernel<kBf16, kUnseal, kWords><<<grid, kThreads, smem, stream>>>(
+  constexpr int threads = kUnseal ? kThreads + kProducers : kThreads;
+  split_kernel<kBf16, kUnseal, kWords><<<grid, threads, smem, stream>>>(
       q, k_pool, v_pool, table, valid, part_acc, part_ml, k_crypt, v_crypt,
       key, G);
   cudaError_t rc = cudaGetLastError();
@@ -449,6 +558,25 @@ int launch_words(int words, Args... args) {
   if (words <= 2) return launch<kBf16, kUnseal, 2>(args...);
   if (words <= 4) return launch<kBf16, kUnseal, 4>(args...);
   return launch<kBf16, kUnseal, kMaxWords>(args...);
+}
+
+// B4's keystream blocks per page for one kv head's rows, the most over the
+// kv heads: every block that touches a row of the head, each counted once
+// (split_kernel lists the same blocks for its own head).
+int keystream_blocks(int hk, int ps, int row_words) {
+  int most = 0;
+  for (int kh = 0; kh < hk; ++kh) {
+    int n = 0;
+    long long last = -1;
+    for (int t = 0; t < ps; ++t) {
+      const long long w0 = ((long long)t * hk + kh) * row_words;
+      const long long b0 = w0 >> 4, b1 = (w0 + row_words - 1) >> 4;
+      n += (int)(b1 - (last + 1 > b0 ? last + 1 : b0) + 1);
+      last = b1;
+    }
+    most = n > most ? n : most;
+  }
+  return most;
 }
 
 }  // namespace
@@ -471,7 +599,6 @@ extern "C" int repro_paged_attention(
     const unsigned int* key_words, unsigned int counter_base, void* stream) {
   if (b <= 0) return 0;
   const bool unseal = k_crypt != nullptr && v_crypt != nullptr;
-  const int g = h / hk;
   const int es = is_bf16 ? 2 : 4;
   const int row_bytes = hd * es;
   if (row_bytes % 4 || row_bytes > 4 * 32 * kMaxWords || pages_per_split <= 0 ||
@@ -490,13 +617,12 @@ extern "C" int repro_paged_attention(
   const int row_words = row_bytes / 4;
   Geometry G{h, hk, hd, ps, max_pages, pages_per_split,
              (max_pages + pages_per_split - 1) / pages_per_split, row_words,
-             (row_words + 3) / 4 * 4, copy_bytes, (row_bytes + 63) / 64 + 1,
-             scale, counter_base};
+             (row_words + 3) / 4 * 4, copy_bytes,
+             unseal ? keystream_blocks(hk, ps, row_words) : 0, scale,
+             counter_base};
   Key key;
   for (int i = 0; i < 8; ++i) key.w[i] = unseal ? key_words[i] : 0u;
-  size_t smem = sizeof(uint32_t) * 4 * ps * G.row_stride +
-                sizeof(float) * (g * hd + 2 * kWarps * g + kWarps * g * hd);
-  if (unseal) smem += sizeof(uint32_t) * 2 * ps * G.nbr * 16;
+  const size_t smem = sizeof(uint32_t) * (size_t)layout(G, unseal).words;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const int* t = static_cast<const int*>(table);
   const int* v = static_cast<const int*>(valid);

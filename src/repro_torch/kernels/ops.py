@@ -2,7 +2,7 @@
 
 Handles padding and packing so callers see natural shapes:
   * seal_u32 / unseal_u32 — arbitrary tensors <-> blocked ciphertext layout
-  * qmm — bf16 activations x QTensor weights, padded to tiles (kernel B5)
+  * qmm — bf16 activations x QTensor weights, padded as the kernel needs (B5)
   * mha_flash — [b, s, h, d] causal attention with GQA (kernel B2)
 
 Sealing: the layout and padding are the reference's, byte for byte: bytes
@@ -28,6 +28,8 @@ from repro_torch.kernels.qmatmul import qmatmul
 from repro_torch.quant.quantize import QTensor, quantize_activations
 
 TILE_BYTES = 64 * BLOCKS_PER_TILE
+# what the int8 kernel takes: K a multiple of 16, N of 4 (kernels/qmatmul.py)
+QMM_K_MULTIPLE, QMM_N_MULTIPLE = 16, 4
 
 
 def pack_u32(raw: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -72,15 +74,17 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
 
-def qmm(x: torch.Tensor, w: QTensor, *, bm: int = 128, bn: int = 128,
-        bk: int = 128) -> torch.Tensor:
+def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """bf16 [M, K] x QTensor([K, N]) -> [M, N] in x's dtype via the int8
     kernel.
 
     Dynamically quantizes activations per-tensor (AMX dataflow), folds the
-    activation scale into the per-channel weight scale in f32, pads to tile
-    multiples, and un-pads the result. The kernel emits bf16, which is then
-    cast to x's dtype, as in the reference.
+    activation scale into the per-channel weight scale in f32, pads only as
+    far as the kernel requires (K to a multiple of 16, N of 4; no M
+    padding, so a decode-shaped call reaches the kernel's small-M regime),
+    and un-pads the result. Zero padding adds exact zeros, so the bits are
+    those of the reference's padding to 128. The kernel emits bf16, which
+    is then cast to x's dtype, as in the reference.
     """
     m, kdim = x.shape
     k2, n = w.values.shape
@@ -88,11 +92,11 @@ def qmm(x: torch.Tensor, w: QTensor, *, bm: int = 128, bn: int = 128,
         raise ValueError(f"x [{m}, {kdim}] does not contract with w "
                          f"[{k2}, {n}]")
     xq, xscale = quantize_activations(x)
-    xq = _pad_to(_pad_to(xq, 0, bm), 1, bk)
-    wq = _pad_to(_pad_to(w.values, 0, bk), 1, bn)
-    scale = _pad_to(w.scale.reshape(1, n) * xscale, 1, bn)
+    xq = _pad_to(xq, 1, QMM_K_MULTIPLE)
+    wq = _pad_to(_pad_to(w.values, 0, QMM_K_MULTIPLE), 1, QMM_N_MULTIPLE)
+    scale = _pad_to(w.scale.reshape(1, n) * xscale, 1, QMM_N_MULTIPLE)
     out = qmatmul(xq, wq, scale)
-    return out[:m, :n].to(x.dtype)
+    return out[:, :n].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

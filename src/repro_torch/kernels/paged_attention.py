@@ -23,7 +23,9 @@ order. A tensor on the CPU goes to the plain version (:func:`_emulated_walk`,
 the reference's page walk as torch loops over the table's columns).
 ``chip_smoke.py`` also runs the plain version on the card, as the reference
 the kernel is held to. :func:`_split_walk` is the kernel's split-and-combine
-walk in torch, for the tests only.
+walk in torch, and :func:`_unseal_head_rows` its keystream stage (which
+blocks the producer warps compute, where they store them, and which word
+each consumer lane XORs), for the tests only.
 """
 
 from __future__ import annotations
@@ -74,6 +76,39 @@ def split_geometry(max_pages: int, page_size: int) -> tuple[int, int]:
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+# B4's keystream stage (csrc/paged_attention.cu): PRODUCERS threads beside
+# the 4 consumer warps fill a ring of KS_STAGES pages; a block's 16 words,
+# then the next block's KS_STRIDE words on, so a warp's 32 stores of one
+# word of 32 blocks fall into 32 banks
+PRODUCERS, KS_STAGES, KS_STRIDE = 128, 2, 17
+
+
+def keystream_slots(kh: int, hk: int, ps: int,
+                    row_words: int) -> tuple[list, list]:
+    """The ChaCha20 blocks (page-relative) that touch kv head ``kh``'s rows
+    of a page of ``ps`` rows, each once and in order, as the kernel lists
+    them at CTA start, and ``row_slot[t]``: the slot of row t's first
+    block (its later blocks follow). Rows that share a block count it
+    once."""
+    blocks: list = []
+    row_slot: list = []
+    last = -1
+    for t in range(ps):
+        w0 = (t * hk + kh) * row_words
+        b0, b1 = w0 >> 4, (w0 + row_words - 1) >> 4
+        row_slot.append(len(blocks) - 1 if b0 <= last else len(blocks))
+        blocks.extend(range(max(last + 1, b0), b1 + 1))
+        last = b1
+    return blocks, row_slot
+
+
+def keystream_blocks(hk: int, ps: int, row_words: int) -> int:
+    """Keystream slots a B4 CTA keeps per page for K (and as many for V):
+    the most over the kv heads (the host's sizing of the ring)."""
+    return max(len(keystream_slots(kh, hk, ps, row_words)[0])
+               for kh in range(hk))
 
 
 def supports_fused_unseal(dtype, page_bytes: int) -> bool:
@@ -136,6 +171,43 @@ def _unseal_tile(tile: torch.Tensor, crypt_row: torch.Tensor, key_words,
     plain = torch.where(live, bits ^ ks, bits).view(tile.dtype)
     out = plain.reshape(tile.shape)
     return out[0] if single else out
+
+
+def _unseal_head_rows(tile: torch.Tensor, crypt_row: torch.Tensor, key_words,
+                      layer: int, bpp: int, kh: int) -> torch.Tensor:
+    """Kernel B4's keystream stage in torch (tests only): one page ``[ps,
+    hk, hd]`` with its sidecar row, kv head ``kh``'s rows ``[ps, hd]``. The
+    producers fill the ring (slot b at ``b * KS_STRIDE``) with block
+    ``counter_base + blocks[b]``; the lane reading word w of row t XORs
+    ring word ``(row_slot[t] + off // 16) * KS_STRIDE + off % 16`` with
+    ``off = w0 % 16 + w``, w0 the row's first page word: for the lane's
+    words w = lane + 32 i, the word for i = 0 plus ``2 * KS_STRIDE * i``.
+    A dead page computes no keystream and passes through."""
+    ps, hk, hd = tile.shape
+    rows = tile[:, kh].contiguous()
+    crypt = _u32(crypt_row)
+    if int(crypt[3]) == 0:
+        return rows
+    bits = rows.view(torch.int32)                   # [ps, row_words]
+    row_words = bits.shape[1]
+    blocks, row_slot = keystream_slots(kh, hk, ps, row_words)
+    counters = (torch.tensor(blocks, dtype=torch.int64)
+                + int(layer) * bpp) & _MASK
+    words = chacha_block_words(_words(key_words, 8),
+                               [int(crypt[i]) for i in range(3)], counters)
+    ring = torch.zeros(len(blocks) * KS_STRIDE, dtype=torch.int64)
+    slots = torch.arange(len(blocks)) * KS_STRIDE
+    for w, ks in enumerate(words):
+        ring[slots + w] = ks
+    t = torch.arange(ps)[:, None]
+    w0 = (t * hk + kh) * row_words
+    w = torch.arange(row_words)[None, :]
+    off = (w0 & 15) + w % 32               # lane = w % 32, i = w // 32
+    idx = ((torch.tensor(row_slot)[:, None] + (off >> 4)) * KS_STRIDE
+           + (off & 15) + 2 * KS_STRIDE * (w // 32))
+    ks = ring[idx]
+    ks = torch.where(ks >= 2**31, ks - 2**32, ks).to(torch.int32)
+    return (bits ^ ks).view(tile.dtype)
 
 
 def _attend_page_math(q32, k, v, j: int, valid, m_prev, l_prev, acc_prev, *,

@@ -12,13 +12,18 @@ integer of magnitude at most K * 127**2 < 2**53), and it runs on the card
 too, where torch has no int32 matrix product: ``chip_smoke.py`` holds the
 kernel to it bit for bit. Unlike the reference, M, N and K need not be
 multiples of a block size (the kernel masks its edges); the kernel takes K
-a multiple of 16 and N of 4 (``ops.qmm`` pads to 128).
+a multiple of 16 and N of 4 (``ops.qmm`` pads that far).
+
+:func:`qmm_plan` picks the kernel's regime, tiles and split of K from
+(M, N, K) and the SM count; :func:`_split_sum` is the plan's split in torch,
+for the tests only. Integer sums are exact, so no plan changes a bit.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +37,60 @@ launches = 0
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+# the kernel's tiles (csrc/qmatmul.cu): 128 output columns a CTA, K steps
+# of 64; rows a CTA from BM_CHOICES
+BN, BK = 128, 64
+BM_CHOICES = (16, 32, 64, 128)
+SMALL_M = 128        # M up to this: the bytes bound (decode, small batch)
+MAX_SPLITS = 8       # the splits of a tile form one cluster (portable size)
+MIN_SPLIT_STEPS = 4  # K steps a split walks at least
+CTAS_PER_SM = 2      # CTAs the split aims for on every SM
+H100_SMS = 132
+
+
+class QmmPlan(NamedTuple):
+    """How the kernel cuts one product: ``regime`` "small" (a 6-stage
+    ring, bm the least of :data:`BM_CHOICES` that holds M) or "large"
+    (128 x 128 tiles, a 4-stage ring); K in ``splits`` runs of
+    ``k_per_split`` (a multiple of :data:`BK`), summed over a cluster."""
+    regime: str
+    bm: int
+    stages: int
+    splits: int
+    k_per_split: int
+
+
+def qmm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> QmmPlan:
+    """The kernel's plan for x ``[m, k]`` x w ``[k, n]`` on a card of
+    ``sms`` SMs: K is split until about :data:`CTAS_PER_SM` CTAs stand on
+    every SM (at most :data:`MAX_SPLITS` splits of at least
+    :data:`MIN_SPLIT_STEPS` steps), so that w_down's 32 column tiles also
+    keep every SM streaming at M = 1."""
+    if m <= SMALL_M:
+        regime, bm, stages = "small", min(b for b in BM_CHOICES if b >= m), 6
+    else:
+        regime, bm, stages = "large", BM_CHOICES[-1], 4
+    steps = max(1, -(-k // BK))
+    tiles = -(-n // BN) * -(-m // bm)
+    splits = max(1, min(MAX_SPLITS, -(-CTAS_PER_SM * sms // tiles),
+                        steps // MIN_SPLIT_STEPS))
+    per = -(-steps // splits)
+    return QmmPlan(regime, bm, stages, -(-steps // per), per * BK)
+
+
+def _split_sum(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+               plan: QmmPlan, *, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The plan's split in plain torch (tests only): each split's int64
+    partial over its run of K, summed in split order, then the epilogue of
+    :func:`qmatmul_plain`."""
+    k = x_q.shape[1]
+    acc = torch.zeros((x_q.shape[0], w_q.shape[1]), dtype=torch.int64)
+    for i in range(plan.splits):
+        lo, hi = i * plan.k_per_split, min(k, (i + 1) * plan.k_per_split)
+        acc += (x_q[:, lo:hi].double() @ w_q[lo:hi].double()).long()
+    return (acc.float() * scale).to(out_dtype)
 
 
 def qmatmul_plain(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
@@ -48,9 +107,16 @@ def _kernel_fn():
     from repro_torch.kernels import build
     fn = build.load("qmatmul.cu").repro_qmatmul
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, p]   # x w scale out m n k bf16 stream
+    fn.argtypes = [p, p, p, p, i, i, i, i,     # x w scale out m n k bf16
+                   i, i, i, i, p]              # bm stages splits k_per_split
+                                               # stream
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(x_q, w_q, scale, out_dtype) -> None:
@@ -91,15 +157,17 @@ def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
     if not (x_q.is_contiguous() and w_q.is_contiguous()
             and scale.is_contiguous()):
         raise ValueError("x_q, w_q and scale must be contiguous")
-    if x_q.data_ptr() % 16 or w_q.data_ptr() % 4:
-        raise ValueError("x_q must be 16-byte and w_q 4-byte aligned")
+    if x_q.data_ptr() % 16 or w_q.data_ptr() % 4 or scale.data_ptr() % 16:
+        raise ValueError("x_q and scale must be 16-byte and w_q 4-byte "
+                         "aligned")
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
     fn = _kernel_fn()
+    plan = qmm_plan(m, n, k, _sms(x_q.device))
     with torch.cuda.device(x_q.device):
         stream = torch.cuda.current_stream(x_q.device).cuda_stream
         rc = fn(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                 out.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16),
-                stream)
+                plan.bm, plan.stages, plan.splits, plan.k_per_split, stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul kernel launch failed: CUDA error {rc}")
     launches += 1

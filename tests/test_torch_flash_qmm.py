@@ -157,3 +157,53 @@ def test_flash_rejects_what_it_does_not_take():
         F.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
         F.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# B5's plan (csrc/qmatmul.cu) and ops.qmm's padding
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [4096, 11008, 4112])
+@pytest.mark.parametrize("m", [1, 17, 128, 130, 2048])
+def test_qmm_plan_covers_k_once_and_sums_exactly(m, k):
+    """The plan's K split covers K exactly once (whole 64-steps, at most one
+    cluster of splits), M picks the regime, and the split's int partials
+    summed in the plan's order give qmatmul_plain's bits (the plan of the
+    real N = 4096 product, on 8 of its columns)."""
+    plan = Q.qmm_plan(m, 4096, k)
+    assert plan.regime == ("small" if m <= Q.SMALL_M else "large")
+    assert plan.bm in Q.BM_CHOICES and (plan.bm >= m or plan.bm == 128)
+    assert 1 <= plan.splits <= Q.MAX_SPLITS and plan.k_per_split % Q.BK == 0
+    runs = [(i * plan.k_per_split, min(k, (i + 1) * plan.k_per_split))
+            for i in range(plan.splits)]
+    assert runs[0][0] == 0 and runs[-1][1] == k
+    assert all(lo < hi for lo, hi in runs)
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    rng = np.random.default_rng(m + k)
+    x = torch.from_numpy(rng.integers(-127, 128, (min(m, 130), k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (k, 8), dtype=np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, (1, 8)).astype(np.float32))
+    assert torch.equal(Q._split_sum(x, w, scale, plan),
+                       Q.qmatmul_plain(x, w, scale))
+
+
+def test_qmm_plan_fills_the_card_at_decode():
+    """At M = 1 every SM gets about two CTAs on both Llama2-7B FFN weights,
+    w_down's 32 column tiles included; at M = 2048 the tiles alone do."""
+    for k, n in ((4096, 11008), (11008, 4096)):
+        p = Q.qmm_plan(1, n, k)
+        assert -(-n // Q.BN) * p.splits >= Q.H100_SMS
+        assert Q.qmm_plan(2048, n, k).splits == 1
+
+
+@pytest.mark.parametrize("m", [1, 5, 130])
+def test_qmm_without_m_padding_bit_equal(m):
+    """ops.qmm pads K to 16 and N to 4 only (no M padding) and still gives
+    the reference's bits, which pads every dimension to 128."""
+    rng = np.random.default_rng(m)
+    x, tx = _both(rng.standard_normal((m, 200)).astype(np.float32), "bfloat16")
+    jw, tw = _both(rng.standard_normal((200, 134)).astype(np.float32),
+                   "float32")
+    got = tops.qmm(tx, tquantize(tw))
+    assert tuple(got.shape) == (m, 134)
+    np.testing.assert_array_equal(_f32(got), _f32(jops.qmm(x, jquantize(jw))))

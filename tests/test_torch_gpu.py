@@ -182,6 +182,31 @@ def test_paged_kernels_slot_bits_alone_and_in_batch(card, dtype, ps):
                                                     **unseal), b4[i:i + 1])
 
 
+def test_paged_unseal_128_pages_straddling_rows_alone_and_in_batch(card):
+    """B4 on a 128-page table whose rows straddle ChaCha20 blocks (f32, hd
+    20: 80-byte rows, 20 blocks a page), every other page live: within
+    tolerance of its plain version, bit-equal to B3 on the plaintext, and
+    every slot's bits equal alone and in the batch of 16 (valid lengths
+    staggered across the slots)."""
+    valid = [128 * 8 - 61 * i for i in range(16)]
+    q, plain, cipher, table, valid, crypts, key, bpp, layer = _paged_case(
+        card, torch.float32, b=16, h=4, hk=2, hd=20, ps=8, pages=128,
+        valid=valid)
+    unseal = dict(layer=layer, key_words=key, k_crypt=crypts[0],
+                  v_crypt=crypts[1], blocks_per_page=bpp)
+    b3 = P.paged_attention(q, *plain, table, valid)
+    b4 = P.paged_attention_unseal(q, *cipher, table, valid, **unseal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        b4, P.paged_attention_unseal_plain(q, *cipher, table, valid,
+                                           **unseal), rtol=1e-4, atol=1e-4)
+    assert torch.equal(b4, b3)
+    for i in range(16):
+        one = [t[i:i + 1].contiguous() for t in (q, table, valid)]
+        assert torch.equal(P.paged_attention_unseal(one[0], *cipher, *one[1:],
+                                                    **unseal), b4[i:i + 1])
+
+
 def _serve(device, params, model, **kv):
     td = TrustDomain("tdx", device=device)
     eng = Engine(model, params, trust_domain=td,
@@ -255,6 +280,28 @@ def test_qmatmul_kernel_bit_equal_on_card(card, m, k, n):
                                                 out_dtype=out_dtype))
         assert not got[:, 2].any()
     assert Q.launches == before + 2
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 4112, 4096), (17, 4112, 11008),
+                                   (130, 4112, 4096), (2048, 4112, 11008),
+                                   (1, 11008, 4096)])
+def test_qmatmul_regimes_bit_equal_on_card(card, m, k, n, out_dtype):
+    """B5 bit for bit at the plan's edges: M = 1 and 17 (small-M regime,
+    K split over a cluster), 130 and 2048 (large-M regime), N = 4096 and
+    11008, and K = 4112, whose last 64-step is ragged."""
+    plan = Q.qmm_plan(m, n, k, torch.cuda.get_device_properties(
+        card).multi_processor_count)
+    assert plan.regime == ("small" if m <= Q.SMALL_M else "large")
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=card,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    scale = torch.rand((1, n), generator=g, device=card) * 1e-3 + 1e-5
+    got = Q.qmatmul(x, w, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, Q.qmatmul_plain(x, w, scale, out_dtype=out_dtype))
 
 
 def test_qmm_on_card_equals_cpu(card):

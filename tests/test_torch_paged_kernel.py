@@ -303,3 +303,41 @@ def test_split_walk_slot_bits_alone_and_in_batch():
     alone = P._split_walk(t(table[1:2]), t(valid[1:2]), t(q[1:2]), t(kp),
                           t(vp))
     assert torch.equal(batch[1:2], alone)
+
+
+# -- B4's keystream stage (csrc/paged_attention.cu) --------------------------
+
+@pytest.mark.parametrize("dtype,ps,hk,hd,live", [
+    ("bfloat16", 16, 32, 128, 1),   # Llama2-7B: 256-byte rows, aligned
+    ("float32", 8, 2, 20, 1),       # GQA f32: 80-byte rows straddle blocks
+    ("float32", 8, 2, 20, 0),       # a dead page
+])
+def test_keystream_stage_matches_reference(dtype, ps, hk, hd, live):
+    """The kernel's keystream work split and index map (every block that
+    touches a kv head's rows, once, and the ring word each lane XORs) give
+    every head's rows the reference's unsealed bits; a dead page computes
+    no block. The ring holds exactly the blocks the head needs: 64 per
+    page at Llama2-7B's aligned rows, and each straddled block once."""
+    rng = np.random.default_rng(ps * hd + live)
+    kw = rng.integers(0, 2**32, 8, dtype=np.uint32)
+    row = np.concatenate([rng.integers(0, 2**32, 3, dtype=np.uint32),
+                          np.array([live], np.uint32)])
+    jt, tt = both(rng.normal(size=(ps, hk, hd)).astype(np.float32), dtype)
+    bpp = tt.numel() * tt.element_size() // 64
+    ref = np.asarray(J._unseal_tile(jt, jnp.asarray(row), jnp.asarray(kw),
+                                    jnp.int32(5), bpp))
+    bits = np.uint16 if dtype == "bfloat16" else np.uint32
+    ibits = torch.int16 if dtype == "bfloat16" else torch.int32
+    row_words = hd * tt.element_size() // 4
+    for kh in range(hk):
+        out = P._unseal_head_rows(tt, torch.from_numpy(row.view(np.int32)),
+                                  kw, 5, bpp, kh)
+        assert np.array_equal(out.view(ibits).numpy().view(bits),
+                              np.ascontiguousarray(ref[:, kh]).view(bits))
+        blocks, row_slot = P.keystream_slots(kh, hk, ps, row_words)
+        touched = sorted({w // 16 for t in range(ps)
+                          for w in range((t * hk + kh) * row_words,
+                                         (t * hk + kh + 1) * row_words)})
+        assert blocks == touched and len(row_slot) == ps
+    want = {(32, 64): 64, (2, 20): 16}[(hk, row_words)]
+    assert P.keystream_blocks(hk, ps, row_words) == want
