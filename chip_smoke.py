@@ -35,11 +35,21 @@ Phases, each fatal on failure:
      TDX trust domain: seal, attest, unseal (bit-exact), then two paths over
      a low-priority wave and a preempting high-priority wave: an Engine on
      the dense slot KV backend, then one on the paged backend with
-     kv_decode="kernel" (B3, and B4 on pages restored as ciphertext). Each
-     path runs with every kernel count set to 0 just before it; every
+     kv_decode="kernel" (B3, and B4 on pages restored as ciphertext), then
+     the sharing path: the paged-kernel engine with prefix sharing and
+     on-demand pages, every request sampled, over a shared 96-token system
+     prompt, a pair of identical prompts whose shared partial page copies
+     on write, and a preempting wave (B3 over pages two tables map, B4 on
+     private pages restored as ciphertext while the shared head re-links).
+     Each path runs with every kernel count set to 0 just before it; every
      request's tokens must equal the same request served alone on a fresh
-     engine of that path, and one decode step's logits on the paged-kernel
-     path must agree with the slot path's for the same cache;
+     engine of that path; the pool invariants hold after every sharing
+     step, and sharing writes fewer pages than the same waves unshared; one
+     decode step's logits on the paged-kernel path must agree with the
+     slot path's for the same cache. Before the paths, the sampler's keys,
+     raw bits and uniforms on the card must equal the CPU's bit for bit and
+     its Gumbel noise stay within the stated ulp bound; it is timed at
+     vocab 32000 and 2 rows;
   6. int8 weight path: the same model's weights quantized on the card
      (quant.quantize_params), sealed, attested and unsealed bit for bit,
      then ops.qmm (B5) on layer 0's unsealed w_gate, w_up and w_down (and
@@ -49,9 +59,9 @@ Phases, each fatal on failure:
      version and near the bf16 product with the original weights, flash
      near layers.sdpa;
   7. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
-     memory (slot, paged and int8 paths), kernel launches on each path, and
-     one JSON line listing every ported kernel. The last line is the device
-     JSON.
+     memory (slot, paged, sharing and int8 paths), kernel launches on each
+     path, and one JSON line listing every ported kernel, with its launches
+     summed over the paths it runs on. The last line is the device JSON.
 
 Imports nothing of JAX or of the reference package ``repro``.
 """
@@ -222,19 +232,21 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def time_cuda(fn, iters: int, warmup: int = 1) -> float:
+def time_cuda(fn, iters: int, warmup: int = 1,
+              sleep_cycles: int = SLEEP_CYCLES_PER_CALL) -> float:
     """Mean milliseconds per call, by CUDA events around ``iters`` calls.
-    The calls are queued behind a sleep kernel, so the card runs them back
-    to back and the events time the device's work, not the rate at which
-    the host issues it (for work whose host side outlasts the sleep, the
-    plain versions' thousands of launches, the time stays host-bound)."""
+    The calls are queued behind a sleep kernel of ``sleep_cycles`` a call,
+    so the card runs them back to back and the events time the device's
+    work, not the rate at which the host issues it (for work whose host
+    side outlasts the sleep, the plain versions' thousands of launches,
+    the time stays host-bound)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
+    torch.cuda._sleep(sleep_cycles * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -713,6 +725,207 @@ PAGED_KW = dict(ENGINE_KW, kv_backend="paged", page_size=16,
                 kv_decode="kernel")
 
 
+# the sharing path: the paged-kernel engine with prefix sharing (on-demand
+# pages implied), every request sampled (temperature 0.9, top-k 16, seeds
+# 100 and up). A pair of identical 20-token prompts goes first and lands in
+# one batched prefill; then a low wave of four 128-token prompts whose first
+# 96 tokens (6 pages) are one shared system prompt, and after 3 steps a
+# high wave: one more prompt with that head, and one of 150 tokens that
+# chunks. Buckets that are multiples of the page leave no partial page, so
+# the 24 bucket is added: the pair's second page is then a shared partial
+# page, copied on write by the first decode. Every page a sharing request
+# prefills is content-indexed and seals by reference, so the second low
+# opts out (share_prefix=False): its full pages are private, and its
+# restore admits them as ciphertext for B4 while its batch-mate's shared
+# head re-links.
+SHARE_KW = dict(PAGED_KW, prefix_sharing=True,
+                prefill_buckets=(24, 32, 64, 128))
+SHARE_PAIR = [(20, 3, 0)]  # (prompt length, max_new_tokens, priority), x2
+SHARE_HEAD = 96
+SHARE_LOW = [(128, 16, 0), (128, 12, 0), (128, 10, 0), (128, 14, 0)]
+SHARE_OPT_OUT = 3          # the spec index (after the pair) that opts out
+SHARE_HIGH = [(128, 8, 5), (150, 6, 5)]
+SAMPLE_SEED0 = 100
+# the card's Gumbel noise against the CPU's: both evaluate -log(-log(u)) in
+# float64 and round to float32, so they may differ where the two float64
+# logs round the last bit apart (tests/test_torch_sampling.py states the
+# same bound in ulps of max(|g|, 1) against jax's float32 noise)
+GUMBEL_ULPS = 3
+
+
+def check_pool_invariants(kv) -> None:
+    """The paged pool's structural invariants at a step boundary (a copy of
+    tests/conftest.py's, which this script does not import): no leaked or
+    double-freed page, the null page never mapped, refcounts equal to the
+    live table mappings, a consistent two-way content index, and parked
+    ciphertext only while sealed references remain."""
+    from collections import Counter
+    mapped = []
+    for slot in range(kv.max_slots):
+        n = int(kv._alloc[slot])
+        check(bool((kv.table[slot, n:] == 0).all()),
+              f"slot {slot}: no mapping past its allocation")
+        pages = [int(p) for p in kv.table[slot, :n]]
+        check(0 not in pages, f"slot {slot} never maps the null page")
+        mapped.extend(pages)
+    free = [int(p) for p in kv._free_pages]
+    check(0 not in free and len(set(free)) == len(free),
+          "free list: no null page, no double free")
+    check(not set(free) & set(mapped), "no page both free and mapped")
+    check(len(free) + len(set(mapped)) == kv.num_pages, "no page leaked")
+    counts = Counter(mapped)
+    check(all(int(kv._page_ref[p]) == counts.get(p, 0)
+              for p in range(1, kv.num_pages + 1)),
+          "refcounts equal the live mappings")
+    check(len(kv._index) == len(kv._page_key) and all(
+        kv._page_key.get(p) == k and counts.get(p, 0) >= 1
+        for k, p in kv._index.items()), "content index consistent")
+    check(all(kv._sealed_refs.get(k, 0) > 0 for k in kv._parked),
+          "parked ciphertext only while sealed references remain")
+
+
+def phase_sampler(torch, np) -> dict:
+    """The sampler on the card against the CPU for the same seeds and
+    steps (keys, raw bits and uniforms bit for bit; Gumbel noise within
+    GUMBEL_ULPS), and its time at vocab 32000 and 2 rows."""
+    from repro_torch.runtime import sampling as S
+    b, v = 2, 32000
+    tiny = float(np.finfo(np.float32).tiny)
+    keys = torch.as_tensor(np.stack([S.prng_key(SAMPLE_SEED0 + i)
+                                     for i in range(64)]).astype(np.int64))
+    steps = torch.arange(64, dtype=torch.int64) * 37
+    fk = S.fold_in(keys, steps)
+    fk_card = S.fold_in(keys.cuda(), steps.cuda())
+    check(torch.equal(fk_card.cpu(), fk), "sampler keys on the card == CPU")
+    check(torch.equal(S.random_bits(fk_card, (v,)).cpu(),
+                      S.random_bits(fk, (v,))),
+          "sampler raw bits on the card == CPU")
+    check(torch.equal(S.uniform(fk_card, (v,), minval=tiny).cpu(),
+                      S.uniform(fk, (v,), minval=tiny)),
+          "sampler uniforms on the card == CPU")
+    g = S.gumbel(fk, (v,)).double()
+    err = (S.gumbel(fk_card, (v,)).cpu().double() - g).abs()
+    ulp = torch.as_tensor(np.spacing(np.maximum(g.abs().numpy(), 1.0)
+                                     .astype(np.float32))).double()
+    ulps = float((err / ulp).max())
+    check(ulps <= GUMBEL_ULPS, f"Gumbel noise on the card within "
+          f"{GUMBEL_ULPS} ulp of max(|g|, 1) of the CPU's ({ulps:.2f})")
+    logits = torch.randn(b, v, device="cuda") * 3
+    state = S.SamplingState(
+        torch.full((b,), 0.9, device="cuda"),
+        torch.full((b,), 16, dtype=torch.int32, device="cuda"),
+        keys[:b].cuda(), torch.full((b,), 5, device="cuda"))
+    # its ~400 small launches take the host 3-5 ms a call to issue, and the
+    # card's launch queue holds about a thousand: more than two calls queued
+    # behind one sleep would stall the host until the sleep ends, and the
+    # events would time its issue rate. So one call at a time behind a
+    # 25 ms sleep, the median of 7
+    ms = float(np.median([time_cuda(
+        lambda: S.sample(logits, state, kmax=16), 1,
+        sleep_cycles=25 * SLEEP_CYCLES_PER_CALL) for _ in range(7)]))
+    host_ms = time_host(lambda: S.sample(logits, state, kmax=16), 20) * 1e3
+    return dict(draws=64 * v, gumbel_ulps=ulps, ms=ms, host_ms=host_ms)
+
+
+def phase_share(torch, np, model, params, cfg) -> dict:
+    """The sharing path: SHARE_KW's engine over the pair and the two waves
+    under tdx, every kernel count set to 0 just before it."""
+    from repro_torch.core import SealingKey, TrustDomain
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.runtime import Engine, GenerationRequest, SamplingParams
+
+    rng = np.random.default_rng(11)
+    head = rng.integers(1, cfg.vocab_size, SHARE_HEAD).astype(np.int32)
+    pair = rng.integers(1, cfg.vocab_size, SHARE_PAIR[0][0]).astype(np.int32)
+
+    def prompt(n, shared):
+        p = rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+        if shared:
+            p[:SHARE_HEAD] = head
+        return p
+    specs = [(pair, *SHARE_PAIR[0][1:]), (pair.copy(), *SHARE_PAIR[0][1:])]
+    specs += [(prompt(n, True), mnt, prio) for n, mnt, prio in SHARE_LOW]
+    specs += [(prompt(SHARE_HIGH[0][0], True), *SHARE_HIGH[0][1:]),
+              (prompt(SHARE_HIGH[1][0], False), *SHARE_HIGH[1][1:])]
+    specs = [(p, mnt, prio, SAMPLE_SEED0 + i)
+             for i, (p, mnt, prio) in enumerate(specs)]
+    n_low = 2 + len(SHARE_LOW)
+
+    def gen(spec):
+        p, mnt, prio, seed = spec
+        return GenerationRequest(
+            prompt=p.copy(), max_new_tokens=mnt, priority=prio,
+            share_prefix=seed != SAMPLE_SEED0 + SHARE_OPT_OUT,
+            params=SamplingParams(temperature=0.9, top_k=16, seed=seed))
+
+    def waves(kw, key):
+        td = TrustDomain("tdx", sealing_key=SealingKey.generate(key),
+                         io_key=SealingKey.generate(key + b"-io"))
+        eng = Engine(model, params, trust_domain=td, **kw)
+        reqs = [eng.submit(gen(s)) for s in specs[:n_low]]
+        for _ in range(3):
+            eng.step()
+            check_pool_invariants(eng.kv)
+        reqs += [eng.submit(gen(s)) for s in specs[n_low:]]
+        steps = 0
+        while not eng.idle and steps < 10_000:
+            eng.step()
+            steps += 1
+            check_pool_invariants(eng.kv)
+        return eng, reqs
+
+    # ---- the sharing path: every kernel count starts at 0 here -----------
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(C, P, Q, FA)
+    t0 = time.perf_counter()
+    eng, reqs = waves(SHARE_KW, b"chip-smoke-3")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"chacha20_xor_blocked": C.launches, **P.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(Q.launches + FA.launches == 0,
+          "the sharing path runs no int8 or flash kernel")
+    # ---- end of the sharing path ------------------------------------------
+    kv, stats = eng.kv, eng.run()
+    check(all(r.finished for r in reqs), "sharing: every request finished")
+    outputs = [list(r.output) for r in reqs]
+    for spec, out in zip(specs, outputs):
+        check(len(out) == spec[1], f"sharing: request produced {spec[1]} "
+              f"tokens")
+        check(all(0 <= t < cfg.vocab_size for t in out),
+              "sharing: tokens in vocab")
+    check(stats.preemptions > 0, "sharing: the high wave forced a preemption")
+    check(kv.shared_page_maps > 0, "sharing: pages were shared")
+    check(kv.cow_copies > 0, "sharing: the partial page copied on write")
+    check(kv.fused_restore_pages > 0,
+          "sharing: a restore admitted pages as ciphertext")
+    for name in ("chacha20_xor_blocked", "paged_attention",
+                 "paged_attention_unseal"):
+        check(launches[name] > 0, f"sharing: the path launched {name}")
+    check_solo(Engine, TrustDomain, model, params, specs, gen, outputs,
+               SHARE_KW)
+    plain_eng, plain_reqs = waves(dict(SHARE_KW, prefix_sharing=False),
+                                  b"chip-smoke-4")
+    check(kv.pages_written < plain_eng.kv.pages_written,
+          f"sharing writes fewer pages ({kv.pages_written}) than the same "
+          f"waves unshared ({plain_eng.kv.pages_written})")
+    ch, pch = eng.td.channel.stats, plain_eng.td.channel.stats
+    out = dict(stats=stats, wall_s=wall_s, peak=peak, launches=launches,
+               n=len(specs), tokens=[len(o) for o in outputs],
+               shared=kv.shared_page_maps, cow=kv.cow_copies,
+               written=kv.pages_written, fused=kv.fused_restore_pages,
+               plain_written=plain_eng.kv.pages_written,
+               seal_bytes=ch.seal_bytes, plain_seal_bytes=pch.seal_bytes,
+               plain_same=sum(list(r.output) == o
+                              for r, o in zip(plain_reqs, outputs)))
+    del eng, plain_eng
+    return out
+
+
 def reset_counts(*kernels) -> None:
     for K in kernels:
         K.reset_launches()
@@ -847,6 +1060,13 @@ def phase_serve(torch, np) -> dict:
     pch = td2.channel.stats
     del paged
 
+    sh = phase_share(torch, np, model, unsealed, cfg)
+    print(f"  sharing path: {sh['n']} sampled requests ({sh['tokens']} "
+          f"tokens), each equal to its solo run; {sh['shared']} shared-page "
+          f"maps, {sh['cow']} CoW copies, {sh['written']} pages written "
+          f"(unshared {sh['plain_written']}), {sh['fused']} pages restored "
+          f"as ciphertext; pool invariants held after every step")
+
     # one decode step's logits: paged-kernel path vs slot path, same cache
     from repro_torch.runtime.kvcache import make_backend
     prompt = torch.as_tensor(specs[2][0][None, :], device="cuda")
@@ -904,7 +1124,8 @@ def phase_serve(torch, np) -> dict:
                 paged_stats=pstats, paged_channel=pch, paged_s=paged_s,
                 paged_launches=paged_launches, paged_peak=paged_peak,
                 logit_err=logit_err,
-                kv_decode_s=kv_decode_s, kv_positions=kv_positions)
+                kv_decode_s=kv_decode_s, kv_positions=kv_positions,
+                share=sh)
 
 
 def phase_quant(torch, np) -> dict:
@@ -1150,6 +1371,13 @@ def main() -> int:
               f"{r['lib_ms']:.4f} ms")
 
     print("[5/7] serve: llama2-7b (32 layers, d_model 4096, bf16) under tdx")
+    sp = phase_sampler(torch, np)
+    print(f"  sampler on the card vs the CPU: keys, raw bits and uniforms "
+          f"bit-equal over {sp['draws']} draws; Gumbel noise within "
+          f"{sp['gumbel_ulps']:.2f} ulp of max(|g|, 1) (limit {GUMBEL_ULPS}); "
+          f"sample() at vocab 32000, 2 rows, top-k 16: {sp['ms']:.4f} ms on "
+          f"the device (CUDA events), {sp['host_ms']:.4f} ms a call with "
+          f"its host issue")
     sv = phase_serve(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1189,6 +1417,22 @@ def main() -> int:
           f"{sv['kv_positions']} positions) {sv['kv_decode_s'] * 1e3:.2f} ms; "
           f"peak device memory {sv['paged_peak']} B")
     print(f"  launches on the paged-kernel path: {sv['paged_launches']}")
+    sh = sv["share"]
+    ss = sh["stats"]
+    print(f"  sharing path: {ss.total_requests} sampled requests / "
+          f"{ss.total_tokens} tokens in {sh['wall_s']:.2f}s wall (pool "
+          f"invariants checked every step); {ss.preemptions} preemptions; "
+          f"next-token latency p50 {ss.p50_latency_s * 1e3:.2f} ms, mean "
+          f"{ss.mean_latency_s * 1e3:.2f} ms; shared-page maps {sh['shared']}, "
+          f"CoW copies {sh['cow']}, pages written {sh['written']} (unshared "
+          f"{sh['plain_written']}), sealed KV {sh['seal_bytes']} B (unshared "
+          f"{sh['plain_seal_bytes']} B); {sh['fused']} pages restored as "
+          f"ciphertext; peak device memory {sh['peak']} B; the unshared run's "
+          f"tokens equal in {sh['plain_same']} of {sh['n']} requests")
+    print(f"  launches on the sharing path: {sh['launches']}")
+    print(f"  sampler vs the decode step: sample() {sp['ms']:.4f} ms device "
+          f"/ {sp['host_ms']:.4f} ms with host issue, beside a 2-row "
+          f"decode_step of {sv['decode_s'] * 1e3:.2f} ms (host clock)")
     print(f"  int8 path: quantize {qp['quant_s']:.2f}s ({qp['bf16_bytes']} B "
           f"-> {qp['q_bytes']} B), seal {qp['seal_s']:.2f}s + unseal "
           f"{qp['unseal_s']:.2f}s for {qp['n_leaves']} leaves, layer 0's "
@@ -1197,13 +1441,19 @@ def main() -> int:
     print(f"  launches on the int8 path: {qp['launches']} "
           f"({qp['weight_launches']} chacha20 for the weights)")
     print(f"  total {time.perf_counter() - t_start:.1f}s")
-    pl = sv["paged_launches"]
+    pl = {k: v + sh["launches"][k] for k, v in sv["paged_launches"].items()}
+    b1_launches = (sv["launches"] + pl["chacha20_xor_blocked"]
+                   + qp["launches"]["chacha20_xor_blocked"])
+    print(f"  launches summed over the paths each kernel runs on: B1 "
+          f"{b1_launches} (slot, paged, sharing, int8), B3 "
+          f"{pl['paged_attention']} and B4 {pl['paged_attention_unseal']} "
+          f"(paged, sharing)")
     fm, qm = ft[128], qt[QMM_MAIN]
     print(json.dumps({"kernels": [{
         "name": "chacha20_xor_blocked", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chacha20.cu",
         "replaces": "src/repro/kernels/chacha20.py:98",
-        "launches": sv["launches"], "max_abs_err": float(max_err),
+        "launches": b1_launches, "max_abs_err": float(max_err),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None}, {
         "name": "paged_attention", "route": "cuda",

@@ -222,14 +222,19 @@ def _attend_page_math(q32, k, v, j: int, valid, m_prev, l_prev, acc_prev, *,
     kt = k.float().permute(0, 2, 1, 3)                  # [b, hk, ps, hd]
     s = torch.einsum("bkgd,bkpd->bkgp", qg, kt) * scale
     k_pos = j * page_size + torch.arange(page_size, device=q32.device)
-    s = torch.where(k_pos < valid[:, None, None, None], s,
+    live = k_pos < valid[:, None]                       # [b, ps]
+    s = torch.where(live[:, None, None, :], s,
                     NEG_INF).reshape(b, h, page_size)
 
     m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
     p = torch.exp(s - m_new)                            # [b, h, ps]
     alpha = torch.exp(m_prev - m_new)
     l_new = l_prev * alpha + p.sum(dim=-1, keepdim=True)
-    vt = v.float().permute(0, 2, 1, 3)                  # [b, hk, ps, hd]
+    # rows past valid are never read, as in the kernel: a page's stale tail
+    # may hold anything (a freed ciphertext-resident page keeps its
+    # ciphertext bits), and 0 * NaN would poison the sum
+    vt = torch.where(live[:, :, None, None], v.float(),
+                     0.0).permute(0, 2, 1, 3)           # [b, hk, ps, hd]
     pv = torch.einsum("bkgp,bkpd->bkgd", p.reshape(b, hk, g, page_size), vt)
     return m_new, l_new, acc_prev * alpha + pv.reshape(b, h, hd)
 

@@ -8,12 +8,15 @@ confidential batched inference for a registered dense architecture.
 Runs on the CUDA card unless ``--device cpu``. With a confidential mode the
 launcher performs the whole paper pipeline: seal -> attest -> unseal on the
 device -> encrypted serving, and prints the reference launcher's report
-lines. Requests are greedy: ``--sample-temp`` above 0 raises until seeded
-sampling is ported (ROADMAP.md queue A item 6). ``--kv-backend paged``
+lines. ``--sample-temp/--top-k/--top-p/--seed`` turn on seeded
+per-request sampling (greedy at temperature 0). ``--kv-backend paged``
 swaps the dense slot cache for the page pool (``--page-size``,
-``--num-pages``), and ``--kv-decode kernel`` attends through the
-table-walking paged-attention kernels. The reference's fleet, mesh,
-prefix-sharing, page-store and two-phase flags are not ported yet.
+``--num-pages``), ``--kv-decode kernel`` attends through the table-walking
+paged-attention kernels, and ``--prefix-sharing`` (with
+``--shared-prefix-len K`` to give the generated prompts a common K-token
+opening) maps equal prompt pages onto shared pages with copy-on-write and
+step-time page grants (``--kv-alloc ondemand``, implied). The reference's
+fleet, mesh, page-store and two-phase flags are not ported yet.
 """
 
 from __future__ import annotations
@@ -109,8 +112,7 @@ def main(argv=None):
     ap.add_argument("--coalesce", type=int, default=1,
                     help="tokens per encrypted egress frame (FramePolicy)")
     ap.add_argument("--sample-temp", type=float, default=0.0,
-                    help="sampling temperature (0 = greedy; only greedy is "
-                         "ported)")
+                    help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="restrict sampling to the top-k logits (0 = all)")
     ap.add_argument("--top-p", type=float, default=1.0,
@@ -123,6 +125,15 @@ def main(argv=None):
                     help="tokens per KV page (paged backend)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pool size in pages (default: dense-equivalent)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="content-indexed shared prompt pages with "
+                         "copy-on-write (paged backend; implies on-demand "
+                         "page allocation)")
+    ap.add_argument("--kv-alloc", default=None,
+                    choices=["reserve", "ondemand"],
+                    help="paged page-allocation mode: worst-case admission "
+                         "reservations or step-time grants with capacity "
+                         "preemption")
     ap.add_argument("--kv-decode", default="gather",
                     choices=["gather", "kernel"],
                     help="paged decode path: per-step dense gather "
@@ -165,6 +176,8 @@ def main(argv=None):
                     prefill_buckets=args.prefill_buckets,
                     kv_backend=args.kv_backend, page_size=args.page_size,
                     num_pages=args.num_pages, kv_decode=args.kv_decode,
+                    prefix_sharing=args.prefix_sharing,
+                    kv_alloc=args.kv_alloc,
                     reject_infeasible=args.reject_infeasible,
                     step_time_hint_s=(None if args.step_time_hint_ms is None
                                       else args.step_time_hint_ms * 1e-3))
@@ -203,6 +216,11 @@ def main(argv=None):
             engine.kv.fused_restore_pages, engine.kv.fused_restore_bytes,
             args.tee)
         print(savings_line)
+    if engine.kv.supports_sharing:
+        print(f"prefix sharing: {stats.shared_pages} shared-page maps, "
+              f"{stats.cow_copies} CoW copies, "
+              f"{engine.kv.pages_written} pages written "
+              f"[alloc={'ondemand' if engine.kv.on_demand else 'reserve'}]")
     if td.confidential:
         print(f"boundary: {ch}")
         print(f"frame coalescing: {ch.messages_out} egress frames / "

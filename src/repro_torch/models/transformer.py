@@ -47,7 +47,7 @@ class DecoderLM:
         if cfg.parallel.attention_chunk:
             raise NotImplementedError(
                 "chunked attention (parallel.attention_chunk) is not ported "
-                "(ROADMAP.md queue A item 9)")
+                "(ROADMAP.md queue A item 19)")
         self.cfg = cfg
         self.acfg = _attn_cfg(cfg)
 

@@ -1,5 +1,5 @@
 """Serving runtime (port of ``repro.runtime``): request-object API, engine,
-compute plan, slot KV backend, scheduler, greedy sampling.
+compute plan, slot and paged KV backends, scheduler, seeded sampling.
 
 Typical use::
 

@@ -2,35 +2,38 @@
 
 Dataflow per the paper's protected stack:
   prompt --(encrypted bounce buffer)--> bucketed batched prefill(slots)
-  --> batched greedy decode loop --> tokens --(encrypted frames through the
-  bounce buffer, 1..N tokens each per the request's FramePolicy)--> client.
+  --> batched decode + sample loop --> tokens --(encrypted frames through
+  the bounce buffer, 1..N tokens each per the request's FramePolicy)-->
+  client.
 
 This port serves one compute plan over the dense slot KV backend or the
-paged one (reservation mode, gather or kernel decode): bucketed left-padded
-batched prefill with chunked prompt tails, priority/slack admission,
+paged one (gather or kernel decode; reservation or on-demand pages, with
+prefix sharing and copy-on-write): bucketed left-padded batched prefill
+with chunked prompt tails, seeded per-request sampling (temperature,
+top-k, top-p, penalties, logit bias), priority/slack admission,
 per-priority rate budgets, sealed whole-slot preemption and restore,
-page-granular partial preemption with paused victims (paged), coalesced
-egress, drop/abort deadlines and admission-time deadline feasibility.
-Scheduler decisions are the reference's, so the same requests produce the
-same admissions, preemptions, seals and frames.
+page-granular partial preemption with paused victims (paged), step-time
+page grants with evict-by-slack (on demand), coalesced egress, streaming,
+drop/abort deadlines and admission-time deadline feasibility. Scheduler
+decisions are the reference's, so the same requests produce the same
+admissions, preemptions, seals, frames and tokens.
 
-Not ported yet (each raises ``NotImplementedError``): seeded sampling
-(ROADMAP.md queue A item 6), prefix sharing and on-demand page allocation
-(item 10b), the page store (item 11), continuous batching and
-disaggregated prefill (item 13), fleet drain and migration (item 14),
-meshes (item 18).
+Not ported yet (each raises ``NotImplementedError``): the page store
+(ROADMAP.md queue A item 11), continuous batching and disaggregated
+prefill (item 13), fleet drain and migration (item 14), meshes (item 18).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.confidential import TrustDomain
-from repro_torch.core.sealing import sealed_nbytes
+from repro_torch.core.sealing import IntegrityError, sealed_nbytes
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.runtime import sampling
@@ -125,12 +128,17 @@ class Engine:
         pool + table; ``page_size``/``num_pages`` size it, ``num_pages=None``
         matches the dense footprint; ``kv_decode`` ``"gather"`` or
         ``"kernel"``, the table-walking paged-attention kernels).
-        ``admission_order`` is ``"slack"`` (tightest deadline first,
+        ``prefix_sharing`` (paged only) maps equal page-aligned prompt
+        prefixes onto shared pages with copy-on-write; ``kv_alloc`` is
+        ``"reserve"`` (worst-case admission reservations, the default) or
+        ``"ondemand"`` (step-time grants, evicting by slack when the pool
+        runs dry; implied by sharing). Tokens are the same under all of
+        these. ``admission_order`` is ``"slack"`` (tightest deadline first,
         priority tiebreak) or ``"priority"``. ``reject_infeasible`` refuses
         at ingest a request whose ``deadline_s`` is provably unmeetable at
         the fastest observed (or ``step_time_hint_s``) step time. The
-        sharing, on-demand, store, mesh, continuous-batching and
-        disaggregated options raise ``NotImplementedError``."""
+        store, mesh, continuous-batching and disaggregated options raise
+        ``NotImplementedError``."""
         if mesh is not None:
             raise _not_ported("a mesh-spanning engine", 18)
         if continuous_batching or prefill_plan is not None:
@@ -174,8 +182,18 @@ class Engine:
         self._paused: Dict[int, PausedSlot] = {}
         self._buckets: Dict[int, _RateBucket] = {
             prio: _RateBucket(rate) for prio, rate in (rate_budgets or {}).items()}
+        self._seed_rng = np.random.default_rng()
         self._prefill_fn = self.plan.compile_prefill()
         self._vocab = model.cfg.vocab_size
+        # device mirror of slots.hist while some slot penalizes: bulk host
+        # changes re-upload it, per-token counts queue in _hist_pending and
+        # land as one scatter-add per step (see _hist_device)
+        self._hist_dev: Optional[torch.Tensor] = None
+        self._hist_dev_version = -1
+        self._hist_pending: List[Tuple[int, int]] = []
+        # device mirror of slots.bias (static per request: version-checked)
+        self._bias_dev: Optional[torch.Tensor] = None
+        self._bias_dev_version = -1
         # -- admission-time deadline feasibility ---------------------------
         self._reject_infeasible = reject_infeasible
         self._step_time_hint_s = step_time_hint_s
@@ -195,18 +213,21 @@ class Engine:
                             "(repro_torch.runtime.api)")
         gen = request
         gen.validate(self._vocab)
-        if not gen.params.is_greedy:
-            raise _not_ported("seeded sampling (temperature > 0)", 6)
         # worst-case KV positions: the padded prefill bucket (or the full
         # prompt when chunked past it) plus one per decode *input* — the
         # final sampled token is emitted but never fed back, so it writes no
         # KV. Past the backend's capacity, writes would clamp onto the last
         # cache row and silently corrupt the sequence — reject up front,
         # BEFORE the prompt crosses the boundary (a rejected request must
-        # not skew ChannelStats).
+        # not skew ChannelStats). On a sharing backend kv_need is effective:
+        # pages whose content is already resident charge nothing.
         bucket = self._bucket_for(len(gen.prompt))
         need = max(bucket, len(gen.prompt)) + gen.max_new_tokens - 1
-        fits, eff_need = self.kv.admission_check(need)
+        keys = None
+        if self.kv.supports_sharing and gen.share_prefix:
+            keys = self.kv.page_keys(self._padded_bucket(gen.prompt, bucket),
+                                     bucket)
+        fits, eff_need = self.kv.admission_check(need, keys)
         if not fits:
             raise ValueError(
                 f"request needs up to {need} KV positions "
@@ -223,9 +244,60 @@ class Engine:
         gen.prompt = self.td.ingress(gen.prompt)
         req = self.scheduler.submit(gen)
         req.kv_need = eff_need
+        req.page_keys = keys
         req.ingress_messages = 1 if self.td.confidential else 0
+        # resolve the sampling seed now, so the request is reproducible from
+        # here on (across seal/restore preemption too)
+        if not gen.params.is_greedy:
+            req.seed = (gen.params.seed if gen.params.seed is not None
+                        else int(self._seed_rng.integers(2 ** 31 - 1)))
         req.stream_id = self.td.open_stream()
         return req
+
+    def prompt_budget(self, max_new_tokens: int) -> int:
+        """Longest prompt submit() accepts for ``max_new_tokens`` (the
+        backend's bound, with bucket padding). Prefix sharing never raises
+        it; it lowers the effective demand :meth:`effective_kv_need`
+        reports."""
+        return self.kv.prompt_budget(max_new_tokens, self.prefill_buckets)
+
+    def effective_kv_need(self, prompt: np.ndarray,
+                          max_new_tokens: int) -> Tuple[int, int]:
+        """(worst_case, effective) KV positions this prompt would charge at
+        admission now: on a sharing engine the effective figure discounts
+        the prompt's pages already resident in the content index."""
+        prompt = np.asarray(prompt, np.int32)
+        bucket = self._bucket_for(len(prompt))
+        need = max(bucket, len(prompt)) + max_new_tokens - 1
+        keys = None
+        if self.kv.supports_sharing:
+            keys = self.kv.page_keys(self._padded_bucket(prompt, bucket),
+                                     bucket)
+        _, eff = self.kv.admission_check(need, keys)
+        return need, eff
+
+    @staticmethod
+    def _padded_bucket(prompt: np.ndarray, bucket: int) -> np.ndarray:
+        """The tokens the prefill writes into the bucket, left-padded as
+        _admit_batch lays them out (content keys hash what the cache
+        holds)."""
+        chunk = np.asarray(prompt[:bucket], np.int32)
+        padded = np.zeros(bucket, np.int32)
+        padded[bucket - len(chunk):] = chunk
+        return padded
+
+    def _admit_need(self, req: Request) -> int:
+        """KV positions admission must cover now: the effective worst case
+        under reservation; on demand, the prefill's own pages net of
+        resident shared ones plus one page of append/CoW headroom (without
+        it a fully resident prompt admits into a dry pool only to be
+        evicted by its first append)."""
+        if not self.kv.on_demand:
+            return req.kv_need
+        bucket = self._bucket_for(len(req.prompt))
+        resident = self.kv.resident_pages(req.page_keys)
+        return (max(0, bucket - resident * self.kv.page_size)
+                + self.kv.page_size)
 
     def _bucket_for(self, prompt_len: int) -> int:
         """Smallest bucket that fits the prompt, else the largest bucket
@@ -274,6 +346,88 @@ class Engine:
                      f"deadline={gen.deadline_s}s step_lo={lo:.6f}s")
         return req
 
+    # -- sampling plumbing -----------------------------------------------------
+    def _base_key(self, req: Request) -> np.ndarray:
+        return sampling.prng_key(req.seed or 0)
+
+    def _set_slot_sampling(self, slot: int, req: Request) -> None:
+        p = req.gen.params
+        if p.is_greedy:
+            self.slots.clear_sampling(slot)
+        else:
+            self.slots.set_sampling(slot, p.temperature, p.top_k, p.top_p,
+                                    self._base_key(req),
+                                    p.repetition_penalty, p.presence_penalty,
+                                    logit_bias=p.logit_bias)
+            # the penalty history follows the request, not the cache: rebuilt
+            # from its output (empty at first admission, the generated prefix
+            # after a sealed restore)
+            self.slots.set_hist(slot, req.output)
+
+    def _static_kmax(self) -> int:
+        """The active top-k maximum rounded up to a power of two."""
+        k = self.slots.max_top_k
+        return min(next_pow2(k), self._vocab) if k > 0 else 0
+
+    def _sampling_state(self, steps: np.ndarray
+                        ) -> Tuple[Optional[sampling.SamplingState], int]:
+        """The step's (state, kmax): None on all-greedy steps, and the
+        top-p, penalty and bias rows only when some slot uses them."""
+        s, dev = self.slots, self.device
+        rep = host_upload(s.rep_pen, dev) if s.any_rep_pen else None
+        pres = host_upload(s.presence, dev) if s.any_presence else None
+        if rep is None and pres is None:
+            # no live penalties: drop the mirror and its queue
+            hist = None
+            self._hist_dev = None
+            self._hist_pending.clear()
+        else:
+            hist = self._hist_device()
+        if not s.any_bias:
+            bias = None
+            self._bias_dev = None
+            self._bias_dev_version = -1
+        else:
+            bias = self._bias_device()
+        if not s.any_sampled:
+            return None, 0
+        top_p = host_upload(s.top_p, dev) if s.any_top_p else None
+        state = sampling.SamplingState(
+            host_upload(s.temp, dev), host_upload(s.top_k, dev),
+            host_upload(s.key, dev, torch.int64), host_upload(steps, dev),
+            top_p=top_p, rep_pen=rep, presence=pres, hist=hist, bias=bias)
+        return state, self._static_kmax()
+
+    def _hist_device(self) -> torch.Tensor:
+        """Device copy of the penalty history: a bulk host change (row
+        rebuild or clear: admission, restore, release) re-uploads it;
+        otherwise the per-token counts queued since the last step land as
+        one scatter-add."""
+        if (self._hist_dev is None
+                or self._hist_dev_version != self.slots.hist_version):
+            self._hist_dev = host_upload(self.slots.hist, self.device)
+            self._hist_dev_version = self.slots.hist_version
+            self._hist_pending.clear()
+        elif self._hist_pending:
+            rows = host_upload([s for s, _ in self._hist_pending],
+                               self.device, torch.int64)
+            toks = host_upload([t for _, t in self._hist_pending],
+                               self.device, torch.int64)
+            self._hist_dev.index_put_(
+                (rows, toks), torch.ones_like(rows, dtype=torch.int32),
+                accumulate=True)
+            self._hist_pending.clear()
+        return self._hist_dev
+
+    def _bias_device(self) -> torch.Tensor:
+        """Device copy of the logit-bias rows, re-uploaded when a biased
+        request is admitted or released (``bias_version``)."""
+        if (self._bias_dev is None
+                or self._bias_dev_version != self.slots.bias_version):
+            self._bias_dev = host_upload(self.slots.bias, self.device)
+            self._bias_dev_version = self.slots.bias_version
+        return self._bias_dev
+
     # -- egress ----------------------------------------------------------------
     def _flush_egress(self, req: Request) -> None:
         """Release the request's buffered tokens as ONE encrypted frame (the
@@ -298,6 +452,11 @@ class Engine:
         termination. Returns True if the request finished."""
         req = self.scheduler.running[slot]
         self.scheduler.record_token(slot, int(tok))
+        # penalty history (host), counted only for penalized slots; a
+        # counted token is queued for the device mirror so both agree
+        if (self.slots.note_token(slot, int(tok))
+                and self._hist_dev is not None):
+            self._hist_pending.append((slot, int(tok)))
         self._last_token[slot] = int(tok)
         done = req.done
         req.egress_buf.append(int(tok))
@@ -364,6 +523,15 @@ class Engine:
             self._preempted.remove(p)
             self._flush_egress(p.req)   # coalesced tokens sealed with it must
             p.req.finish_reason = FINISH_ABORTED     # still reach the client
+            # release the blob's shared-page references so parked
+            # ciphertext does not outlive every reader; only a tampered or
+            # garbled blob is tolerated here
+            try:
+                self.kv.discard_sealed(
+                    self.td.sealing_key, p.sealed,
+                    f"kvslot/{p.req.stream_id}/{p.req.seal_epoch - 1}")
+            except (IntegrityError, ValueError):
+                pass
             self.scheduler.finish_detached(p.req)
             self.td.close_stream(p.req.stream_id)
             self.td._log("abort_deadline",
@@ -375,12 +543,12 @@ class Engine:
         and prefill them in one call."""
         head = self.scheduler.peek_waiting(self._admit_filter)
         if (head is None or not self.slots.free
-                or not self.kv.can_admit(head.kv_need)):
+                or not self.kv.can_admit(self._admit_need(head))):
             return 0
         bucket = self._bucket_for(len(head.prompt))
         first = self.scheduler.next_waiting(self._admit_filter)
         self._charge_budget(first)
-        slots = [self.kv.acquire(first.rid, first.kv_need)]
+        slots = [self.kv.acquire(first.rid, self._admit_need(first))]
         assert slots[0] is not None, "admission raced KV accounting"
         group: List[Request] = [first]
         if self.batch_prefill:
@@ -396,11 +564,11 @@ class Engine:
                     break
                 if best_sealed is not None and nxt.priority <= best_sealed:
                     break
-                if not self.kv.can_admit(nxt.kv_need):
+                if not self.kv.can_admit(self._admit_need(nxt)):
                     break
                 nxt = self.scheduler.next_waiting(self._admit_filter)
                 self._charge_budget(nxt)
-                slot = self.kv.acquire(nxt.rid, nxt.kv_need)
+                slot = self.kv.acquire(nxt.rid, self._admit_need(nxt))
                 assert slot is not None, "admission raced KV accounting"
                 group.append(nxt)
                 slots.append(slot)
@@ -416,8 +584,11 @@ class Engine:
         fresh = self.kv.fresh_prefill_cache(rows)
         logits, prefilled = self._prefill_fn(
             self.params, host_upload(tokens, self.device), fresh)
-        first_np = sampling.greedy(logits).cpu().numpy()
-        self.kv.insert_prefill(prefilled, slots, bucket)
+        first_np = self._first_tokens(logits, group, rows)
+        group_keys = None
+        if self.kv.supports_sharing:
+            group_keys = [req.page_keys for req in group]
+        self.kv.insert_prefill(prefilled, slots, bucket, page_keys=group_keys)
         for i, req in enumerate(group):
             self._start_decode(slots[i], req, int(first_np[i]), bucket)
         return len(group)
@@ -427,11 +598,11 @@ class Engine:
         """Common post-prefill setup: the request enters the decode phase —
         it joins the scheduler's running set, its sampling row is set, and
         either its chunked prompt tail starts feeding through decode steps
-        or its first token is emitted."""
+        or its first sampled token is emitted."""
         self.scheduler.start(slot, req)
         req.phase = "decode"
         self._active_mask[slot] = True
-        self.slots.clear_sampling(slot)   # greedy row
+        self._set_slot_sampling(slot, req)
         if len(req.prompt) > bucket:
             # chunked prefill: the tail is fed through the decode loop,
             # one token per step, before any sampling counts as output.
@@ -439,6 +610,40 @@ class Engine:
             self._last_token[slot] = 0   # unused until the tail drains
         else:
             self._emit_token(slot, first_tok)
+
+    def _first_tokens(self, logits, group: List[Request],
+                      rows: int) -> np.ndarray:
+        """Each group member's first token from its prefill logits, sampled
+        with its own SamplingParams at token index 0 (the fold-in the decode
+        loop would use)."""
+        if all(req.gen.params.is_greedy for req in group):
+            return sampling.greedy(logits).cpu().numpy()
+        temp = np.zeros(rows, np.float32)
+        top_k = np.zeros(rows, np.int32)
+        top_p = np.ones(rows, np.float32)
+        key = np.zeros((rows, 2), np.uint32)
+        bias = None
+        for i, req in enumerate(group):
+            p = req.gen.params
+            if not p.is_greedy:
+                temp[i], top_k[i], top_p[i] = p.temperature, p.top_k, p.top_p
+                key[i] = self._base_key(req)
+            if p.logit_bias:
+                if bias is None:
+                    bias = np.zeros((rows, self._vocab), np.float32)
+                for tok, val in p.logit_bias.items():
+                    bias[i, int(tok)] = np.float32(val)
+        kmax, dev = int(top_k.max()), self.device
+        state = sampling.SamplingState(
+            host_upload(temp, dev), host_upload(top_k, dev),
+            host_upload(key, dev, torch.int64),
+            torch.zeros(rows, dtype=torch.int64, device=dev),
+            top_p=host_upload(top_p, dev) if (top_p < 1.0).any() else None,
+            bias=host_upload(bias, dev) if bias is not None else None)
+        return sampling.sample(
+            logits, state,
+            kmax=min(next_pow2(kmax), self._vocab) if kmax else 0
+        ).cpu().numpy()
 
     def _preempt_for(self, incoming: Request) -> bool:
         """Free capacity for ``incoming`` by preempting the lowest-priority
@@ -457,7 +662,7 @@ class Engine:
             return False
         if (self.slots.free and victim_slot not in self._paused
                 and self.kv.supports_partial):
-            shortfall = (self.kv.pages_for(incoming.kv_need)
+            shortfall = (self.kv.pages_for(self._admit_need(incoming))
                          - self.kv.free_page_reserve)
             spare = self.kv.evictable_tail_pages(victim_slot)
             if 0 < shortfall <= spare:
@@ -537,18 +742,58 @@ class Engine:
             cand = self.scheduler.peek_priority(self._admit_filter)
             if (cand is not None
                     and (not self.slots.free
-                         or not self.kv.can_admit(cand.kv_need))
+                         or not self.kv.can_admit(self._admit_need(cand)))
                     and self._preempt_for(cand)):
                 continue
             return
 
     def _drain_kv_events(self) -> None:
-        """Account boundary traffic the backend generated on its own. The
-        one kind this port's backends make is ``materialize`` (a
-        ciphertext-resident page decrypted in place for another reader),
-        which the reference's catch-all branch records as a restore."""
-        for _, nb, n in self.kv.drain_events():
-            self.td.record_restore(nb, n, "shared page rematerialized")
+        """Account boundary traffic the backend generated on its own:
+        shared-page parking (a last live reference dropped while sealed
+        references remain: the page crosses out once, content-named), and
+        re-materialization (parked pages brought back, ciphertext-resident
+        pages decrypted in place), recorded as restores as the reference's
+        catch-all branch does."""
+        for kind, nb, n in self.kv.drain_events():
+            if kind == "park":
+                self.td.record_seal(nb, n, "shared page parked (last ref)")
+            else:
+                self.td.record_restore(nb, n, "shared page rematerialized")
+
+    def _grant_step_pages(self, live: List[int]) -> List[int]:
+        """On-demand allocation: make sure the pool can grant every live
+        slot's append (and copy-on-write) page this step. When it runs dry,
+        evict by slack: the laxest running victim (latest absolute
+        deadline, weakest priority; weakest priority alone under
+        ``admission_order="priority"``) loses just its private tail pages
+        when that covers the shortfall, else its whole slot. Paused slots
+        are candidates too. Returns the live set minus evicted or paused
+        victims."""
+        while True:
+            live = [s for s in live if s in self.scheduler.running
+                    and s not in self._paused]
+            demand = sum(self.kv.step_page_need(s) for s in live)
+            free = self.kv.free_physical_pages
+            if demand <= free:
+                return live
+            candidates = list(self.scheduler.running)
+            assert len(candidates) > 1, \
+                "single-slot page demand exceeded the pool — capacity bug"
+
+            def laxness(slot):
+                r = self.scheduler.running[slot]
+                if self.scheduler.order == "slack":
+                    return (r.abs_deadline, -r.priority, r.rid)
+                return (-r.priority, r.rid)
+            victim = max(candidates, key=laxness)
+            shortfall = demand - free
+            spare = self.kv.evictable_tail_pages(victim)
+            if victim not in self._paused and shortfall <= spare:
+                self.partial_preempt(victim, shortfall)
+            else:
+                sealed, vreq = self.seal_slot(victim)
+                vreq.n_preemptions += 1
+                self._preempted.append(PreemptedRequest(sealed, vreq))
 
     # -- serving loop ----------------------------------------------------------
     def step(self) -> int:
@@ -558,16 +803,23 @@ class Engine:
         t0 = time.monotonic()
         self._admit_ready()
         live = [s for s in self.slots.active if s not in self._paused]
+        if live and self.kv.on_demand:
+            live = self._grant_step_pages(live)
         if not live:
             self._drain_kv_events()
             return 0
         feeding_prompt = {}   # slot -> tail still pending after this step?
+        steps = np.zeros(self.max_slots, np.int32)
         for slot in live:
             req = self.scheduler.running.get(slot)
-            if req is not None and req.pending_input:
+            if req is None:
+                continue
+            steps[slot] = len(req.output)   # fold-in index of the next token
+            if req.pending_input:
                 self._last_token[slot] = req.pending_input.pop(0)
                 feeding_prompt[slot] = bool(req.pending_input)
-        next_np = self.kv.decode(self.params, self._last_token,
+        state, kmax = self._sampling_state(steps)
+        next_np = self.kv.decode(self.params, self._last_token, state, kmax,
                                  write_slots=live)
         produced = 0
         for slot in live:
@@ -597,7 +849,10 @@ class Engine:
                 # every waiting request is rate-budget gated: yield briefly
                 # so the token buckets refill instead of busy-spinning.
                 time.sleep(1e-3)
-        return self.scheduler.stats()
+        stats = self.scheduler.stats()
+        stats.shared_pages = getattr(self.kv, "shared_page_maps", 0)
+        stats.cow_copies = getattr(self.kv, "cow_copies", 0)
+        return stats
 
     # -- sealed KV preemption ----------------------------------------------------
     # The KV cache holds user conversation state; when a slot is preempted
@@ -642,8 +897,12 @@ class Engine:
         return sealed, req
 
     def restore_slot(self, sealed, req: Request) -> int:
-        """Re-admit a sealed-out request into a free slot."""
-        slot = self.kv.acquire(req.rid, req.kv_need)
+        """Re-admit a sealed-out request into a free slot. On-demand pools
+        acquire without a pledge (``can_restore(n_pages=...)`` gated the
+        page takes); reservation pools re-reserve the effective worst
+        case."""
+        slot = self.kv.acquire(req.rid,
+                               0 if self.kv.on_demand else req.kv_need)
         if slot is None:
             raise RuntimeError("no free slot/KV room to restore into")
         prefix = f"kvslot/{req.stream_id}/{req.seal_epoch - 1}"
@@ -659,9 +918,13 @@ class Engine:
         except Exception:
             self.kv.release(slot)   # a failed (e.g. tampered) restore must
             raise                   # not leak the slot
+        # the whole restore succeeded: only now are the dict's shared-page
+        # references spent (a rolled-back restore leaves them for
+        # co-sharers)
+        self.kv.discard_sealed(self.td.sealing_key, sealed, prefix)
         self.scheduler.running[slot] = req
         self._active_mask[slot] = True
-        self.slots.clear_sampling(slot)   # greedy row
+        self._set_slot_sampling(slot, req)
         # next decode input: the prompt tail (if chunked prefill was cut
         # short) takes precedence in step(); otherwise the last output token.
         self._last_token[slot] = req.output[-1] if req.output else 0
@@ -711,3 +974,42 @@ class Engine:
         req = self.submit(request)
         self.run()
         return req.result()
+
+    def stream(self, request: GenerationRequest, *,
+               max_steps: int = 100_000) -> Iterator[int]:
+        """Yields this request's tokens as they cross the trust boundary:
+        per token with the default FramePolicy, in bursts of ``coalesce``
+        with frame coalescing. Other queued requests keep advancing in the
+        same decode batch. The request is submitted eagerly (before the
+        first token is pulled), so it joins the batch even if the caller
+        iterates later. Any on_token the request carries still fires."""
+        if not isinstance(request, GenerationRequest):
+            raise TypeError("stream takes a GenerationRequest "
+                            "(repro_torch.runtime.api)")
+        buf: List[int] = []
+        inner = request.on_token
+
+        def _tap(r, t):
+            buf.append(t)
+            if inner is not None:
+                inner(r, t)
+
+        request.on_token = _tap
+        req = self.submit(request)
+
+        def _drain() -> Iterator[int]:
+            steps = 0
+            while not req.finished:
+                if steps >= max_steps:
+                    raise RuntimeError(f"stream exceeded {max_steps} steps")
+                produced = self.step()
+                steps += 1
+                if produced == 0 and not self.slots.active and not self.idle:
+                    # rate-budget gated (as in run()): let buckets refill
+                    time.sleep(1e-3)
+                while buf:
+                    yield buf.pop(0)
+            while buf:
+                yield buf.pop(0)
+
+        return _drain()

@@ -4,9 +4,10 @@ The engine sees one :class:`KVBackend` interface. The dense slot layout
 (:class:`SlotDenseBackend`) keeps a fixed ``[L, max_slots, max_len, ...]``
 cache, one slot per in-flight sequence, and seals whole slots. The paged
 layout (:class:`~repro_torch.runtime.paged.PagedKVBackend`) keeps a page
-pool and a page table, seals per page, and can evict a victim's tail pages
-only. Prefix sharing and on-demand allocation, the page store and the
-sharded wrapper arrive with ROADMAP.md queue A items 10b, 11 and 18.
+pool and a page table, seals per page, can evict a victim's tail pages
+only, and (``prefix_sharing=True``) maps equal prompt prefixes onto shared
+pages with copy-on-write and step-time page grants. The page store and the
+sharded wrapper arrive with ROADMAP.md queue A items 11 and 18.
 
 Cache trees follow the model layout contract: top-level key "pos" is
 batch-major [b]; every other leaf is layer-stacked with batch at axis 1
@@ -40,10 +41,9 @@ class SlotState:
     Owned by the KV backend — a backend maps sequences to whatever physical
     layout it likes, but every live sequence holds exactly one row here.
     The arrays are host-side numpy mirrors, copied verbatim from the
-    reference; the port's engine serves greedy requests only (seeded
-    sampling: ROADMAP.md queue A item 6), so its rows stay greedy. A
-    released row resets to greedy (temp 0, top_p 1) so stale settings can
-    never leak into the next occupant."""
+    reference; the engine snapshots them into a ``sampling.SamplingState``
+    of device tensors each step. A released row resets to greedy (temp 0,
+    top_p 1) so stale settings can never leak into the next occupant."""
     free: List[int]
     active: dict  # slot -> request id
     temp: np.ndarray    # [slots] f32; <= 0 → greedy
@@ -294,6 +294,8 @@ class KVBackend:
 
     name: str = "?"
     supports_partial = False   # page-granular (tail) eviction available?
+    supports_sharing = False   # content-indexed prefix page sharing on?
+    on_demand = False          # step-time page grants (vs admission reserve)
 
     def __init__(self, model, max_slots: int, max_len: int,
                  plan: Optional[SingleDevicePlan] = None):
@@ -321,10 +323,52 @@ class KVBackend:
         is the page count the sequence held at seal time."""
         return True
 
-    def admission_check(self, need: int) -> Tuple[bool, int]:
+    def page_keys(self, tokens: np.ndarray,
+                  written_len: int) -> Optional[List[bytes]]:
+        """Content keys for a prompt's prefill pages, or None when the
+        backend does no prefix sharing."""
+        return None
+
+    def resident_pages(self, page_keys: Optional[Sequence[Any]]) -> int:
+        """How many of these content keys are resident in the sharing
+        index right now (0 without sharing)."""
+        return 0
+
+    @property
+    def free_physical_pages(self) -> int:
+        """Free pages an on-demand grant can draw on (page backends)."""
+        return 0
+
+    def step_page_need(self, slot: int) -> int:
+        """Pages the next decode step takes for this slot's append (fresh
+        page or copy-on-write); summed by the engine's step-time grant."""
+        return 0
+
+    def evictable_tail_pages(self, slot: int) -> int:
+        """Tail pages a partial eviction may seal off this slot."""
+        return 0
+
+    def admission_check(self, need: int,
+                        page_keys: Optional[Sequence[Any]] = None
+                        ) -> Tuple[bool, int]:
         """(fits, effective_need): can ``need`` worst-case KV positions ever
-        be served, and what does the request effectively demand?"""
+        be served, and what does the request effectively demand once
+        resident shared pages are discounted?"""
         return need <= self.request_capacity, need
+
+    def prompt_budget(self, max_new_tokens: int,
+                      buckets: Sequence[int]) -> int:
+        """Longest prompt a submit will accept for ``max_new_tokens``,
+        counting prefill-bucket padding (a short prompt still fills its
+        whole left-padded bucket). Prefix sharing does not raise this
+        bound: every page of one sequence holds its own table mapping,
+        shared or not; it lowers the effective demand
+        (:meth:`admission_check`)."""
+        cand = self.request_capacity - max_new_tokens + 1  # last token: no KV
+        if cand >= buckets[-1]:
+            return cand
+        fits = [b for b in buckets if b <= cand]
+        return fits[-1] if fits else 0
 
     # -- sequence lifecycle ---------------------------------------------------
     def acquire(self, rid: int, n_tokens: int) -> Optional[int]:
@@ -339,8 +383,11 @@ class KVBackend:
         return self.model.init_cache(rows, self.max_len)
 
     def insert_prefill(self, prefilled: Cache, slots: List[int],
-                       written_len: int) -> None:
-        """Splice a prefilled dense group into backend storage."""
+                       written_len: int,
+                       page_keys: Optional[List[Any]] = None) -> None:
+        """Splice a prefilled dense group into backend storage.
+        ``page_keys`` (sharing backends) has one entry per slot: the
+        prompt's content keys, or None for a request that opted out."""
         raise NotImplementedError
 
     def drain_events(self) -> List[Tuple[str, int, int]]:
@@ -349,12 +396,21 @@ class KVBackend:
         backend). The engine drains this into TrustDomain accounting."""
         return []
 
+    def discard_sealed(self, key: SealingKey, sealed: Dict[str, SealedTensor],
+                       prefix: str) -> None:
+        """A sealed dict is spent (restored in full, or dropped unrestored
+        by a deadline abort): release the references it holds (shared-page
+        sealed refcounts on the sharing backend). Default: nothing."""
+
     def decode(self, params: Params, tokens: np.ndarray,
+               state: Optional[sampling.SamplingState], kmax: int,
                write_slots: Sequence[int]) -> np.ndarray:
-        """One batched greedy decode step over all ``max_slots`` rows.
-        ``write_slots`` are the slots genuinely appending a KV position this
-        step (active, not paused); a backend may route other rows' writes
-        to a scratch location. Returns the next token per row."""
+        """One batched decode+sample step over all ``max_slots`` rows:
+        greedy when ``state`` is None, else :func:`sampling.sample` with the
+        static top-k bound ``kmax``. ``write_slots`` are the slots genuinely
+        appending a KV position this step (active, not paused); a backend
+        may route other rows' writes to a scratch location. Returns the
+        sampled token per row."""
         raise NotImplementedError
 
     # -- sealing --------------------------------------------------------------
@@ -383,21 +439,22 @@ class SlotDenseBackend(KVBackend):
         super().__init__(model, max_slots, max_len, plan)
         self.cache = model.init_cache(max_slots, max_len)
 
-        def _decode(params, tokens, cache):
+        def _decode(params, tokens, cache, state, kmax):
             logits, cache = model.decode_step(params, tokens, cache)
-            return sampling.greedy(logits)
+            return sampling.pick(logits, state, kmax)
 
         self._decode_fn = self.plan.compile_decode(_decode)
 
     def insert_prefill(self, prefilled: Cache, slots: List[int],
-                       written_len: int) -> None:
+                       written_len: int, page_keys=None) -> None:
         # one indexed copy per leaf for the whole group
         insert_rows(self.cache, prefilled,
                     host_upload(slots, self.device, torch.int64))
 
-    def decode(self, params, tokens, write_slots) -> np.ndarray:
+    def decode(self, params, tokens, state, kmax, write_slots) -> np.ndarray:
         next_tokens = self._decode_fn(
-            params, host_upload(tokens[:, None], self.device), self.cache)
+            params, host_upload(tokens[:, None], self.device), self.cache,
+            state, kmax)
         return next_tokens.cpu().numpy()
 
     def seal(self, key, slot, prefix) -> Dict[str, SealedTensor]:

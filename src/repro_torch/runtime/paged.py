@@ -1,4 +1,4 @@
-"""Paged KV backend (port of ``repro.runtime.paged``, reservation mode).
+"""Paged KV backend (port of ``repro.runtime.paged``).
 
 Layout. Every cache leaf with a sequence-length axis (attention ``k``/``v``)
 is stored as a pool ``[L, num_pages + 1, page_size, ...]``: physical page 0
@@ -7,12 +7,21 @@ is the null page (the write target of rows that are not appending), pages
 int32 page table maps each sequence's logical pages to physical ones
 (entry 0 = unmapped); positions live host-side too.
 
-Allocation. Admission reserves ``ceil(need / page_size)`` pages, the
-request's worst case, and physical pages are mapped as positions are
-written, so an append can never fail (allocated <= reserved <= num_pages).
-Prefix sharing, copy-on-write and on-demand allocation are not ported
-(ROADMAP.md queue A item 10b); the content-index attributes below stay empty
-so the reference's pool invariants read the same here.
+Allocation (``alloc=``). ``"reserve"`` (the default): admission reserves
+``ceil(need / page_size)`` pages, the request's worst case, and physical
+pages are mapped as positions are written, so an append can never fail
+(allocated <= reserved <= num_pages). ``"ondemand"`` (implied by
+``prefix_sharing``): admission promises only the prompt's pages, and the
+engine grants each step's appends and copies (``step_page_need``), evicting
+by slack when the pool runs dry.
+
+Prefix sharing (``prefix_sharing=True``). A content index maps the running
+hash of the prompt's token ids up to the end of each page
+(:func:`prefix_page_keys`) to one physical page with a refcount equal to
+its live table mappings. ``insert_prefill`` maps an index hit instead of
+writing a copy; an append into an indexed page (only ever the partial
+prompt page) copies it first while other mappings remain (copy-on-write),
+or unregisters it when the writer is its sole user.
 
 Decode (``decode=``). ``"gather"`` gathers each slot's pages into the dense
 ``[L, max_slots, max_len, ...]`` view the model's ``decode_step`` expects,
@@ -21,26 +30,33 @@ runs it, and writes the one appended position back into the pool in place.
 ``kernels/paged_attention.py`` (kernels B3 and B4 on the card), which walk
 the page table without a gather: write-then-attend, as the gather path.
 
-Sealing. Preemption seals per page: each page of each paged leaf becomes its
-own ciphertext + MAC under ``{prefix}{leaf}/p{ordinal}``, with a meta blob
-``[pos, n_alloc, 0]``. In kernel mode a whole-slot restore MAC-checks each
-full page and places its ciphertext bits straight into the pool with a
-sidecar row (nonce + live flag); B4 decrypts it on every read. Any other
-reader of such a page (seal, partial eviction, an append) first
-materializes it: decrypts it in place through the ChaCha20 kernel (B1).
-``seal_tail_pages``/``restore_tail_pages`` evict and bring back a victim's
-tail pages only.
+Sealing. Preemption seals per page: each private page of each paged leaf
+becomes its own ciphertext + MAC under ``{prefix}{leaf}/p{ordinal}``, with a
+meta blob ``[pos, n_alloc, n_shared, (ordinal, refcount)...]``. Shared pages
+seal by reference: their content keys ride in a ``/sharedkeys`` blob, and
+restore re-links the resident page. A shared page's data crosses the
+boundary only when its last live mapping drops while sealed references
+remain: it is parked once under its content-derived name and brought back
+by the first restore that needs it. In kernel mode a whole-slot restore
+MAC-checks each full private page and places its ciphertext bits straight
+into the pool with a sidecar row (nonce + live flag); B4 decrypts it on
+every read. Any other reader of such a page (seal, partial eviction, an
+append) first materializes it: decrypts it in place through the ChaCha20
+kernel (B1). ``seal_tail_pages``/``restore_tail_pages`` evict and bring
+back a victim's (private) tail pages only.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.sealing import (SealedTensor, SealingKey,
-                                      nonce_words_for, seal_tensor,
+from repro_torch.core.sealing import (IntegrityError, SealedTensor,
+                                      SealingKey, nonce_words_for,
+                                      seal_tensor, shared_page_name,
                                       tree_leaves_with_names, unseal_tensor,
                                       verify_mac)
 from repro_torch.kernels import ops
@@ -65,6 +81,21 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP.md queue A item {item})")
 
 
+def prefix_page_keys(tokens: np.ndarray, page_size: int, written_len: int,
+                     salt: bytes = b"") -> List[bytes]:
+    """Content keys for the pages covering ``tokens[:written_len]``: key j is
+    the running sha256 of every token id up to the end of page j (KV at a
+    position depends on all earlier tokens, so only a true prefix may
+    share), truncated to 16 bytes; the last page may be partial."""
+    toks = np.ascontiguousarray(np.asarray(tokens, np.int32)[:written_len])
+    h = hashlib.sha256(salt)
+    keys = []
+    for j in range(-(-int(written_len) // page_size)):
+        h.update(toks[j * page_size:(j + 1) * page_size].tobytes())
+        keys.append(h.digest()[:16])
+    return keys
+
+
 def _with_leaves(tree: Cache, fn, path: str = "") -> Cache:
     """Rebuild a nested dict, each leaf replaced by ``fn(keystr, leaf)``."""
     if isinstance(tree, dict):
@@ -79,7 +110,6 @@ class PagedKVBackend(KVBackend):
 
     name = "paged"
     supports_partial = True
-    on_demand = False      # reservation mode only (pool invariants read it)
 
     def __init__(self, model, max_slots: int, max_len: int, *,
                  page_size: int = 16, num_pages: Optional[int] = None,
@@ -102,12 +132,14 @@ class PagedKVBackend(KVBackend):
             raise ValueError(f"alloc must be 'reserve' or 'ondemand', "
                              f"got {alloc!r}")
         if prefix_sharing and alloc != "ondemand":
+            # copy-on-write turns a shared mapping into a private page at
+            # step time, which no admission-time worst case can cover
             raise ValueError("prefix_sharing requires alloc='ondemand'")
-        if alloc == "ondemand":
-            raise _not_ported("prefix sharing and on-demand page allocation",
-                              "10b")
         if page_store or store_budget_pages is not None:
             raise _not_ported("the sealed page store", "11")
+        self.on_demand = alloc == "ondemand"
+        self.prefix_sharing = prefix_sharing
+        self.supports_sharing = prefix_sharing
         self.page_size = page_size
         self.max_pages = max_len // page_size
         if num_pages is None:
@@ -115,6 +147,7 @@ class PagedKVBackend(KVBackend):
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
         self.num_pages = num_pages
+        self._key_salt = f"{model.cfg.name}|{page_size}|{max_len}".encode()
 
         # classify leaves once; paged leaves move to pool layout
         template = model.abstract_cache(max_slots, max_len)
@@ -137,16 +170,27 @@ class PagedKVBackend(KVBackend):
         self._alloc = np.zeros(max_slots, np.int32)        # pages mapped
         self._reserved = np.zeros(max_slots, np.int32)     # pages promised
         self._reserve_free = num_pages
-        # _page_ref counts live table mappings per physical page (a private
-        # page holds exactly 1). The content index (_index/_page_key),
-        # sealed references and parked blobs belong to prefix sharing and
-        # stay empty in this port.
+        # on-demand admission promises: pages pledged to an admitted but not
+        # yet prefilled slot, so a batched admission group cannot overcommit
+        # the free list between acquire() and insert_prefill()
+        self._promised = np.zeros(max_slots, np.int32)
+        self._promised_total = 0
+        # prefix sharing: _page_ref counts live table mappings per physical
+        # page (a private page holds 1); _index/_page_key is the content
+        # index both ways; _sealed_refs counts sealed-out requests whose
+        # meta references a content key; _parked holds the content-named
+        # ciphertext of pages whose last live mapping dropped while sealed
+        # references remain. The page store (queue A item 11) is the tier
+        # behind these.
         self._page_ref = np.zeros(num_pages + 1, np.int32)
         self._index: Dict[bytes, int] = {}
         self._page_key: Dict[int, bytes] = {}
         self._sealed_refs: Dict[bytes, int] = {}
         self._parked: Dict[bytes, Dict[str, SealedTensor]] = {}
+        self._seal_key_cache: Optional[SealingKey] = None
         self._events: List[Tuple[str, int, int]] = []  # (kind, nbytes, n)
+        self.shared_page_maps = 0     # mappings served by an index hit
+        self.cow_copies = 0           # tail-page copy-on-write events
         self.pages_written = 0        # physical pages taken + written
 
         # ciphertext-resident pages (kernel mode): _cipher_pages holds the
@@ -247,7 +291,10 @@ class PagedKVBackend(KVBackend):
 
     @property
     def free_page_reserve(self) -> int:
-        """Pages an admission may still promise (unreserved pages)."""
+        """Pages an admission may still promise: unreserved pages in reserve
+        mode, unpromised free physical pages on demand."""
+        if self.on_demand:
+            return len(self._free_pages) - self._promised_total
         return self._reserve_free
 
     @property
@@ -262,19 +309,45 @@ class PagedKVBackend(KVBackend):
         # a sequence can neither outgrow max_len nor out-reserve the pool
         return min(self.max_len, self.num_pages * self.page_size)
 
-    def admission_check(self, need: int) -> Tuple[bool, int]:
-        return need <= self.request_capacity, max(1, int(need))
+    def page_keys(self, tokens: np.ndarray, written_len: int
+                  ) -> Optional[List[bytes]]:
+        """Content keys for a prompt's prefill pages (None when sharing is
+        off)."""
+        if not self.prefix_sharing:
+            return None
+        return prefix_page_keys(tokens, self.page_size, written_len,
+                                self._key_salt)
+
+    def resident_pages(self, page_keys: Optional[Sequence[bytes]]) -> int:
+        """How many of these content keys are resident in the index now."""
+        if not page_keys:
+            return 0
+        return sum(1 for k in page_keys if k in self._index)
+
+    def admission_check(self, need: int, page_keys: Optional[Sequence[bytes]]
+                        = None) -> Tuple[bool, int]:
+        """(fits, effective_need). Sharing does not relax the capacity bound
+        (every page of one sequence holds its own table mapping); it
+        discounts the effective demand by the resident shared positions."""
+        eff = max(1, int(need) - self.resident_pages(page_keys)
+                  * self.page_size)
+        return need <= self.request_capacity, eff
 
     def can_admit(self, n_tokens: int) -> bool:
         return self.pages_for(n_tokens) <= self.free_page_reserve
 
     def can_restore(self, n_tokens: int,
                     n_pages: Optional[int] = None) -> bool:
-        return self.pages_for(n_tokens) <= self._reserve_free
+        if not self.on_demand:
+            return self.pages_for(n_tokens) <= self._reserve_free
+        pages = n_pages if n_pages is not None else self.pages_for(n_tokens)
+        # headroom: one page per active slot, so the restore is not evicted
+        # straight back by the next step's appends
+        return pages + len(self.slots.active) <= len(self._free_pages)
 
     def _take_pages(self, n: int) -> List[int]:
         assert n <= len(self._free_pages), \
-            "page allocation exceeded reservation — accounting bug"
+            "page allocation exceeded reservation/grant — accounting bug"
         taken, self._free_pages = self._free_pages[:n], self._free_pages[n:]
         for p in taken:
             self._page_ref[p] = 1
@@ -282,17 +355,51 @@ class PagedKVBackend(KVBackend):
         return taken
 
     def _drop_ref(self, phys: int) -> None:
+        """One table mapping of ``phys`` goes away; the page is freed (and
+        unregistered, parked first if sealed references remain) only when
+        its last mapping drops."""
         phys = int(phys)
         self._page_ref[phys] -= 1
         assert self._page_ref[phys] >= 0, "double-free — refcount bug"
         if self._page_ref[phys] == 0:
+            self._unregister(phys)
             self._clear_crypt(phys)
             self._free_pages.append(phys)
 
+    def _unregister(self, phys: int) -> None:
+        """The page leaves the content index (its last mapping dropped, or
+        its sole user is about to write into it); parked first while sealed
+        references remain. The page store's publish (queue A item 11)
+        belongs here."""
+        key = self._page_key.pop(phys, None)
+        if key is None:
+            return
+        del self._index[key]
+        if self._sealed_refs.get(key, 0) > 0:
+            self._park(key, phys)
+
+    def _park(self, key_bytes: bytes, phys: int) -> None:
+        """The last live mapping of a sealed-referenced shared page drops:
+        its data crosses the boundary once, under its content-derived name
+        (same content => same nonce and same plaintext, so parking the same
+        content again can never pair one nonce with two plaintexts)."""
+        key = self._seal_key_cache
+        assert key is not None, \
+            "sealed refs exist but no sealing key was ever seen"
+        if key_bytes in self._parked:
+            return
+        pages = self._page_arrays([phys])
+        blobs = {kpath: seal_tensor(key, shared_page_name(key_bytes, kpath),
+                                    arr[:, 0])
+                 for kpath, arr in pages.items()}
+        self._parked[key_bytes] = blobs
+        self._events.append(("park", sum(b.n_bytes for b in blobs.values()),
+                             len(blobs)))
+
     def drain_events(self) -> List[Tuple[str, int, int]]:
         """Boundary traffic generated outside an explicit seal/restore call
-        (page materialization); the engine drains it into the TrustDomain
-        accounting."""
+        (parking, re-materialization and in-place page decryption); the
+        engine drains it into the TrustDomain accounting."""
         ev, self._events = self._events, []
         return ev
 
@@ -304,8 +411,14 @@ class PagedKVBackend(KVBackend):
         slot = self.slots.acquire(rid)
         if slot is None:
             return None
-        self._reserved[slot] = need
-        self._reserve_free -= need
+        if self.on_demand:
+            # promise only the prompt's pages; decode pages are granted at
+            # step time
+            self._promised[slot] = need
+            self._promised_total += need
+        else:
+            self._reserved[slot] = need
+            self._reserve_free -= need
         return slot
 
     def release(self, slot: int) -> None:
@@ -315,26 +428,50 @@ class PagedKVBackend(KVBackend):
         self._alloc[slot] = 0
         self._reserve_free += int(self._reserved[slot])
         self._reserved[slot] = 0
+        self._promised_total -= int(self._promised[slot])
+        self._promised[slot] = 0
         self.pos[slot] = 0
         self.slots.release(slot)
 
     # -- device compute -------------------------------------------------------
     @torch.inference_mode()
     def insert_prefill(self, prefilled: Cache, slots: List[int],
-                       written_len: int) -> None:
-        """Take fresh pages for each slot's prompt (slot by slot, in order)
-        and copy the prefilled rows' pages into them."""
+                       written_len: int,
+                       page_keys: Optional[List[Optional[List[bytes]]]] = None
+                       ) -> None:
+        """Map each slot's prompt pages (slot by slot, in order): a page
+        whose content key is resident (or registered by an earlier member
+        of this group) maps the shared page; any other takes a fresh page,
+        registered under its key, and gets the prefilled rows copied in."""
         n_pages = self.pages_for(written_len)
         src_rows, page_ord, phys = [], [], []
         for i, slot in enumerate(slots):
-            for j, p in enumerate(self._take_pages(n_pages)):
+            keys = page_keys[i] if page_keys else None
+            hits = [keys is not None and keys[j] in self._index
+                    for j in range(n_pages)]
+            taken = self._take_pages(n_pages - sum(hits))
+            for j in range(n_pages):
+                if hits[j]:
+                    p = self._index[keys[j]]
+                    self._page_ref[p] += 1
+                    self.table[slot, j] = p
+                    self.shared_page_maps += 1
+                    continue
+                p = taken.pop(0)
                 self.table[slot, j] = p
+                if keys is not None:
+                    self._index[keys[j]] = p
+                    self._page_key[p] = keys[j]
                 src_rows.append(i)
                 page_ord.append(j)
                 phys.append(p)
             self._alloc[slot] = n_pages
             self.pos[slot] = written_len
+            self._promised_total -= int(self._promised[slot])
+            self._promised[slot] = 0
         self.pages_written += len(phys)
+        if not phys:
+            return
         idx = [torch.as_tensor(x, dtype=torch.long, device=self.device)
                for x in (src_rows, page_ord, phys)]
         for path, src in tree_leaves_with_names(prefilled):
@@ -345,26 +482,53 @@ class PagedKVBackend(KVBackend):
                                     *src.shape[3:])
                 pool[:, idx[2]] = pages[:, idx[0], idx[1]].to(pool.dtype)
 
+    def step_page_need(self, slot: int) -> int:
+        """Physical pages decode() takes for this slot's next append: 1 for
+        a fresh page at a page boundary, 1 for a copy-on-write of a page
+        other live mappings still read, else 0."""
+        ordinal = int(self.pos[slot]) // self.page_size
+        if ordinal >= int(self._alloc[slot]):
+            return 1
+        p = int(self.table[slot, ordinal])
+        return int(p in self._page_key and self._page_ref[p] > 1)
+
+    @torch.inference_mode()
     def _prepare_write(self, slot: int) -> Tuple[int, int]:
-        """The physical (page, offset) of this slot's append, mapping a
-        fresh page at a page boundary."""
+        """The physical (page, offset) of this slot's append: a fresh page
+        at a page boundary; a write into an indexed page copies it first
+        while other mappings remain (copy-on-write, queued on the pool's
+        stream ahead of the decode step that appends into the copy), or
+        unregisters it when the writer is its sole user."""
         ordinal = int(self.pos[slot]) // self.page_size
         if ordinal >= int(self._alloc[slot]):
             assert ordinal == int(self._alloc[slot])
-            assert ordinal < int(self._reserved[slot])
+            assert self.on_demand or ordinal < int(self._reserved[slot])
             self.table[slot, ordinal] = self._take_pages(1)[0]
             self._alloc[slot] = ordinal + 1
             self.pages_written += 1
         p = int(self.table[slot, ordinal])
+        if p in self._page_key:
+            if self._page_ref[p] > 1:
+                new = self._take_pages(1)[0]
+                for pool in self._pools.values():
+                    pool[:, new] = pool[:, p]
+                self._page_ref[p] -= 1
+                self.table[slot, ordinal] = new
+                self.cow_copies += 1
+                self.pages_written += 1
+                p = new
+            else:
+                self._unregister(p)
         # backstop: an append never lands in ciphertext (restore admits only
         # FULL pages as ciphertext, so the next append maps a fresh page)
         if p in self._cipher_pages:
             self._materialize_page(p)
         return p, int(self.pos[slot]) % self.page_size
 
-    def decode(self, params, tokens, write_slots: Sequence[int]) -> np.ndarray:
+    def decode(self, params, tokens, state, kmax,
+               write_slots: Sequence[int]) -> np.ndarray:
         logits = self.decode_logits(params, tokens, write_slots)
-        return sampling.greedy(logits).cpu().numpy()
+        return sampling.pick(logits, state, kmax).cpu().numpy()
 
     def decode_logits(self, params, tokens,
                       write_slots: Sequence[int]) -> torch.Tensor:
@@ -467,30 +631,62 @@ class PagedKVBackend(KVBackend):
     def _unseal_meta(self, key: SealingKey, st: SealedTensor) -> np.ndarray:
         return unseal_tensor(key, st).cpu().numpy()
 
-    def seal(self, key, slot, prefix) -> Dict[str, SealedTensor]:
+    def seal(self, key, slot, prefix,
+             detach: bool = False) -> Dict[str, SealedTensor]:
+        if detach:
+            raise _not_ported("by-value (detached) seals for migration", "14")
+        self._seal_key_cache = key
         n_alloc = int(self._alloc[slot])
-        # meta v2: [pos, n_alloc, n_shared]; no page is shared in this port
+        shared, private = [], []
+        for j in range(n_alloc):
+            (shared if int(self.table[slot, j]) in self._page_key
+             else private).append(j)
+        # meta v2: [pos, n_alloc, n_shared, (ordinal, refcount) per shared
+        # page]; the content keys ride in their own sealed blob. The
+        # refcount is the seal-time count (a diagnostic: it moves while
+        # this request is out).
+        meta = [int(self.pos[slot]), n_alloc, len(shared)]
+        keys_cat = b""
+        for j in shared:
+            p = int(self.table[slot, j])
+            k = self._page_key[p]
+            meta += [j, int(self._page_ref[p])]
+            keys_cat += k
+            self._sealed_refs[k] = self._sealed_refs.get(k, 0) + 1
         meta_name = f"{prefix}/meta"
-        sealed = {meta_name: self._seal_meta(
-            key, meta_name, [int(self.pos[slot]), n_alloc, 0])}
+        sealed = {meta_name: self._seal_meta(key, meta_name, meta)}
+        if shared:
+            keys_name = f"{prefix}/sharedkeys"
+            sealed[keys_name] = seal_tensor(
+                key, keys_name, np.frombuffer(keys_cat, np.uint8),
+                device=self.device)
         sealed.update(self._seal_pages(
-            key, prefix, list(range(n_alloc)),
-            [int(self.table[slot, j]) for j in range(n_alloc)]))
+            key, prefix, private,
+            [int(self.table[slot, j]) for j in private]))
         return sealed
+
+    def _shared_keys(self, key: SealingKey, sealed: Dict[str, SealedTensor],
+                     name: str) -> List[bytes]:
+        cat = unseal_tensor(key, sealed[name]).cpu().numpy().tobytes()
+        return [cat[16 * i:16 * (i + 1)] for i in range(len(cat) // 16)]
 
     @torch.inference_mode()
     def restore(self, key, sealed, slot, prefix, n_tokens) -> None:
-        # the reservation was re-made when the engine re-acquired the slot;
-        # decrypt-then-commit: every MAC is verified before any accounting
-        # state moves, so a tampered blob fails the restore cleanly.
+        # the reservation was re-made when the engine re-acquired the slot
+        # (reserve mode); decrypt-then-commit: every MAC is verified before
+        # any accounting state moves, so a tampered blob fails the restore
+        # without leaking the slot, a page or a refcount.
+        self._seal_key_cache = key
         meta = self._unseal_meta(key, sealed[f"{prefix}/meta"])
         pos, n_alloc, n_shared = int(meta[0]), int(meta[1]), int(meta[2])
-        if n_shared:
-            raise _not_ported("restoring shared (by-reference) pages", "10b")
-        ords = list(range(n_alloc))
-        # kernel mode on a fused-capable pool: FULL pages are MAC-gated here
-        # but admitted as ciphertext; the partial tail page (the next append
-        # writes into it) takes the host path.
+        shared_ords = [int(meta[3 + 2 * i]) for i in range(n_shared)]
+        keys = (self._shared_keys(key, sealed, f"{prefix}/sharedkeys")
+                if n_shared else [])
+        shared_set = set(shared_ords)
+        ords = [j for j in range(n_alloc) if j not in shared_set]
+        # kernel mode on a fused-capable pool: FULL private pages are
+        # MAC-gated here but admitted as ciphertext; the partial tail page
+        # (the next append writes into it) takes the host path.
         fused_set = (
             {j for j in ords if (j + 1) * self.page_size <= pos}
             if self.decode_mode == "kernel" and self.supports_fused
@@ -516,18 +712,70 @@ class PagedKVBackend(KVBackend):
             else:
                 pages[j] = {kpath: unseal_tensor(key, st)
                             for kpath, st in blobs.items()}
-        # phase 2: commit: map, write, and account
-        assert n_alloc <= int(self._reserved[slot]), \
+        # shared ordinals: re-link a page resident in the index, or bring
+        # back (MAC-checked, here in phase 1) a parked one. Whatever is
+        # neither is lost content; the page store's third tier (queue A
+        # item 11) belongs here.
+        relink: Dict[int, bytes] = {}
+        remat: Dict[int, Tuple[bytes, Dict[str, torch.Tensor]]] = {}
+        for j, k in zip(shared_ords, keys):
+            if k in self._index:
+                relink[j] = k
+            elif k in self._parked:
+                remat[j] = (k, {kpath: unseal_tensor(key, st)
+                                for kpath, st in self._parked[k].items()})
+            else:
+                raise IntegrityError(
+                    f"shared page (ordinal {j}) is neither resident nor "
+                    f"parked: sealed state references lost content")
+        # phase 2: commit: map, write, and account. Sealed references are
+        # released by discard_sealed once the engine's whole restore
+        # succeeded, so a rolled-back restore leaves parked blobs intact.
+        assert self.on_demand or n_alloc <= int(self._reserved[slot]), \
             "restore into a smaller reservation — accounting bug"
+        taken = iter(self._take_pages(len(ords) + len(remat)))
         writes: Dict[int, Dict[str, torch.Tensor]] = {}
-        for j, p in zip(ords, self._take_pages(n_alloc)):
+        for j in ords:
+            p = next(taken)
             self.table[slot, j] = p
             writes[p] = (self._admit_cipher_page(key, p, fused_blobs[j])
                          if j in fused_set else pages[j])
+        for j in shared_ords:
+            if j in relink:
+                p = self._index[relink[j]]
+                self._page_ref[p] += 1
+                self.table[slot, j] = p
+                self.shared_page_maps += 1
+                continue
+            k, plain = remat[j]
+            p = next(taken)
+            self.table[slot, j] = p
+            self._index[k] = p
+            self._page_key[p] = k
+            writes[p] = plain
+            self._events.append(("rematerialize",
+                                 sum(st.n_bytes
+                                     for st in self._parked[k].values()),
+                                 len(self._parked[k])))
         self._alloc[slot] = n_alloc
         self.pos[slot] = pos
         self.pages_written += len(writes)
         self._scatter_pages(writes)
+
+    def discard_sealed(self, key: SealingKey, sealed: Dict[str, SealedTensor],
+                       prefix: str) -> None:
+        """Release a spent sealed dict's shared-content references (after a
+        fully successful restore, or when a sealed-out request is dropped
+        unrestored): parked ciphertext dies with its last reference."""
+        name = f"{prefix}/sharedkeys"
+        if name not in sealed:
+            return
+        for k in self._shared_keys(key, sealed, name):
+            if k in self._sealed_refs:
+                self._sealed_refs[k] -= 1
+                if self._sealed_refs[k] <= 0:
+                    del self._sealed_refs[k]
+                    self._parked.pop(k, None)
 
     @torch.inference_mode()
     def _scatter_pages(self, writes: Dict[int, Dict[str, torch.Tensor]]
@@ -543,9 +791,16 @@ class PagedKVBackend(KVBackend):
 
     # -- partial eviction -----------------------------------------------------
     def evictable_tail_pages(self, slot: int) -> int:
-        """How many tail pages ``seal_tail_pages`` may take: every page is
-        private here, and the victim always keeps one resident page."""
-        return max(0, int(self._alloc[slot]) - 1)
+        """How many tail pages ``seal_tail_pages`` may take: trailing
+        private pages only (a shared page cannot be torn out of other
+        readers' tables), and the victim always keeps one resident page."""
+        n_alloc = int(self._alloc[slot])
+        trailing = 0
+        for j in range(n_alloc - 1, -1, -1):
+            if int(self.table[slot, j]) in self._page_key:
+                break
+            trailing += 1
+        return max(0, min(trailing, n_alloc - 1))
 
     def seal_tail_pages(self, key: SealingKey, slot: int, prefix: str,
                         n_pages: int) -> Dict[str, SealedTensor]:
@@ -553,11 +808,17 @@ class PagedKVBackend(KVBackend):
         pages and their reservation go back to the pool while the victim
         keeps its slot and head pages. It must not decode until
         :meth:`restore_tail_pages` brings the delta back."""
+        self._seal_key_cache = key
         n_alloc = int(self._alloc[slot])
         if not (0 < n_pages < n_alloc):
             raise ValueError(
                 f"partial eviction wants 0 < n_pages < allocated "
                 f"({n_alloc}), got {n_pages}")
+        if n_pages > self.evictable_tail_pages(slot):
+            raise ValueError(
+                f"partial eviction of {n_pages} pages would cross into the "
+                f"shared prefix (only {self.evictable_tail_pages(slot)} "
+                f"trailing private pages)")
         ordinals = list(range(n_alloc - n_pages, n_alloc))
         phys = [int(p) for p in self.table[slot, ordinals]]
         meta_name = f"{prefix}/pagemeta"
@@ -568,12 +829,17 @@ class PagedKVBackend(KVBackend):
         self._alloc[slot] = n_alloc - n_pages
         for p in phys:
             self._drop_ref(p)
-        self._reserved[slot] -= n_pages
-        self._reserve_free += n_pages
+        if not self.on_demand:
+            self._reserved[slot] -= n_pages
+            self._reserve_free += n_pages
         return sealed
 
     def can_restore_tail(self, n_pages: int) -> bool:
-        return n_pages <= self._reserve_free
+        if not self.on_demand:
+            return n_pages <= self._reserve_free
+        # restore headroom as in can_restore, while other slots are live
+        headroom = 1 if len(self.slots.active) > 1 else 0
+        return n_pages + headroom <= len(self._free_pages)
 
     @torch.inference_mode()
     def restore_tail_pages(self, key: SealingKey,
@@ -583,9 +849,10 @@ class PagedKVBackend(KVBackend):
         pages; returns the page count. ``reserve=False`` skips re-reserving
         (the tail rides along a whole-slot restore whose ``acquire``
         already reserved the sequence's worst case)."""
+        self._seal_key_cache = key
         meta = self._unseal_meta(key, sealed[f"{prefix}/pagemeta"])
         start, n_pages = int(meta[0]), int(meta[1])
-        if reserve:
+        if reserve and not self.on_demand:
             assert self.can_restore_tail(n_pages), \
                 "restore_tail without can_restore_tail — accounting bug"
             self._reserved[slot] += n_pages

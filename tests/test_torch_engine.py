@@ -180,22 +180,27 @@ def test_out_of_slice_options_raise(models):
     paged = dict(kv_backend="paged", page_size=8)
     for bad in (dict(mesh="dp=2"), dict(continuous_batching=True),
                 dict(prefill_plan="dedicated"),
-                dict(paged, prefix_sharing=True),
-                dict(paged, kv_alloc="ondemand"), dict(paged, page_store=True)):
+                dict(paged, page_store=True),
+                dict(paged, prefix_sharing=True, page_store=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(tm, tp, **kw, **bad)
-    # the paged backend is in the slice; its options need kv_backend="paged"
+    # the paged backend is in the slice, with sharing and on-demand pages;
+    # its options need kv_backend="paged"
     for decode in ("gather", "kernel"):
         assert TEngine(tm, tp, **kw, **paged, num_pages=12,
                        kv_decode=decode).kv.num_pages == 12
+    for opts in (dict(prefix_sharing=True), dict(kv_alloc="ondemand")):
+        assert TEngine(tm, tp, **kw, **paged, **opts).kv.on_demand
     with pytest.raises(ValueError, match="kv_backend='paged'"):
         TEngine(tm, tp, **kw, prefix_sharing=True)
     eng = TEngine(tm, tp, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(TGen(prompt=np.arange(1, 5, dtype=np.int32),
-                        params=TSampling(temperature=0.9, seed=1)))
+    req = eng.submit(TGen(prompt=np.arange(1, 5, dtype=np.int32),
+                          params=TSampling(temperature=0.9, seed=1)))
+    assert req.seed == 1       # seeded sampling is in the slice
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.drain()
+    with pytest.raises(NotImplementedError, match="item 14"):
+        eng.export_sealed_state()
     if torch.cuda.is_available():
         with pytest.raises(ValueError):    # model on the CPU, engine on the card
             TEngine(tm, tp, **CANONICAL_ENGINE)

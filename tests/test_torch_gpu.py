@@ -376,3 +376,86 @@ def test_kernels_raise_on_what_they_do_not_take(card):
         FA.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
                            q[..., :48].contiguous(), bq=64, bkv=64)
     assert (Q.launches, FA.launches) == before
+
+
+def test_sampler_on_card_matches_cpu(card):
+    """The threefry PRNG on the card: keys, raw bits and uniforms bit-equal
+    to the CPU's, the Gumbel noise (float64 on both, rounded) within 3 ulp
+    of max(|g|, 1), and ``sample``'s tokens
+    equal away from near ties (where they differ, the two candidates'
+    perturbed logits on the card lie within twice that bound)."""
+    from repro_torch.runtime import sampling as S
+    b, v = 16, 32000
+    rng = np.random.default_rng(4)
+    keys = torch.as_tensor(np.stack([S.prng_key(100 + i) for i in range(b)])
+                           .astype(np.int64))
+    steps = torch.as_tensor(rng.integers(0, 2**31, b))
+    fk = S.fold_in(keys, steps)
+    assert torch.equal(S.fold_in(keys.to(card), steps.to(card)).cpu(), fk)
+    assert torch.equal(S.random_bits(fk.to(card), (v,)).cpu(),
+                       S.random_bits(fk, (v,)))
+    tiny = float(np.finfo(np.float32).tiny)
+    assert torch.equal(S.uniform(fk.to(card), (v,), minval=tiny).cpu(),
+                       S.uniform(fk, (v,), minval=tiny))
+    g_cpu = S.gumbel(fk, (v,)).double()
+    err = (S.gumbel(fk.to(card), (v,)).cpu().double() - g_cpu).abs()
+    ulp = torch.as_tensor(np.spacing(np.maximum(g_cpu.abs().numpy(), 1.0)
+                                     .astype(np.float32)))
+    assert (err <= 3 * ulp).all()
+    logits = torch.as_tensor(rng.standard_normal((b, v)).astype(np.float32)
+                             * 3)
+    state = S.SamplingState(torch.full((b,), 0.9), torch.full((b,), 16),
+                            keys, steps,
+                            top_p=torch.full((b,), 0.95))
+    on_card = S.SamplingState(*(t.to(card) if t is not None else None
+                                for t in state))
+    got = S.sample(logits.to(card), on_card, kmax=16).cpu()
+    want = S.sample(logits, state, kmax=16)
+    for row in torch.nonzero(got != want).flatten().tolist():
+        z = (S.shaped_logits(logits.to(card), on_card, 16)[row]
+             + S.gumbel(S.fold_in(on_card.key, on_card.step)[row], (v,)))
+        z = z.cpu().double()
+        gap = abs(float(z[got[row]] - z[want[row]]))
+        assert gap <= 6 * float(np.spacing(np.float32(max(
+            abs(float(z[want[row]])), 1.0))))
+
+
+def test_paged_sharing_engine_on_card(card):
+    """The canonical scenario (sampled, prefix sharing, kernel decode) on
+    the card: every request equal to its solo run, the pool invariants
+    after every step, and pages shared and copied on write."""
+    from conftest import canonical_requests, check_pool_invariants
+    from repro_torch.runtime import SamplingParams
+    cfg = smoke_config("deepseek-7b")
+    model = build_model(cfg, device=card)
+    params = tree_map(lambda t: t.to(card),
+                      build_model(cfg, device="cpu").init_params(seed=3))
+    kw = dict(kv_backend="paged", page_size=8, kv_decode="kernel",
+              prefix_sharing=True, max_slots=2, max_len=64,
+              prefill_buckets=(4, 8), device=card)
+
+    def gen(spec):
+        prompt, mnt, prio, seed = spec
+        return GenerationRequest(
+            prompt=np.asarray(prompt, np.int32), max_new_tokens=mnt,
+            priority=prio,
+            params=SamplingParams(temperature=0.9, top_k=16, seed=seed))
+    low, high = canonical_requests()
+    eng = Engine(model, params, trust_domain=TrustDomain("tdx", device=card),
+                 **kw)
+    P.reset_launches()
+    reqs = [eng.submit(gen(s)) for s in low]
+    for _ in range(3):
+        eng.step()
+        check_pool_invariants(eng.kv)
+    reqs += [eng.submit(gen(s)) for s in high]
+    while not eng.idle:
+        eng.step()
+        check_pool_invariants(eng.kv)
+    assert eng.scheduler.stats().preemptions > 0
+    assert eng.kv.shared_page_maps > 0 and eng.kv.cow_copies > 0
+    assert P.launches["paged_attention"] > 0
+    for spec, req in zip(low + high, reqs):
+        solo = Engine(model, params,
+                      trust_domain=TrustDomain("tdx", device=card), **kw)
+        assert req.output == solo.generate(gen(spec)).tokens

@@ -147,3 +147,7 @@ def test_model_defaults_to_the_card():
             tbuild(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbuild(tconfigs.smoke_config("dbrx-132b"), device="cpu")
+    chunked = dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, attention_chunk=64))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 19"):
+        tbuild(chunked, device="cpu")

@@ -341,3 +341,30 @@ def test_keystream_stage_matches_reference(dtype, ps, hk, hd, live):
         assert blocks == touched and len(row_slot) == ps
     want = {(32, 64): 64, (2, 20): 16}[(hk, row_words)]
     assert P.keystream_blocks(hk, ps, row_words) == want
+
+
+@pytest.mark.parametrize("walk", ["plain", "split"])
+def test_rows_past_valid_are_never_read(walk):
+    """A page's rows past ``valid`` may hold anything: a freed
+    ciphertext-resident page keeps its ciphertext bits (NaN and Inf as
+    floats) when it is taken again as an append page. The kernel never
+    reads such rows, and neither do the plain walks: their output equals
+    the reference's on the same pool with those rows zeroed (the reference
+    multiplies them by a zero probability, so NaN rows poison its output;
+    ROADMAP.md queue C)."""
+    rng = np.random.default_rng(9)
+    q, kp, vp, table, valid = make_pool(rng)
+    stale_k, stale_v = kp.copy(), vp.copy()
+    for slot, n in enumerate(valid):
+        for pos in range(n, table.shape[1] * kp.shape[1]):
+            page = table[slot, pos // kp.shape[1]]
+            stale_k[page, pos % kp.shape[1]] = np.nan
+            stale_v[page, pos % kp.shape[1]] = np.inf
+    ref = J.paged_attention(*(jnp.asarray(a) for a in (q, kp, vp, table,
+                                                        valid)))
+    args = [torch.from_numpy(a) for a in (q, stale_k, stale_v, table, valid)]
+    out = (P.paged_attention(*args) if walk == "plain"
+           else P._split_walk(args[3], args[4], *args[:3]))
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=TOL["float32"], atol=TOL["float32"])

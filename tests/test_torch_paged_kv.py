@@ -152,8 +152,7 @@ def _cycle(port, models, kv_decode, *, tamper=False, after=None):
     toks, out = np.zeros(2, np.int32), []
     toks[s2] = last
     for _ in range(6):
-        nt = (kv.decode(eng.params, toks, [s2]) if port
-              else kv.decode(eng.params, toks, None, 0, [s2]))
+        nt = kv.decode(eng.params, toks, None, 0, [s2])
         toks[s2] = nt[s2]
         out.append(int(nt[s2]))
     return out, kv, sealed
@@ -299,20 +298,28 @@ def _report(main, argv, monkeypatch):
     return buf.getvalue().splitlines()
 
 
-def test_serve_paged_report_lines(monkeypatch):
+@pytest.mark.parametrize("extra", [[], [
+    "--prefix-sharing", "--shared-prefix-len", "8", "--sample-temp", "0.9",
+    "--top-k", "16", "--seed", "3"]])
+def test_serve_paged_report_lines(monkeypatch, extra):
     argv = ["--arch", "deepseek-7b", "--smoke", "--requests", "3",
             "--max-new-tokens", "4", "--slots", "2", "--kv-backend", "paged",
-            "--page-size", "8", "--num-pages", "12", "--kv-decode", "kernel"]
+            "--page-size", "8", "--num-pages", "12", "--kv-decode",
+            "kernel"] + extra
     jlines = _report(jserve.main, argv, monkeypatch)
     tlines = _report(tserve.main, argv + ["--device", "cpu"], monkeypatch)
     label = re.compile(r"^[^0-9(]*")
     assert [label.match(l).group(0) for l in tlines] == \
         [label.match(l).group(0) for l in jlines]
-    for prefix in ("boundary:", "frame coalescing:", "kv decode:"):
+    for prefix in ("boundary:", "frame coalescing:", "kv decode:",
+                   "prefix sharing:"):
         assert [l for l in tlines if l.startswith(prefix)] == \
             [l for l in jlines if l.startswith(prefix)]
     assert "kv decode: mode=kernel | fused-unseal 0 pages / 0 B admitted " \
         "as ciphertext" in tlines
+    if extra:
+        (line,) = [l for l in tlines if l.startswith("prefix sharing:")]
+        assert not line.startswith("prefix sharing: 0 ")
 
 
 @pytest.mark.parametrize("kv_decode", ["gather", "kernel"])
