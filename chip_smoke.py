@@ -41,10 +41,24 @@ Phases, each fatal on failure:
      prompt, a pair of identical prompts whose shared partial page copies
      on write, and a preempting wave (B3 over pages two tables map, B4 on
      private pages restored as ciphertext while the shared head re-links).
+     Then the store path: the paged-kernel engine with prefix sharing and a
+     SealedPageStore (64 pages, cost policy) over four 128-token prompts
+     that share a 96-token head and a preempting high-priority request, two
+     epochs on one engine: the warm epoch hits the store and writes fewer
+     pages, its tokens equal the cold epoch's, and a tampered store entry
+     fails a consumer's admission before any page moves. Then the
+     two-phase path: a burst of two 128-token prompts into sixteen 16-token
+     ones (and a preempting high-priority request) under the slot baseline,
+     slot continuous batching, the paged-kernel baseline and the
+     paged-kernel dedicated prefill plan (its own CUDA stream, sealed
+     handoff two rows a crossing): tokens equal within each backend, the
+     handoff crossings as counted from the prefills in flight, TTFT and
+     next-token latency per mode.
      Each path runs with every kernel count set to 0 just before it; every
      request's tokens must equal the same request served alone on a fresh
-     engine of that path; the pool invariants hold after every sharing
-     step, and sharing writes fewer pages than the same waves unshared; one
+     engine of that path; the pool invariants hold after every sharing and
+     store step, and sharing writes fewer pages than the same waves
+     unshared; one
      decode step's logits on the paged-kernel path must agree with the
      slot path's for the same cache. Before the paths, the sampler's keys,
      raw bits and uniforms on the card must equal the CPU's bit for bit and
@@ -59,9 +73,13 @@ Phases, each fatal on failure:
      version and near the bf16 product with the original weights, flash
      near layers.sdpa;
   7. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
-     memory (slot, paged, sharing and int8 paths), kernel launches on each
-     path, and one JSON line listing every ported kernel, with its launches
-     summed over the paths it runs on. The last line is the device JSON.
+     memory (slot, paged, sharing, store, two-phase and int8 paths), TTFT
+     and next-token latency of every serving path, a bucket group's prefill
+     as one batched call against one row a call (the plan's),
+     the store's restore-vs-recompute price at the measured prefill time,
+     kernel launches on each path, and one JSON line listing every ported
+     kernel, with its launches summed over the paths it runs on. The last
+     line is the device JSON.
 
 Imports nothing of JAX or of the reference package ``repro``.
 """
@@ -746,6 +764,48 @@ SHARE_LOW = [(128, 16, 0), (128, 12, 0), (128, 10, 0), (128, 14, 0)]
 SHARE_OPT_OUT = 3          # the spec index (after the pair) that opts out
 SHARE_HIGH = [(128, 8, 5), (150, 6, 5)]
 SAMPLE_SEED0 = 100
+
+# the store path (the reference bench's page_store_sweep, on the card):
+# the paged-kernel engine with prefix sharing and a SealedPageStore (64
+# pages, cost policy), one 128-token bucket; four 128-token prompts share a
+# 96-token head (6 pages), every request sampled (temperature 0.8, top-k
+# 32), served twice on one engine. A high-priority request with the same
+# head arrives STORE_HIGH_AT steps into each epoch and preempts the later
+# low, whose full private decode page then comes back as ciphertext (B4).
+# bucket groups whose prefill is timed as one [rows, s] call against the
+# plan's one row a call: two rows of the slot and paged paths' 128 bucket,
+# four 16-token rows of the two-phase path's short stream
+PREFILL_GROUPS = [(2, 128), (4, 16)]
+STORE_KW = dict(PAGED_KW, prefix_sharing=True, prefill_buckets=(128,))
+STORE_BUDGET = 64
+STORE_HEAD = 96
+STORE_LOW = [(128, 32, 0)] * 4
+STORE_HIGH = (128, 8, 5)
+STORE_HIGH_AT = 20
+STORE_SEED0 = 500
+# the two-phase path (the reference bench's two_phase_sweep, on the card):
+# 4 slots, max_len 192, buckets 16 and 128; two 128-token prompts burst into
+# a stream of sixteen 16-token ones (numpy seed 31), all sampled as there,
+# and a high-priority 16-token request at step TWO_PHASE_HIGH_AT preempts
+# (on the paged backend its victim's full pages come back as ciphertext).
+# Baseline and continuous batching run on the slot backend, baseline and
+# the dedicated prefill plan (two rows a sealed handoff) on the
+# paged-kernel backend: tokens agree within a backend, and every request
+# equals its solo run on that backend (slot and paged-kernel tokens differ
+# where the slot sdpa's bf16 probabilities tip a sample).
+TWO_PHASE_KW = dict(max_slots=4, max_len=192, prefill_buckets=(16, 128))
+TWO_PHASE_STEP_TOKENS = 130
+TWO_PHASE_HIGH_AT = 2
+TWO_PHASE_MODES = {
+    "slot baseline": dict(kv_backend="slot"),
+    "slot continuous": dict(kv_backend="slot", continuous_batching=True,
+                            step_tokens=TWO_PHASE_STEP_TOKENS),
+    "paged-kernel baseline": dict(kv_backend="paged", page_size=16,
+                                  kv_decode="kernel"),
+    "paged-kernel two-plan": dict(kv_backend="paged", page_size=16,
+                                  kv_decode="kernel",
+                                  prefill_plan="dedicated", handoff_batch=2),
+}
 # the card's Gumbel noise against the CPU's: both evaluate -log(-log(u)) in
 # float64 and round to float32, so they may differ where the two float64
 # logs round the last bit apart (tests/test_torch_sampling.py states the
@@ -782,6 +842,10 @@ def check_pool_invariants(kv) -> None:
         for k, p in kv._index.items()), "content index consistent")
     check(all(kv._sealed_refs.get(k, 0) > 0 for k in kv._parked),
           "parked ciphertext only while sealed references remain")
+    store = kv.page_store
+    check(store is None or store.budget_pages is None
+          or store.resident_pages <= store.budget_pages,
+          "the page store within its budget")
 
 
 def phase_sampler(torch, np) -> dict:
@@ -926,6 +990,243 @@ def phase_share(torch, np, model, params, cfg) -> dict:
     return out
 
 
+def path_launches() -> dict:
+    """Every kernel's count since the last reset_counts."""
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    return {"chacha20_xor_blocked": C.launches, **P.launches,
+            "flash_attention": FA.launches, "qmatmul": Q.launches}
+
+
+def phase_store(torch, np, model, params, cfg) -> dict:
+    """The store path: STORE_KW's engine over two epochs of the recurring
+    prompts under tdx, every kernel count set to 0 just before it; then the
+    checks (warm hits, fewer pages, equal tokens, solo runs) and a tampered
+    store entry failing a consumer's admission before any page moves."""
+    from repro_torch.core import SealingKey, TrustDomain
+    from repro_torch.core.sealing import IntegrityError
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.runtime import (Engine, GenerationRequest,
+                                     SamplingParams, SealedPageStore,
+                                     stats_from_requests)
+
+    rng = np.random.default_rng(29)
+    head = rng.integers(1, cfg.vocab_size, STORE_HEAD).astype(np.int32)
+
+    def prompt(n):
+        return np.concatenate([head, rng.integers(
+            1, cfg.vocab_size, n - STORE_HEAD).astype(np.int32)])
+    specs = [(prompt(n), mnt, prio) for n, mnt, prio in STORE_LOW + [STORE_HIGH]]
+    specs = [(p, mnt, prio, STORE_SEED0 + i)
+             for i, (p, mnt, prio) in enumerate(specs)]
+
+    def gen(spec):
+        p, mnt, prio, seed = spec
+        return GenerationRequest(
+            prompt=p.copy(), max_new_tokens=mnt, priority=prio,
+            params=SamplingParams(temperature=0.8, top_k=32, seed=seed))
+
+    def epoch(eng):
+        reqs = [eng.submit(gen(s)) for s in specs[:len(STORE_LOW)]]
+        steps = 0
+        while not eng.idle and steps < 10_000:
+            if steps == STORE_HIGH_AT:
+                reqs.append(eng.submit(gen(specs[-1])))
+            eng.step()
+            steps += 1
+            check_pool_invariants(eng.kv)
+        check(all(r.finished for r in reqs), "store: every request finished")
+        return reqs
+
+    store = SealedPageStore(budget_pages=STORE_BUDGET, policy="cost",
+                            profile="tdx")
+    td = TrustDomain("tdx", sealing_key=SealingKey.generate(b"chip-store"),
+                     io_key=SealingKey.generate(b"chip-store-io"))
+    eng = Engine(model, params, trust_domain=td, page_store=store, **STORE_KW)
+    # ---- the store path: every kernel count starts at 0 here -------------
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(C, P, Q, FA)
+    runs = []
+    for _ in range(2):
+        written, hits = eng.kv.pages_written, eng.kv.store_hits
+        restored = eng.kv.store_restored_bytes
+        t0 = time.perf_counter()
+        reqs = epoch(eng)
+        torch.cuda.synchronize()
+        runs.append(dict(wall_s=time.perf_counter() - t0,
+                         stats=stats_from_requests(reqs),
+                         outputs=[list(r.output) for r in reqs],
+                         written=eng.kv.pages_written - written,
+                         hits=eng.kv.store_hits - hits,
+                         restored=eng.kv.store_restored_bytes - restored))
+    launches = path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the store path --------------------------------------------
+    check(launches["flash_attention"] + launches["qmatmul"] == 0,
+          "the store path runs no int8 or flash kernel")
+    cold, warm = runs
+    for spec, out in zip(specs, cold["outputs"]):
+        check(len(out) == spec[1] and all(0 <= t < cfg.vocab_size
+                                          for t in out),
+              f"store: request produced {spec[1]} tokens in vocab")
+    check(warm["outputs"] == cold["outputs"],
+          "store: the warm epoch's tokens equal the cold epoch's")
+    check(warm["hits"] > 0, f"store: the warm epoch hit the store "
+          f"({warm['hits']} pages)")
+    check(warm["written"] < cold["written"],
+          f"store: the warm epoch wrote fewer pages ({warm['written']}) "
+          f"than the cold one ({cold['written']})")
+    check(cold["stats"].preemptions > 0 and eng.kv.fused_restore_pages > 0,
+          "store: a preemption's restore admitted pages as ciphertext")
+    for name in ("chacha20_xor_blocked", "paged_attention",
+                 "paged_attention_unseal"):
+        check(launches[name] > 0, f"store: the path launched {name}")
+    solo_kw = dict(STORE_KW, page_store=True)
+    check_solo(Engine, TrustDomain, model, params, specs, gen,
+               cold["outputs"], solo_kw)
+
+    # a tampered store entry (the head's first page): a consumer sharing
+    # the store and the key fails its admission before a page or refcount
+    # moves
+    consumer = Engine(model, params, page_store=store, **STORE_KW,
+                      trust_domain=TrustDomain(
+                          "tdx", sealing_key=td.sealing_key,
+                          io_key=SealingKey.generate(b"chip-store-io-2")))
+    first = consumer.kv.page_keys(specs[0][0], STORE_KW["prefill_buckets"][0])
+    entry = store._domains[td.sealing_key.key_id()][first[0]]
+    blob = next(iter(entry.blobs.values()))
+    blob.ciphertext[0, 0] ^= 1
+    consumer.submit(gen(specs[0]))
+    try:
+        consumer.run(max_steps=100)
+        failed = False
+    except IntegrityError:
+        failed = True
+    blob.ciphertext[0, 0] ^= 1
+    check(failed, "store: a tampered entry fails the consumer's admission")
+    check(consumer.kv.free_physical_pages == consumer.kv.num_pages
+          and consumer.kv.store_hits == 0,
+          "store: the failed admission moved no page")
+    out = dict(cold=cold, warm=warm, launches=launches, peak=peak,
+               n=len(specs), publishes=store.publishes,
+               evictions=store.evictions, resident=store.resident_pages,
+               restored_pages=eng.kv.store_restored_pages,
+               restored_bytes=eng.kv.store_restored_bytes,
+               fused=eng.kv.fused_restore_pages,
+               page_size=eng.kv.page_size)
+    del eng, consumer
+    return out
+
+
+def phase_two_phase(torch, np, model, params, cfg) -> dict:
+    """The two-phase path: the burst under each TWO_PHASE_MODES engine
+    (tdx), every kernel count set to 0 just before each mode; then equal
+    tokens within a backend and every request equal to its solo run."""
+    from repro_torch.core import SealingKey, TrustDomain
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.runtime import (Engine, GenerationRequest,
+                                     SamplingParams, stats_from_requests)
+
+    rng = np.random.default_rng(31)
+    longs = [rng.integers(1, cfg.vocab_size, 128).astype(np.int32)
+             for _ in range(2)]
+    shorts = [rng.integers(1, cfg.vocab_size, 16).astype(np.int32)
+              for _ in range(16)]
+    # the reference bench's order: 4 shorts, the 2 longs, 12 shorts;
+    # staggered short lengths; seeds as there
+    specs = [(shorts[i], 6 + i % 8, 0, 100 + i) for i in range(4)]
+    specs += [(p, 32, 0, i) for i, p in enumerate(longs)]
+    specs += [(shorts[i], 6 + i % 8, 0, 100 + i) for i in range(4, 16)]
+    high = (rng.integers(1, cfg.vocab_size, 16).astype(np.int32), 8, 5, 200)
+
+    def gen(spec):
+        p, mnt, prio, seed = spec
+        return GenerationRequest(
+            prompt=p.copy(), max_new_tokens=mnt, priority=prio,
+            params=SamplingParams(temperature=0.8, top_k=32, seed=seed))
+
+    results = {}
+    for i, (label, extra) in enumerate(TWO_PHASE_MODES.items()):
+        kw = dict(TWO_PHASE_KW, **extra)
+        td = TrustDomain("tdx", sealing_key=SealingKey.generate(b"chip-2p"),
+                         io_key=SealingKey.generate(b"chip-2p-io"))
+        eng = Engine(model, params, trust_domain=td, **kw)
+        # ---- this mode: every kernel count starts at 0 here --------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(C, P, Q, FA)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(gen(s)) for s in specs]
+        steps = expect_crossings = 0
+        while not eng.idle and steps < 10_000:
+            if steps == TWO_PHASE_HIGH_AT:
+                reqs.append(eng.submit(gen(high)))
+            expect_crossings += -(-len(eng._inflight) // eng._handoff_batch)
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = path_launches()
+        peak = torch.cuda.max_memory_allocated()
+        # ---- end of this mode ---------------------------------------------
+        check(all(r.finished for r in reqs), f"{label}: every request "
+              f"finished")
+        check(launches["flash_attention"] + launches["qmatmul"] == 0,
+              f"{label}: no int8 or flash kernel")
+        stats = stats_from_requests(reqs)
+        check(stats.preemptions > 0, f"{label}: the high request preempted")
+        results[label] = dict(
+            kw=kw, stats=stats, wall_s=wall_s, launches=launches, peak=peak,
+            outputs=[list(r.output) for r in reqs],
+            crossings=eng.handoff_crossings, expect_crossings=expect_crossings,
+            backfills=eng.backfills, steps=steps,
+            fused=getattr(eng.kv, "fused_restore_pages", 0),
+            seal_bytes=td.channel.stats.seal_bytes)
+        del eng
+    slot_b, slot_cb, pk_b, pk_2p = results.values()
+    check(slot_b["outputs"] == slot_cb["outputs"],
+          "two-phase: continuous batching's tokens equal the slot baseline's")
+    check(pk_b["outputs"] == pk_2p["outputs"],
+          "two-phase: the two-plan mode's tokens equal the paged-kernel "
+          "baseline's")
+    check(pk_2p["stats"].handoffs == len(specs) + 1
+          and pk_2p["stats"].handoff_bytes > 0,
+          "two-phase: every request crossed the sealed handoff")
+    check(pk_2p["crossings"] == pk_2p["expect_crossings"]
+          and pk_2p["crossings"] < len(specs) + 1,
+          f"two-phase: {pk_2p['crossings']} sealed crossings, as expected "
+          f"from the prefills in flight at each step "
+          f"({pk_2p['expect_crossings']}), some carrying two rows")
+    for r in (pk_b, pk_2p):
+        check(r["fused"] > 0 and r["launches"]["paged_attention_unseal"] > 0,
+              "two-phase: the paged restore admitted ciphertext for B4")
+        check(r["launches"]["paged_attention"] > 0,
+              "two-phase: the paged modes launched B3")
+    for r in results.values():
+        check(r["launches"]["chacha20_xor_blocked"] > 0,
+              "two-phase: every mode launched B1")
+    all_specs = specs + [high]
+    check_solo(Engine, TrustDomain, model, params, all_specs, gen,
+               slot_b["outputs"], dict(TWO_PHASE_KW, kv_backend="slot"))
+    check_solo(Engine, TrustDomain, model, params, all_specs, gen,
+               pk_b["outputs"], dict(TWO_PHASE_KW,
+                                     **TWO_PHASE_MODES["paged-kernel baseline"]))
+    agree = sum(a == b for o, p in zip(slot_b["outputs"], pk_b["outputs"])
+                for a, b in zip(o, p))
+    return dict(modes=results, n=len(all_specs),
+                tokens=sum(map(len, slot_b["outputs"])), agree=agree)
+
+
 def reset_counts(*kernels) -> None:
     for K in kernels:
         K.reset_launches()
@@ -1067,6 +1368,26 @@ def phase_serve(torch, np) -> dict:
           f"(unshared {sh['plain_written']}), {sh['fused']} pages restored "
           f"as ciphertext; pool invariants held after every step")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = phase_store(torch, np, model, unsealed, cfg)
+    print(f"  store path: {st['n']} sampled requests x 2 epochs on one "
+          f"engine; warm tokens equal cold and every request its solo run; "
+          f"pages written {st['cold']['written']} cold vs "
+          f"{st['warm']['written']} warm, store hits {st['cold']['hits']} "
+          f"cold vs {st['warm']['hits']} warm; a tampered entry failed "
+          f"before any page moved; pool invariants held after every step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = phase_two_phase(torch, np, model, unsealed, cfg)
+    print(f"  two-phase path: {tp['n']} sampled requests in "
+          f"{len(tp['modes'])} modes; tokens equal within each backend and "
+          f"every request its solo run; {tp['agree']} of {tp['tokens']} "
+          f"tokens agree between the slot and paged-kernel backends (not "
+          f"required)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # one decode step's logits: paged-kernel path vs slot path, same cache
     from repro_torch.runtime.kvcache import make_backend
     prompt = torch.as_tensor(specs[2][0][None, :], device="cuda")
@@ -1113,6 +1434,20 @@ def phase_serve(torch, np) -> dict:
         decode_s = time_host(lambda: model.decode_step(unsealed, tok, cache), 10)
         prefill_s = time_host(lambda: model.prefill(
             unsealed, {"tokens": prompt}, model.init_cache(1, max_len)), 3)
+    # a bucket group's prefill: one [rows, s] call, as before the plan
+    # prefilled one row a call, against the plan's one row a call
+    from repro_torch.runtime.plan import SingleDevicePlan
+    one_row = SingleDevicePlan(model).compile_prefill()
+    group_ms = {}
+    for rows, width in PREFILL_GROUPS:
+        toks = torch.as_tensor(np.random.default_rng(31).integers(
+            1, cfg.vocab_size, (rows, width)), dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            batched = time_host(lambda t=toks, r=rows: model.prefill(
+                unsealed, {"tokens": t}, model.init_cache(r, max_len)), 3)
+        split = time_host(lambda t=toks, r=rows: one_row(
+            unsealed, t, model.init_cache(r, max_len)), 3)
+        group_ms[(rows, width)] = (batched * 1e3, split * 1e3)
     probe = TrustDomain("tdx")
     sid = probe.open_stream()
     frame_s = time_host(lambda: probe.egress_tokens(sid, [1]), 20)
@@ -1121,11 +1456,12 @@ def phase_serve(torch, np) -> dict:
                 weight_launches=weight_launches, peak=peak,
                 weight_bytes=n_weights, n_requests=len(specs),
                 decode_s=decode_s, prefill_s=prefill_s, frame_s=frame_s,
+                group_ms=group_ms,
                 paged_stats=pstats, paged_channel=pch, paged_s=paged_s,
                 paged_launches=paged_launches, paged_peak=paged_peak,
                 logit_err=logit_err,
                 kv_decode_s=kv_decode_s, kv_positions=kv_positions,
-                share=sh)
+                share=sh, store=st, two_phase=tp)
 
 
 def phase_quant(torch, np) -> dict:
@@ -1275,6 +1611,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
+    from repro_torch.core.overheads import store_restore_savings
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import chacha20 as C
@@ -1395,13 +1732,17 @@ def main() -> int:
     print(f"  weights: seal {sv['seal_s']:.2f}s + unseal {sv['unseal_s']:.2f}s "
           f"for {sv['weight_bytes']} B")
     print(f"  next-token latency p50 {st.p50_latency_s * 1e3:.2f} ms, mean "
-          f"{st.mean_latency_s * 1e3:.2f} ms; TTFT mean "
-          f"{st.mean_ttft_s * 1e3:.2f} ms")
+          f"{st.mean_latency_s * 1e3:.2f} ms; TTFT p50 "
+          f"{st.p50_ttft_s * 1e3:.2f} ms, mean {st.mean_ttft_s * 1e3:.2f} ms")
     weight_read_ms = sv["weight_bytes"] / HBM_BYTES_PER_S * 1e3
     print(f"  breakdown: decode_step (2 rows) {sv['decode_s'] * 1e3:.2f} ms vs "
           f"{weight_read_ms:.2f} ms to read the weights once; prefill (1 x 128) "
           f"{sv['prefill_s'] * 1e3:.2f} ms; one egress frame (seal + MAC + "
           f"unseal + MAC) {sv['frame_s'] * 1e3:.3f} ms")
+    print("  prefill of a bucket group, one [rows, s] call vs one row a call "
+          "(the plan's): " + "; ".join(
+              f"[{r} x {n}] {a:.2f} ms vs {b:.2f} ms"
+              for (r, n), (a, b) in sv["group_ms"].items()))
     print(f"  peak device memory on the main path: {sv['peak']} B")
     print(f"  chacha20_xor_blocked launches on the slot path: {sv['launches']} "
           f"({sv['weight_launches']} for the weights, {per_req:.1f} per served "
@@ -1413,7 +1754,8 @@ def main() -> int:
           f"{ps_.preemptions} preemptions; sealed KV {pc.seal_events} seals / "
           f"{pc.seal_bytes} B out, {pc.restore_events} restores / "
           f"{pc.restore_bytes} B back; next-token latency p50 "
-          f"{ps_.p50_latency_s * 1e3:.2f} ms; one decode step (1 row at "
+          f"{ps_.p50_latency_s * 1e3:.2f} ms; TTFT p50 "
+          f"{ps_.p50_ttft_s * 1e3:.2f} ms; one decode step (1 row at "
           f"{sv['kv_positions']} positions) {sv['kv_decode_s'] * 1e3:.2f} ms; "
           f"peak device memory {sv['paged_peak']} B")
     print(f"  launches on the paged-kernel path: {sv['paged_launches']}")
@@ -1423,13 +1765,48 @@ def main() -> int:
           f"{ss.total_tokens} tokens in {sh['wall_s']:.2f}s wall (pool "
           f"invariants checked every step); {ss.preemptions} preemptions; "
           f"next-token latency p50 {ss.p50_latency_s * 1e3:.2f} ms, mean "
-          f"{ss.mean_latency_s * 1e3:.2f} ms; shared-page maps {sh['shared']}, "
+          f"{ss.mean_latency_s * 1e3:.2f} ms; TTFT p50 "
+          f"{ss.p50_ttft_s * 1e3:.2f} ms; shared-page maps {sh['shared']}, "
           f"CoW copies {sh['cow']}, pages written {sh['written']} (unshared "
           f"{sh['plain_written']}), sealed KV {sh['seal_bytes']} B (unshared "
           f"{sh['plain_seal_bytes']} B); {sh['fused']} pages restored as "
           f"ciphertext; peak device memory {sh['peak']} B; the unshared run's "
           f"tokens equal in {sh['plain_same']} of {sh['n']} requests")
     print(f"  launches on the sharing path: {sh['launches']}")
+    st_ = sv["store"]
+    for tag in ("cold", "warm"):
+        e = st_[tag]
+        print(f"  store path, {tag} epoch: {e['stats'].total_requests} "
+              f"requests / {e['stats'].total_tokens} tokens in "
+              f"{e['wall_s']:.2f}s wall; TTFT p50 "
+              f"{e['stats'].p50_ttft_s * 1e3:.2f} ms, p99 "
+              f"{e['stats'].p99_ttft_s * 1e3:.2f} ms; next-token p50 "
+              f"{e['stats'].p50_latency_s * 1e3:.2f} ms; pages written "
+              f"{e['written']}, store hits {e['hits']} ({e['restored']} B "
+              f"restored); {e['stats'].preemptions} preemptions")
+    # the restore-vs-recompute price of what the store restored, with the
+    # prefill's measured time a token (1 x 128 prefill above)
+    _, _, priced = store_restore_savings(
+        st_["restored_pages"], st_["restored_bytes"],
+        st_["restored_pages"] * st_["page_size"], "tdx",
+        prefill_token_s=sv["prefill_s"] / 128)
+    print(f"  store path: {st_['publishes']} publishes, {st_['evictions']} "
+          f"evictions, {st_['resident']} resident pages (budget "
+          f"{STORE_BUDGET}, cost policy); {st_['fused']} pages restored as "
+          f"ciphertext; peak device memory {st_['peak']} B; {priced}")
+    print(f"  launches on the store path: {st_['launches']}")
+    for label, r in sv["two_phase"]["modes"].items():
+        ts = r["stats"]
+        print(f"  two-phase path, {label}: {ts.total_requests} requests / "
+              f"{ts.total_tokens} tokens in {r['wall_s']:.2f}s wall, "
+              f"{r['steps']} steps; TTFT p50 {ts.p50_ttft_s * 1e3:.2f} ms, "
+              f"p99 {ts.p99_ttft_s * 1e3:.2f} ms; next-token p50 "
+              f"{ts.p50_latency_s * 1e3:.2f} ms; backfills {r['backfills']}; "
+              f"handoffs {ts.handoffs} / {ts.handoff_bytes} B in "
+              f"{r['crossings']} crossings; {ts.preemptions} preemptions, "
+              f"{r['fused']} pages restored as ciphertext; peak "
+              f"{r['peak']} B")
+        print(f"    launches: {r['launches']}")
     print(f"  sampler vs the decode step: sample() {sp['ms']:.4f} ms device "
           f"/ {sp['host_ms']:.4f} ms with host issue, beside a 2-row "
           f"decode_step of {sv['decode_s'] * 1e3:.2f} ms (host clock)")
@@ -1441,13 +1818,16 @@ def main() -> int:
     print(f"  launches on the int8 path: {qp['launches']} "
           f"({qp['weight_launches']} chacha20 for the weights)")
     print(f"  total {time.perf_counter() - t_start:.1f}s")
-    pl = {k: v + sh["launches"][k] for k, v in sv["paged_launches"].items()}
+    later = [sh["launches"], st_["launches"]] + [
+        r["launches"] for r in sv["two_phase"]["modes"].values()]
+    pl = {k: v + sum(x[k] for x in later)
+          for k, v in sv["paged_launches"].items()}
     b1_launches = (sv["launches"] + pl["chacha20_xor_blocked"]
                    + qp["launches"]["chacha20_xor_blocked"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
-          f"{b1_launches} (slot, paged, sharing, int8), B3 "
+          f"{b1_launches} (slot, paged, sharing, store, two-phase, int8), B3 "
           f"{pl['paged_attention']} and B4 {pl['paged_attention_unseal']} "
-          f"(paged, sharing)")
+          f"(paged, sharing, store, two-phase)")
     fm, qm = ft[128], qt[QMM_MAIN]
     print(json.dumps({"kernels": [{
         "name": "chacha20_xor_blocked", "route": "cuda",

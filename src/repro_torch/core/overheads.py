@@ -30,11 +30,12 @@ The model reproduces the *paper's* platforms; the `tpu_cc` profile is our
 forward-looking TPU estimate (B100-style: HBM + ICI encryption on by
 default), used for the confidential roofline in EXPERIMENTS.md.
 
-Port note: ``fused_unseal_savings`` prices the page round-trip at the
-H100's memory rate (:data:`HBM_BYTES_PER_S`), where the reference used its
-TPU roofline constant. ``measured_link_tax`` and ``store_restore_savings``
-serve mesh and page-store paths this package does not have yet (ROADMAP.md
-queue A, items 11, 18 and 19); they are not copied.
+Port note: ``fused_unseal_savings`` and ``store_restore_savings`` price
+device-memory traffic at the H100's rate, :data:`HBM_BYTES_PER_S`, read
+when they are called, where the reference used its TPU roofline constant;
+with that constant set to the reference's rate they return the reference's
+floats. ``measured_link_tax`` serves the mesh path this package
+does not have yet (ROADMAP.md queue A, item 18); it is not copied.
 """
 
 from __future__ import annotations
@@ -186,6 +187,56 @@ def sweep_batch(profile: str, compute_per_token_s: float, memory_s: float,
         terms = RooflineTerms(compute_s=compute_per_token_s * b, memory_s=memory_s)
         out[b] = predict(terms, profile).overhead
     return out
+
+
+# standing per-token prefill compute estimate for the store pricer when the
+# caller has no measurement (seconds per prompt token); benches override it
+# with (cold prefill wall / tokens). One definition: serve.py and the
+# retention policy price recompute from the same constant.
+PREFILL_TOKEN_COMPUTE_S = 2e-5
+
+
+def store_restore_savings(pages: int, stored_bytes: int, tokens: int,
+                          profile: str | TEEProfile,
+                          *, prefill_token_s: Optional[float] = None
+                          ) -> "tuple[Optional[OverheadBreakdown], Optional[OverheadBreakdown], str]":
+    """Price a sealed-page-store hit both ways: restore vs recompute.
+
+    A store hit moves ``stored_bytes`` of content-named ciphertext back
+    across the TEE boundary (one boundary event per page, a decrypt pass
+    through device memory) instead of re-running the prefill that produced
+    those ``tokens`` positions. Both sides are priced through
+    :func:`predict`:
+
+    * restore: a page-sized memory term per page (``steps=pages``, so
+      ``fixed_boundary_s`` lands once per restored page, as in
+      :func:`fused_unseal_savings`), zero compute;
+    * recompute: ``tokens * prefill_token_s`` of compute plus the single
+      KV write-out the prefill performs.
+
+    Returns (restore, recompute, report line); (None, None, line) when
+    nothing was restored. The retention policy's cost score and the
+    launcher's report line both come from here."""
+    if pages <= 0 or stored_bytes <= 0:
+        return None, None, ("store restore-vs-recompute: none "
+                            "(no store-restored pages)")
+    per_tok = PREFILL_TOKEN_COMPUTE_S if prefill_token_s is None \
+        else float(prefill_token_s)
+    per_page = stored_bytes / pages
+    restore = predict(RooflineTerms(compute_s=0.0,
+                                    memory_s=2 * per_page / HBM_BYTES_PER_S),
+                      profile, steps=pages)
+    recompute = predict(RooflineTerms(compute_s=per_tok * tokens,
+                                      memory_s=stored_bytes / HBM_BYTES_PER_S),
+                        profile)
+    net = recompute.t_tee_s - restore.t_tee_s
+    verdict = "store wins" if net > 0 else "recompute wins"
+    line = (f"store restore-vs-recompute ({restore.profile}): {pages} pages / "
+            f"{stored_bytes} B sealed across the boundary vs {tokens} prefill "
+            f"tokens recomputed -> restore {restore.t_tee_s * 1e6:.1f}us vs "
+            f"recompute {recompute.t_tee_s * 1e6:.1f}us "
+            f"({verdict}, net {abs(net) * 1e6:.1f}us)")
+    return restore, recompute, line
 
 
 def fused_unseal_savings(fused_pages: int, fused_bytes: int,

@@ -15,8 +15,15 @@ swaps the dense slot cache for the page pool (``--page-size``,
 paged-attention kernels, and ``--prefix-sharing`` (with
 ``--shared-prefix-len K`` to give the generated prompts a common K-token
 opening) maps equal prompt pages onto shared pages with copy-on-write and
-step-time page grants (``--kv-alloc ondemand``, implied). The reference's
-fleet, mesh, page-store and two-phase flags are not ported yet.
+step-time page grants (``--kv-alloc ondemand``, implied). ``--page-store``
+(implies ``--prefix-sharing``; ``--store-policy lru|cost``,
+``--store-budget-pages N``) retains released pages as sealed ciphertext,
+and ``--epochs N`` replays the workload so later epochs hit the store.
+``--continuous-batching`` (``--step-tokens``) interleaves prefill into the
+decode steps; ``--prefill-plan dedicated`` (``--handoff-batch N``)
+prefills on its own plan and hands the KV rows over sealed. The
+reference's fleet and mesh flags are not ported yet (ROADMAP.md queue A,
+items 14 and 18).
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from repro_torch.configs import get_config, list_configs, smoke_config
 from repro_torch.core import RooflineTerms, TrustDomain
 from repro_torch.core.overheads import (STEP_COMPUTE_FRACTION,
                                         STEP_MEMORY_FRACTION,
-                                        fused_unseal_savings)
+                                        fused_unseal_savings,
+                                        store_restore_savings)
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.runtime import (Engine, FramePolicy, GenerationRequest,
@@ -139,9 +147,42 @@ def main(argv=None):
                     help="paged decode path: per-step dense gather "
                          "(reference) or the table-walking paged-attention "
                          "kernel with fused in-kernel page unseal")
+    ap.add_argument("--page-store", action="store_true",
+                    help="retain content-named sealed pages past the last "
+                         "reference in a persistent prefix-cache tier "
+                         "(implies --prefix-sharing); recurring prompts "
+                         "restore MAC-verified pages instead of "
+                         "re-prefilling")
+    ap.add_argument("--store-budget-pages", type=int, default=None,
+                    metavar="N",
+                    help="page-store retention budget in pages "
+                         "(default: unbounded)")
+    ap.add_argument("--store-policy", default="lru",
+                    choices=["lru", "cost"],
+                    help="page-store retention policy: least-recently-used "
+                         "or the restore-vs-recompute priced scoring")
+    ap.add_argument("--epochs", type=int, default=1,
+                    help="replay the generated workload this many times "
+                         "(a recurring-prompt mix: epoch 2+ hits the "
+                         "page store)")
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     metavar="K",
                     help="give every generated prompt the same K-token head")
+    ap.add_argument("--continuous-batching", action="store_true",
+                    help="step-level continuous batching: prefill admissions "
+                         "interleave into decode steps under a per-step "
+                         "token budget instead of filling a bucket first")
+    ap.add_argument("--step-tokens", type=int, default=None,
+                    help="per-step token budget for --continuous-batching "
+                         "(default: largest prefill bucket + --slots)")
+    ap.add_argument("--prefill-plan", default=None, choices=["dedicated"],
+                    help="disaggregate prefill onto its own compute plan (its "
+                         "own CUDA stream on the card); finished KV rows hand "
+                         "off to the decode plan through a sealed channel "
+                         "priced in ChannelStats")
+    ap.add_argument("--handoff-batch", type=int, default=1,
+                    help="finished prefill rows grouped per sealed "
+                         "prefill->decode crossing (--prefill-plan dedicated)")
     ap.add_argument("--reject-infeasible", action="store_true",
                     help="reject deadline-infeasible requests at admission, "
                          "before any boundary crossing is spent on them")
@@ -152,6 +193,9 @@ def main(argv=None):
                     help="prior lower bound on decode step time for "
                          "--reject-infeasible before any step has run")
     args = ap.parse_args(argv)
+    if args.page_store:
+        # the store is the tier behind the content index: it needs page keys
+        args.prefix_sharing = True
     device = resolve_device(args.device)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -178,13 +222,30 @@ def main(argv=None):
                     num_pages=args.num_pages, kv_decode=args.kv_decode,
                     prefix_sharing=args.prefix_sharing,
                     kv_alloc=args.kv_alloc,
+                    continuous_batching=args.continuous_batching,
+                    step_tokens=args.step_tokens,
+                    prefill_plan=args.prefill_plan,
+                    handoff_batch=args.handoff_batch,
+                    page_store=(args.store_policy if args.page_store
+                                else None),
+                    store_budget_pages=(args.store_budget_pages
+                                        if args.page_store else None),
                     reject_infeasible=args.reject_infeasible,
                     step_time_hint_s=(None if args.step_time_hint_ms is None
                                       else args.step_time_hint_ms * 1e-3))
     t0 = time.monotonic()
-    for gen in build_requests(args, cfg):
-        engine.submit(gen)
-    stats = engine.run()
+    for epoch in range(max(args.epochs, 1)):
+        pages0 = getattr(engine.kv, "pages_written", 0)
+        hits0 = getattr(engine.kv, "store_hits", 0)
+        for gen in build_requests(args, cfg):
+            engine.submit(gen)
+        stats = engine.run()
+        if args.epochs > 1:
+            print(f"epoch {epoch}: "
+                  f"{getattr(engine.kv, 'pages_written', 0) - pages0} "
+                  f"pages written, "
+                  f"{getattr(engine.kv, 'store_hits', 0) - hits0} "
+                  f"store hits")
     wall = time.monotonic() - t0
 
     print(f"served {stats.total_requests} requests / {stats.total_tokens} "
@@ -208,6 +269,16 @@ def main(argv=None):
     if stats.rejected_infeasible:
         print(f"admission control: {stats.rejected_infeasible} "
               f"infeasible rejections (deadline unmeetable at submit)")
+    if stats.handoffs:
+        print(f"sealed handoff: {stats.handoffs} prefill->decode handoffs / "
+              f"{stats.handoff_bytes} B across the plan boundary "
+              f"({stats.handoff_bytes // max(stats.handoffs, 1)} B/handoff, "
+              f"{engine.handoff_crossings} sealed crossings @ "
+              f"batch={args.handoff_batch})")
+    if args.continuous_batching:
+        print(f"continuous batching: step budget "
+              f"{engine._step_tokens} tokens, "
+              f"{stats.backfilled_requests} backfilled admissions")
     if args.kv_backend == "paged":
         print(f"kv decode: mode={engine.kv.decode_mode} | fused-unseal "
               f"{engine.kv.fused_restore_pages} pages / "
@@ -221,6 +292,20 @@ def main(argv=None):
               f"{stats.cow_copies} CoW copies, "
               f"{engine.kv.pages_written} pages written "
               f"[alloc={'ondemand' if engine.kv.on_demand else 'reserve'}]")
+    store = getattr(engine.kv, "page_store", None)
+    if store is not None:
+        print(f"store hits: {engine.kv.store_hits} / "
+              f"{engine.kv.store_restored_bytes} B restored / "
+              f"{store.publishes} publishes "
+              f"({store.republish_noops} republish no-ops) / "
+              f"{store.evictions} evictions / "
+              f"{store.resident_pages} resident pages "
+              f"[policy={store.policy}, budget={store.budget_pages}]")
+        profile = args.tee if td.confidential else "cgpu"
+        _, _, line = store_restore_savings(
+            engine.kv.store_restored_pages, engine.kv.store_restored_bytes,
+            engine.kv.store_restored_pages * engine.kv.page_size, profile)
+        print(line)
     if td.confidential:
         print(f"boundary: {ch}")
         print(f"frame coalescing: {ch.messages_out} egress frames / "

@@ -1,5 +1,6 @@
 """Serving runtime (port of ``repro.runtime``): request-object API, engine,
-compute plan, slot and paged KV backends, scheduler, seeded sampling.
+compute plans, slot and paged KV backends, the sealed-page store,
+scheduler, seeded sampling.
 
 Typical use::
 
@@ -18,7 +19,8 @@ from repro_torch.runtime.api import (FINISH_ABORTED, FINISH_DROPPED,
 from repro_torch.runtime.engine import Engine
 from repro_torch.runtime.kvcache import (KVBackend, SlotDenseBackend,
                                          SlotState, make_backend)
-from repro_torch.runtime.plan import SingleDevicePlan
+from repro_torch.runtime.pagestore import SealedPageStore
+from repro_torch.runtime.plan import PrefillOnlyPlan, SingleDevicePlan
 from repro_torch.runtime.scheduler import (Request, Scheduler, ServeStats,
                                            stats_from_requests)
 
@@ -27,6 +29,6 @@ __all__ = [
     "FINISH_STOP",
     "FramePolicy", "GenerationRequest", "RequestOutput", "SamplingParams",
     "Engine", "KVBackend", "SlotDenseBackend", "SlotState", "make_backend",
-    "SingleDevicePlan",
+    "PrefillOnlyPlan", "SealedPageStore", "SingleDevicePlan",
     "Request", "Scheduler", "ServeStats", "stats_from_requests",
 ]

@@ -6,21 +6,39 @@ Dataflow per the paper's protected stack:
   the bounce buffer, 1..N tokens each per the request's FramePolicy)-->
   client.
 
-This port serves one compute plan over the dense slot KV backend or the
+This port serves on one device over the dense slot KV backend or the
 paged one (gather or kernel decode; reservation or on-demand pages, with
-prefix sharing and copy-on-write): bucketed left-padded batched prefill
-with chunked prompt tails, seeded per-request sampling (temperature,
-top-k, top-p, penalties, logit bias), priority/slack admission,
-per-priority rate budgets, sealed whole-slot preemption and restore,
-page-granular partial preemption with paused victims (paged), step-time
-page grants with evict-by-slack (on demand), coalesced egress, streaming,
-drop/abort deadlines and admission-time deadline feasibility. Scheduler
-decisions are the reference's, so the same requests produce the same
-admissions, preemptions, seals, frames and tokens.
+prefix sharing, copy-on-write and the persistent sealed-page store):
+bucketed left-padded batched prefill with chunked prompt tails, seeded
+per-request sampling (temperature, top-k, top-p, penalties, logit bias),
+priority/slack admission, per-priority rate budgets, sealed whole-slot
+preemption and restore, page-granular partial preemption with paused
+victims (paged), step-time page grants with evict-by-slack (on demand),
+coalesced egress, streaming, drop/abort deadlines and admission-time
+deadline feasibility. Scheduler decisions are the reference's, so the same
+requests produce the same admissions, preemptions, seals, frames and
+tokens.
 
-Not ported yet (each raises ``NotImplementedError``): the page store
-(ROADMAP.md queue A item 11), continuous batching and disaggregated
-prefill (item 13), fleet drain and migration (item 14), meshes (item 18).
+Two-phase serving, as in the reference:
+
+  * **Step-level continuous batching** (``continuous_batching=True``):
+    each step's token budget (``step_tokens``, default ``largest bucket +
+    max_slots``) splits between live decode rows (1 each) and prefill
+    admissions (their bucket width); when the head's bucket does not fit
+    the remainder, a smaller queued request backfills it
+    (``Request.backfilled``) and the head keeps first claim on the next
+    step's budget.
+  * **Disaggregated prefill** (``prefill_plan="dedicated"``): prompts
+    prefill on a :class:`~repro_torch.runtime.plan.PrefillOnlyPlan` (its
+    own CUDA stream on the card, so the prefill overlaps the decode step
+    issued after it) and are consumed at the top of the next step: the KV
+    rows cross to the decode plan through a sealed handoff under
+    ``kvhandoff/{stream}``, up to ``handoff_batch`` rows a crossing,
+    accounted in ``ChannelStats`` like a preemption.
+
+Decoded tokens are the same under every mode. Not ported yet (each raises
+``NotImplementedError``): fleet drain and migration (ROADMAP.md queue A
+item 14), meshes (item 18).
 """
 
 from __future__ import annotations
@@ -33,7 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.confidential import TrustDomain
-from repro_torch.core.sealing import IntegrityError, sealed_nbytes
+from repro_torch.core.sealing import (IntegrityError, seal_tree,
+                                      sealed_nbytes, unseal_tree)
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.runtime import sampling
@@ -42,7 +61,7 @@ from repro_torch.runtime.api import (FINISH_ABORTED, GenerationRequest,
 from repro_torch.runtime.kvcache import (KVBackend, SlotState, host_upload,
                                          make_backend, next_pow2,
                                          tail_blob_names)
-from repro_torch.runtime.plan import SingleDevicePlan
+from repro_torch.runtime.plan import PrefillOnlyPlan, SingleDevicePlan
 from repro_torch.runtime.scheduler import Request, Scheduler, ServeStats
 
 Params = Any
@@ -53,6 +72,21 @@ class PreemptedRequest:
     """A sealed-out request waiting for a slot: KV as ciphertext only."""
     sealed: Dict[str, Any]
     req: Request
+
+
+@dataclasses.dataclass
+class InflightPrefill:
+    """A request prefilling on the dedicated prefill plan: dispatched at
+    admission (on the plan's stream on the card), its KV rows not yet
+    handed to the decode plan. The slot is already reserved;
+    :meth:`Engine._handoff_ready` consumes it at the next step. ``ready``
+    is the event recorded after the prefill (None on the CPU)."""
+    req: Request
+    slot: int
+    bucket: int
+    logits: torch.Tensor
+    cache: Any
+    ready: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -115,7 +149,9 @@ class Engine:
                  mesh: Optional[str] = None,
                  admission_order: str = "slack",
                  continuous_batching: bool = False,
+                 step_tokens: Optional[int] = None,
                  prefill_plan: Optional[Any] = None,
+                 handoff_batch: int = 1,
                  reject_infeasible: bool = False,
                  step_time_hint_s: Optional[float] = None,
                  device=None):
@@ -132,18 +168,21 @@ class Engine:
         prefixes onto shared pages with copy-on-write; ``kv_alloc`` is
         ``"reserve"`` (worst-case admission reservations, the default) or
         ``"ondemand"`` (step-time grants, evicting by slack when the pool
-        runs dry; implied by sharing). Tokens are the same under all of
-        these. ``admission_order`` is ``"slack"`` (tightest deadline first,
-        priority tiebreak) or ``"priority"``. ``reject_infeasible`` refuses
-        at ingest a request whose ``deadline_s`` is provably unmeetable at
-        the fastest observed (or ``step_time_hint_s``) step time. The
-        store, mesh, continuous-batching and disaggregated options raise
+        runs dry; implied by sharing). ``page_store`` (sharing only) is
+        ``True``, a policy name (``"lru"``, ``"cost"``) or a ready
+        :class:`~repro_torch.runtime.pagestore.SealedPageStore`;
+        ``store_budget_pages`` alone implies an LRU store. Tokens are the
+        same under all of these. ``admission_order`` is ``"slack"``
+        (tightest deadline first, priority tiebreak) or ``"priority"``.
+        ``continuous_batching`` (with ``step_tokens``) and ``prefill_plan``
+        (``"dedicated"`` or a ready ``PrefillOnlyPlan``, with
+        ``handoff_batch``) are the two-phase modes of the module docstring;
+        they exclude each other. ``reject_infeasible`` refuses at ingest a
+        request whose ``deadline_s`` is provably unmeetable at the fastest
+        observed (or ``step_time_hint_s``) step time. A mesh raises
         ``NotImplementedError``."""
         if mesh is not None:
             raise _not_ported("a mesh-spanning engine", 18)
-        if continuous_batching or prefill_plan is not None:
-            raise _not_ported("two-phase serving (continuous batching, "
-                              "prefill_plan)", 13)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -176,6 +215,10 @@ class Engine:
                                           alloc=kv_alloc, decode=kv_decode,
                                           page_store=page_store,
                                           store_budget_pages=store_budget_pages)
+        if getattr(self.kv, "page_store", None) is not None:
+            # the store's key domain is this engine's trust domain, fixed
+            # before any seal caches a key
+            self.kv.bind_store_key(self.td.sealing_key)
         self._active_mask = np.zeros(max_slots, bool)
         self._last_token = np.zeros(max_slots, np.int32)
         self._preempted: List[PreemptedRequest] = []
@@ -194,6 +237,51 @@ class Engine:
         # device mirror of slots.bias (static per request: version-checked)
         self._bias_dev: Optional[torch.Tensor] = None
         self._bias_dev_version = -1
+        # -- two-phase serving --------------------------------------------
+        if continuous_batching and prefill_plan is not None:
+            raise ValueError(
+                "continuous_batching applies to single-plan engines; a "
+                "dedicated prefill_plan already decouples prefill from the "
+                "decode step")
+        if step_tokens is not None and not continuous_batching:
+            raise ValueError(
+                "step_tokens only makes sense with continuous_batching=True")
+        if isinstance(prefill_plan, str):
+            if prefill_plan != "dedicated":
+                raise ValueError(
+                    f"prefill_plan must be a ComputePlan or 'dedicated', "
+                    f"got {prefill_plan!r}")
+            prefill_plan = PrefillOnlyPlan(model)
+        self.prefill_plan = prefill_plan
+        if prefill_plan is not None:
+            # same device: the plans share one copy of the weights
+            self.prefill_params = prefill_plan.place_params(params)
+            self._prefill_stream_fn = prefill_plan.compile_prefill()
+        else:
+            self.prefill_params = None
+            self._prefill_stream_fn = None
+        if continuous_batching:
+            if step_tokens is None:
+                step_tokens = self.prefill_buckets[-1] + max_slots
+            if step_tokens < self.prefill_buckets[-1]:
+                raise ValueError(
+                    f"step_tokens={step_tokens} can never admit the largest "
+                    f"prefill bucket ({self.prefill_buckets[-1]}) — the "
+                    f"queue head would starve")
+        self._continuous = continuous_batching or prefill_plan is not None
+        self._step_tokens = step_tokens if continuous_batching else None
+        self._budget_left: Optional[int] = None
+        self._inflight: Dict[int, InflightPrefill] = {}
+        self.backfills = 0   # out-of-order budget-backfill admissions
+        self._handoff_batch = int(handoff_batch)
+        if self._handoff_batch < 1:
+            raise ValueError(f"handoff_batch must be >= 1, got {handoff_batch}")
+        if self._handoff_batch > 1 and prefill_plan is None:
+            raise ValueError(
+                "handoff_batch only applies to disaggregated engines "
+                "(prefill_plan=...) — there is no plan boundary to amortize")
+        self.handoff_crossings = 0   # sealed plan-boundary crossings (each
+                                     # carries up to handoff_batch rows)
         # -- admission-time deadline feasibility ---------------------------
         self._reject_infeasible = reject_infeasible
         self._step_time_hint_s = step_time_hint_s
@@ -573,10 +661,10 @@ class Engine:
                 group.append(nxt)
                 slots.append(slot)
 
-        # rows padded to a power of two, as in the reference (its compiled
-        # prefill shapes stay bounded; here the padding only keeps the
-        # prefill shapes the reference's).
-        rows = next_pow2(len(group))
+        # the reference pads rows to a power of two to bound its compiled
+        # prefill shapes; the port's prefill runs one row a call, so it
+        # takes the group's rows only
+        rows = len(group)
         tokens = np.zeros((rows, bucket), np.int32)
         for i, req in enumerate(group):
             chunk = req.prompt[:bucket]
@@ -644,6 +732,141 @@ class Engine:
             logits, state,
             kmax=min(next_pow2(kmax), self._vocab) if kmax else 0
         ).cpu().numpy()
+
+    # -- two-phase admission (continuous batching / disaggregated prefill) ----
+    def _admit_one(self, req: Request, bucket: int) -> None:
+        """Admit a single request (a rows=1 prefill, left-padded into its
+        bucket like a batch of one). On a disaggregated engine the prefill
+        is dispatched on the dedicated plan and parked in ``_inflight``;
+        the sealed handoff consumes it next step."""
+        self._charge_budget(req)
+        slot = self.kv.acquire(req.rid, self._admit_need(req))
+        assert slot is not None, "admission raced KV accounting"
+        tokens = np.zeros((1, bucket), np.int32)
+        chunk = req.prompt[:bucket]
+        tokens[0, bucket - len(chunk):] = chunk   # left-pad short prompts
+        if self._prefill_stream_fn is not None:
+            fresh = self.model.init_cache(1, self.max_len)
+            logits, cache, ready = self._prefill_stream_fn(
+                self.prefill_params, host_upload(tokens, self.device), fresh)
+            req.phase = "prefill"
+            self._inflight[slot] = InflightPrefill(req, slot, bucket, logits,
+                                                   cache, ready)
+            return
+        fresh = self.kv.fresh_prefill_cache(1)
+        logits, prefilled = self._prefill_fn(
+            self.params, host_upload(tokens, self.device), fresh)
+        first_np = self._first_tokens(logits, [req], 1)
+        keys = [req.page_keys] if self.kv.supports_sharing else None
+        self.kv.insert_prefill(prefilled, [slot], bucket, page_keys=keys)
+        self._start_decode(slot, req, int(first_np[0]), bucket)
+
+    def _admit_continuous(self) -> int:
+        """Step-level admission: pop waiting requests one at a time into
+        free slots while the step-token budget (single-plan mode) and KV
+        capacity allow. When the head's bucket does not fit the remaining
+        budget, the best-ordered queued request that does fit backfills the
+        leftover; the head keeps first claim on the next step's budget.
+        Admissions after the first must outrank every sealed-out request,
+        as in ``_admit_batch``, or they would jump the restore queue."""
+        admitted = 0
+        best_sealed = max((p.req.priority for p in self._preempted),
+                          default=None)
+        while self.slots.free:
+            head = self.scheduler.peek_waiting(self._admit_filter)
+            if head is None:
+                break
+            if (admitted and best_sealed is not None
+                    and head.priority <= best_sealed):
+                break
+            bucket = self._bucket_for(len(head.prompt))
+            fits_budget = (self._budget_left is None
+                           or bucket <= self._budget_left)
+            if fits_budget and self.kv.can_admit(self._admit_need(head)):
+                req = self.scheduler.next_waiting(self._admit_filter)
+                self._admit_one(req, bucket)
+                if self._budget_left is not None:
+                    self._budget_left -= bucket
+                admitted += 1
+                continue
+            if self._budget_left is None:
+                break   # KV-blocked without a budget: nothing to backfill on
+
+            def fits(r, head_rid=head.rid):
+                if r.rid == head_rid:
+                    return False   # the head keeps next step's fresh budget
+                if best_sealed is not None and r.priority <= best_sealed:
+                    return False   # must not jump the restore queue
+                if self._buckets and not self._admissible(r):
+                    return False
+                b = self._bucket_for(len(r.prompt))
+                return (b <= self._budget_left
+                        and self.kv.can_admit(self._admit_need(r)))
+
+            cand = self.scheduler.next_backfill(fits)
+            if cand is None:
+                break
+            cand.backfilled = True
+            self.backfills += 1
+            b = self._bucket_for(len(cand.prompt))
+            self._admit_one(cand, b)
+            self._budget_left -= b
+            admitted += 1
+        return admitted
+
+    def _handoff_key(self, inf: InflightPrefill) -> tuple:
+        """Handoff order follows the admission queue's (tightest slack
+        first, priority tiebreak; pure priority otherwise), not slot
+        order."""
+        r = inf.req
+        if self.scheduler.order == "slack":
+            return (r.abs_deadline, -r.priority, r.rid)
+        return (-r.priority, r.rid)
+
+    def _handoff_ready(self) -> None:
+        """Consume the prefills dispatched at the previous step: their KV
+        rows cross from the prefill plan to the decode plan as seal/unseal
+        pairs, up to ``handoff_batch`` rows a sealed crossing, and the
+        requests enter the decode phase."""
+        order = sorted(self._inflight.values(), key=self._handoff_key)
+        self._inflight.clear()
+        for i in range(0, len(order), self._handoff_batch):
+            self._complete_handoff(order[i:i + self._handoff_batch])
+
+    def _complete_handoff(self, group: List[InflightPrefill]) -> None:
+        # Each row seals under its own kvhandoff/{stream} namespace (one
+        # handoff per stream, ever: restores after preemption use kvslot/),
+        # but the group crosses the plan boundary as one message: one seal
+        # event and one restore event carry its total payload.
+        sealed_rows = []
+        total_nb = total_tensors = 0
+        for inf in group:
+            # the caller's stream waits for the prefill before the seal
+            # reads its cache
+            self.prefill_plan.join(inf.ready, inf.logits)
+            prefix = f"kvhandoff/{inf.req.stream_id}"
+            sealed = seal_tree(self.td.sealing_key, inf.cache, prefix=prefix)
+            nb = sealed_nbytes(sealed)
+            inf.req.n_handoffs += 1
+            inf.req.handoff_bytes += nb
+            total_nb += nb
+            total_tensors += len(sealed)
+            sealed_rows.append((inf, prefix, sealed))
+        self.handoff_crossings += 1
+        rids = ",".join(str(inf.req.rid) for inf in group)
+        self.td.record_seal(total_nb, total_tensors,
+                            f"handoff x{len(group)} rids={rids}")
+        self.td.record_restore(total_nb, total_tensors,
+                               f"handoff x{len(group)} rids={rids}")
+        for inf, prefix, sealed in sealed_rows:
+            req, slot, bucket = inf.req, inf.slot, inf.bucket
+            restored = unseal_tree(self.td.sealing_key, sealed,
+                                   self.model.abstract_cache(1, self.max_len),
+                                   prefix=prefix)
+            keys = [req.page_keys] if self.kv.supports_sharing else None
+            self.kv.insert_prefill(restored, [slot], bucket, page_keys=keys)
+            first_np = self._first_tokens(inf.logits, [req], 1)
+            self._start_decode(slot, req, int(first_np[0]), bucket)
 
     def _preempt_for(self, incoming: Request) -> bool:
         """Free capacity for ``incoming`` by preempting the lowest-priority
@@ -736,7 +959,8 @@ class Engine:
                         self.restore_slot(best.sealed, best.req)
                         continue
             if (self.scheduler.queue and self.slots.free
-                    and self._admit_batch() > 0):
+                    and (self._admit_continuous() if self._continuous
+                         else self._admit_batch()) > 0):
                 continue
             # preemption is a PRIORITY right, independent of queue order
             cand = self.scheduler.peek_priority(self._admit_filter)
@@ -750,13 +974,19 @@ class Engine:
     def _drain_kv_events(self) -> None:
         """Account boundary traffic the backend generated on its own:
         shared-page parking (a last live reference dropped while sealed
-        references remain: the page crosses out once, content-named), and
-        re-materialization (parked pages brought back, ciphertext-resident
-        pages decrypted in place), recorded as restores as the reference's
-        catch-all branch does."""
+        references remain: the page crosses out once, content-named), the
+        store's publish/hit/evict traffic, and re-materialization (parked
+        pages brought back, ciphertext-resident pages decrypted in place),
+        recorded as restores as the reference's catch-all branch does."""
         for kind, nb, n in self.kv.drain_events():
             if kind == "park":
                 self.td.record_seal(nb, n, "shared page parked (last ref)")
+            elif kind == "store_publish":
+                self.td.record_seal(nb, n, "page published to sealed store")
+            elif kind == "store_hit":
+                self.td.record_store_hit(nb, n)
+            elif kind == "store_evict":
+                self.td.record_store_evict(nb, n)
             else:
                 self.td.record_restore(nb, n, "shared page rematerialized")
 
@@ -797,12 +1027,23 @@ class Engine:
 
     # -- serving loop ----------------------------------------------------------
     def step(self) -> int:
-        """One engine iteration: admission/restoration/preemption, then one
-        batched decode step. Returns number of *output* tokens produced
-        (prompt-chunk feeding steps count zero)."""
+        """One engine iteration: prefill-stream handoffs, then
+        admission/restoration/preemption, then one batched decode step.
+        Returns number of *output* tokens produced (prompt-chunk feeding
+        steps count zero)."""
         t0 = time.monotonic()
+        if self._inflight:
+            self._handoff_ready()
+        if self._step_tokens is not None:
+            # a fresh per-step budget: every live decode row (a slot still
+            # feeding a chunked tail too) costs 1; admissions charge their
+            # prefill bucket against the remainder
+            live_now = sum(1 for s in self.slots.active
+                           if s not in self._paused)
+            self._budget_left = max(0, self._step_tokens - live_now)
         self._admit_ready()
-        live = [s for s in self.slots.active if s not in self._paused]
+        live = [s for s in self.slots.active
+                if s not in self._paused and s not in self._inflight]
         if live and self.kv.on_demand:
             live = self._grant_step_pages(live)
         if not live:
@@ -838,7 +1079,8 @@ class Engine:
 
     @property
     def idle(self) -> bool:
-        return self.scheduler.idle and not self._preempted
+        return (self.scheduler.idle and not self._preempted
+                and not self._inflight)
 
     def run(self, max_steps: int = 10_000) -> ServeStats:
         steps = 0
@@ -852,6 +1094,11 @@ class Engine:
         stats = self.scheduler.stats()
         stats.shared_pages = getattr(self.kv, "shared_page_maps", 0)
         stats.cow_copies = getattr(self.kv, "cow_copies", 0)
+        stats.store_hits = getattr(self.kv, "store_hits", 0)
+        stats.store_restored_bytes = getattr(self.kv, "store_restored_bytes", 0)
+        # evictions come from the channel (event-accounted), not the store
+        # object: a store shared between engines counts fleet-wide there
+        stats.store_evictions = self.td.channel.stats.store_evictions
         return stats
 
     # -- sealed KV preemption ----------------------------------------------------

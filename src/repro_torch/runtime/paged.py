@@ -44,6 +44,20 @@ every read. Any other reader of such a page (seal, partial eviction, an
 append) first materializes it: decrypts it in place through the ChaCha20
 kernel (B1). ``seal_tail_pages``/``restore_tail_pages`` evict and bring
 back a victim's (private) tail pages only.
+
+Page store (``page_store=``). The persistent tier behind the content index
+(:mod:`repro_torch.runtime.pagestore`): parking's content-named ciphertext,
+retained past the last live or sealed reference. Aligned FULL pages
+publish to the store when their data is already sealed (parking, the last
+sealed reference's discard) or when their last mapping drops unsealed
+(release, sole-user divergence: one fresh seal under the same canonical
+name parking uses, so re-publishing resident content is a membership
+no-op). ``insert_prefill``'s index misses and ``restore``'s
+neither-resident-nor-parked case consult the store: a hit is MAC-verified
+and decrypted before any page or refcount moves, then mapped like a shared
+page. Store residency also discounts ``admission_check``'s effective need.
+Entries are namespaced per sealing-key domain, so another tenant's lookups
+are clean misses.
 """
 
 from __future__ import annotations
@@ -67,6 +81,7 @@ from repro_torch.models import layers
 from repro_torch.models.transformer import BLOCK, SLOT, _layer
 from repro_torch.runtime import sampling
 from repro_torch.runtime.kvcache import KVBackend, host_upload
+from repro_torch.runtime.pagestore import SealedPageStore
 from repro_torch.runtime.plan import SingleDevicePlan
 
 Cache = Any
@@ -135,8 +150,32 @@ class PagedKVBackend(KVBackend):
             # copy-on-write turns a shared mapping into a private page at
             # step time, which no admission-time worst case can cover
             raise ValueError("prefix_sharing requires alloc='ondemand'")
-        if page_store or store_budget_pages is not None:
-            raise _not_ported("the sealed page store", "11")
+        # the persistent sealed-page store: a ready SealedPageStore (which
+        # backends may share), True, or a policy name; store_budget_pages
+        # alone implies an LRU store
+        if page_store is False:
+            page_store = None
+        if page_store is None and store_budget_pages is not None:
+            page_store = "lru"
+        if page_store is not None and not prefix_sharing:
+            raise ValueError(
+                "page_store requires prefix_sharing=True (the store is the "
+                "tier behind the content index — without page keys there is "
+                "nothing to address it by)")
+        if page_store is True:
+            page_store = "lru"
+        if isinstance(page_store, str):
+            page_store = SealedPageStore(budget_pages=store_budget_pages,
+                                         policy=page_store)
+        elif page_store is not None and store_budget_pages is not None:
+            raise ValueError(
+                "store_budget_pages configures a store the backend "
+                "constructs; a ready SealedPageStore carries its own budget")
+        self.page_store = page_store
+        self.store_key: Optional[SealingKey] = None
+        self.store_hits = 0             # pages served from the store
+        self.store_restored_pages = 0
+        self.store_restored_bytes = 0
         self.on_demand = alloc == "ondemand"
         self.prefix_sharing = prefix_sharing
         self.supports_sharing = prefix_sharing
@@ -180,13 +219,15 @@ class PagedKVBackend(KVBackend):
         # index both ways; _sealed_refs counts sealed-out requests whose
         # meta references a content key; _parked holds the content-named
         # ciphertext of pages whose last live mapping dropped while sealed
-        # references remain. The page store (queue A item 11) is the tier
-        # behind these.
+        # references remain; _partial_keys are keys of pages that part-fill
+        # (registered past written_len), never published to the store (a
+        # content property: the chain hash covers the same truncated run).
         self._page_ref = np.zeros(num_pages + 1, np.int32)
         self._index: Dict[bytes, int] = {}
         self._page_key: Dict[int, bytes] = {}
         self._sealed_refs: Dict[bytes, int] = {}
         self._parked: Dict[bytes, Dict[str, SealedTensor]] = {}
+        self._partial_keys: set = set()
         self._seal_key_cache: Optional[SealingKey] = None
         self._events: List[Tuple[str, int, int]] = []  # (kind, nbytes, n)
         self.shared_page_maps = 0     # mappings served by an index hit
@@ -319,18 +360,38 @@ class PagedKVBackend(KVBackend):
                                 self._key_salt)
 
     def resident_pages(self, page_keys: Optional[Sequence[bytes]]) -> int:
-        """How many of these content keys are resident in the index now."""
+        """How many of these content keys are resident in the LIVE index
+        now. Store residency is left out: admission's page promises size
+        physical takes from this count, and a store hit still takes a fresh
+        page; only the pricing discount (:meth:`admission_check`) sees the
+        store."""
         if not page_keys:
             return 0
         return sum(1 for k in page_keys if k in self._index)
+
+    def store_resident_pages(self, page_keys: Optional[Sequence[bytes]]
+                             ) -> int:
+        """How many of these content keys the store could serve beyond the
+        live index: the admission discount's second tier."""
+        if not page_keys or self.page_store is None:
+            return 0
+        skey = self._content_key()
+        if skey is None:
+            return 0
+        return sum(1 for k in page_keys
+                   if k not in self._index
+                   and self.page_store.contains(skey, k))
 
     def admission_check(self, need: int, page_keys: Optional[Sequence[bytes]]
                         = None) -> Tuple[bool, int]:
         """(fits, effective_need). Sharing does not relax the capacity bound
         (every page of one sequence holds its own table mapping); it
-        discounts the effective demand by the resident shared positions."""
-        eff = max(1, int(need) - self.resident_pages(page_keys)
-                  * self.page_size)
+        discounts the effective demand by the shared positions resident in
+        the index or the store (a store hit skips the prefill recompute,
+        though its page still takes a fresh physical page)."""
+        resident = (self.resident_pages(page_keys)
+                    + self.store_resident_pages(page_keys))
+        eff = max(1, int(need) - resident * self.page_size)
         return need <= self.request_capacity, eff
 
     def can_admit(self, n_tokens: int) -> bool:
@@ -366,32 +427,78 @@ class PagedKVBackend(KVBackend):
             self._clear_crypt(phys)
             self._free_pages.append(phys)
 
+    def bind_store_key(self, key: SealingKey) -> None:
+        """Fix the key domain this backend's store traffic lives under (the
+        engine binds its trust domain's sealing key at construction). Two
+        engines sharing one store under different keys never see each
+        other's entries: a cross-domain lookup is a clean miss."""
+        self.store_key = key
+
+    def _content_key(self) -> Optional[SealingKey]:
+        """The key content-named blobs (parking and the store) seal under:
+        the bound store key, else the last key seen. One selection for both
+        tiers, so parked blobs and store entries are interchangeable."""
+        return self.store_key or self._seal_key_cache
+
+    def _seal_content_page(self, key: SealingKey, key_bytes: bytes,
+                           phys: int) -> Dict[str, SealedTensor]:
+        """Seal one resident page under its canonical content-derived name
+        (same content => same name => same nonce and plaintext)."""
+        pages = self._page_arrays([phys])
+        return {kpath: seal_tensor(key, shared_page_name(key_bytes, kpath),
+                                   arr[:, 0])
+                for kpath, arr in pages.items()}
+
+    def _publish_store(self, skey: SealingKey, key_bytes: bytes,
+                       blobs: Dict[str, SealedTensor]) -> None:
+        """Hand content-named blobs to the store; the evictions its budget
+        forces surface as events (no boundary crossing: the host forgets
+        ciphertext)."""
+        for e in self.page_store.publish(skey, key_bytes, blobs,
+                                         tokens=self.page_size):
+            self._events.append(("store_evict", e.n_bytes, len(e.blobs)))
+
+    def _count_store_hit(self, n_bytes: int, n_blobs: int) -> None:
+        """One page restored from the store (a restore crossing)."""
+        self.store_hits += 1
+        self.store_restored_pages += 1
+        self.store_restored_bytes += n_bytes
+        self._events.append(("store_hit", n_bytes, n_blobs))
+
     def _unregister(self, phys: int) -> None:
         """The page leaves the content index (its last mapping dropped, or
-        its sole user is about to write into it); parked first while sealed
-        references remain. The page store's publish (queue A item 11)
-        belongs here."""
+        its sole user is about to write into it): parked first while sealed
+        references remain, and a full page published to the store (reusing
+        the parked blobs when parking just sealed them, else sealed once
+        here, a ``store_publish`` crossing)."""
         key = self._page_key.pop(phys, None)
         if key is None:
             return
         del self._index[key]
         if self._sealed_refs.get(key, 0) > 0:
             self._park(key, phys)
+        if self.page_store is not None and key not in self._partial_keys:
+            skey = self._content_key()
+            if skey is not None and not self.page_store.contains(skey, key):
+                blobs = self._parked.get(key)
+                if blobs is None:
+                    blobs = self._seal_content_page(skey, key, phys)
+                    self._events.append(
+                        ("store_publish",
+                         sum(b.n_bytes for b in blobs.values()), len(blobs)))
+                self._publish_store(skey, key, blobs)
 
     def _park(self, key_bytes: bytes, phys: int) -> None:
         """The last live mapping of a sealed-referenced shared page drops:
         its data crosses the boundary once, under its content-derived name
         (same content => same nonce and same plaintext, so parking the same
         content again can never pair one nonce with two plaintexts)."""
-        key = self._seal_key_cache
+        key = self._content_key()
         assert key is not None, \
             "sealed refs exist but no sealing key was ever seen"
         if key_bytes in self._parked:
             return
-        pages = self._page_arrays([phys])
-        blobs = {kpath: seal_tensor(key, shared_page_name(key_bytes, kpath),
-                                    arr[:, 0])
-                 for kpath, arr in pages.items()}
+        blobs = self._seal_content_page(key, key_bytes, phys)
         self._parked[key_bytes] = blobs
         self._events.append(("park", sum(b.n_bytes for b in blobs.values()),
                              len(blobs)))
@@ -441,27 +548,64 @@ class PagedKVBackend(KVBackend):
                        ) -> None:
         """Map each slot's prompt pages (slot by slot, in order): a page
         whose content key is resident (or registered by an earlier member
-        of this group) maps the shared page; any other takes a fresh page,
-        registered under its key, and gets the prefilled rows copied in."""
+        of this group) maps the shared page; an index miss that the store
+        holds takes a fresh page and gets the store's plaintext; any other
+        takes a fresh page, registered under its key, and gets the
+        prefilled rows copied in. Every store hit is unsealed (MAC-checked)
+        before any page or refcount moves, so a tampered entry fails the
+        whole group without a leak."""
         n_pages = self.pages_for(written_len)
-        src_rows, page_ord, phys = [], [], []
-        for i, slot in enumerate(slots):
+        skey = self._content_key() if self.page_store is not None else None
+        # phase 1: plan every slot's pages without touching state; pending
+        # holds keys an earlier group member registers at commit
+        plans: List[List[Tuple[str, int, Optional[bytes], Any]]] = []
+        pending: set = set()
+        for i in range(len(slots)):
             keys = page_keys[i] if page_keys else None
-            hits = [keys is not None and keys[j] in self._index
-                    for j in range(n_pages)]
-            taken = self._take_pages(n_pages - sum(hits))
+            plan = []
             for j in range(n_pages):
-                if hits[j]:
-                    p = self._index[keys[j]]
+                key = keys[j] if keys else None
+                if key is not None and (key in self._index or key in pending):
+                    plan.append(("hit", j, key, None))
+                    continue
+                if key is not None and skey is not None:
+                    blobs = self.page_store.lookup(skey, key)
+                    if blobs is not None:
+                        plain = {kpath: unseal_tensor(skey, st)
+                                 for kpath, st in blobs.items()}
+                        nb = sum(st.n_bytes for st in blobs.values())
+                        plan.append(("store", j, key, (plain, nb)))
+                        pending.add(key)
+                        continue
+                plan.append(("miss", j, key, None))
+                if key is not None:
+                    pending.add(key)
+            plans.append(plan)
+        # phase 2: commit: map hits, take pages for store hits and misses
+        src_rows, page_ord, phys = [], [], []
+        store_writes: Dict[int, Dict[str, torch.Tensor]] = {}
+        for i, slot in enumerate(slots):
+            taken = self._take_pages(sum(1 for pl in plans[i]
+                                         if pl[0] != "hit"))
+            for kind, j, key, data in plans[i]:
+                if kind == "hit":
+                    p = self._index[key]
                     self._page_ref[p] += 1
                     self.table[slot, j] = p
                     self.shared_page_maps += 1
                     continue
                 p = taken.pop(0)
                 self.table[slot, j] = p
-                if keys is not None:
-                    self._index[keys[j]] = p
-                    self._page_key[p] = keys[j]
+                if key is not None:
+                    self._index[key] = p
+                    self._page_key[p] = key
+                if kind == "store":
+                    plain, nb = data
+                    store_writes[p] = plain
+                    self._count_store_hit(nb, len(plain))
+                    continue
+                if key is not None and (j + 1) * self.page_size > written_len:
+                    self._partial_keys.add(key)
                 src_rows.append(i)
                 page_ord.append(j)
                 phys.append(p)
@@ -469,7 +613,11 @@ class PagedKVBackend(KVBackend):
             self.pos[slot] = written_len
             self._promised_total -= int(self._promised[slot])
             self._promised[slot] = 0
+        # store-restored pages are not pages_written: that counter is the
+        # prefill-write cost a warm store shrinks (store_restored_pages
+        # counts the restores)
         self.pages_written += len(phys)
+        self._scatter_pages(store_writes)
         if not phys:
             return
         idx = [torch.as_tensor(x, dtype=torch.long, device=self.device)
@@ -713,21 +861,31 @@ class PagedKVBackend(KVBackend):
                 pages[j] = {kpath: unseal_tensor(key, st)
                             for kpath, st in blobs.items()}
         # shared ordinals: re-link a page resident in the index, or bring
-        # back (MAC-checked, here in phase 1) a parked one. Whatever is
-        # neither is lost content; the page store's third tier (queue A
-        # item 11) belongs here.
+        # back (MAC-checked, here in phase 1) a parked one, or, third tier,
+        # one the store outlived the parked blob with (a deadline abort
+        # discarded the last sealed reference). Whatever is none of these
+        # is lost content.
         relink: Dict[int, bytes] = {}
-        remat: Dict[int, Tuple[bytes, Dict[str, torch.Tensor]]] = {}
+        remat: Dict[int, Tuple[str, bytes, Dict[str, torch.Tensor], int]] = {}
         for j, k in zip(shared_ords, keys):
             if k in self._index:
                 relink[j] = k
             elif k in self._parked:
-                remat[j] = (k, {kpath: unseal_tensor(key, st)
-                                for kpath, st in self._parked[k].items()})
+                blobs = self._parked[k]
+                remat[j] = ("remat", k, {kpath: unseal_tensor(key, st)
+                                         for kpath, st in blobs.items()},
+                            sum(st.n_bytes for st in blobs.values()))
+            elif (self.page_store is not None
+                  and self.page_store.contains(key, k)):
+                blobs = self.page_store.lookup(key, k)
+                remat[j] = ("store", k, {kpath: unseal_tensor(key, st)
+                                         for kpath, st in blobs.items()},
+                            sum(st.n_bytes for st in blobs.values()))
             else:
                 raise IntegrityError(
-                    f"shared page (ordinal {j}) is neither resident nor "
-                    f"parked: sealed state references lost content")
+                    f"shared page (ordinal {j}) is neither resident, "
+                    f"parked, nor store-resident: sealed state references "
+                    f"lost content")
         # phase 2: commit: map, write, and account. Sealed references are
         # released by discard_sealed once the engine's whole restore
         # succeeded, so a rolled-back restore leaves parked blobs intact.
@@ -747,26 +905,33 @@ class PagedKVBackend(KVBackend):
                 self.table[slot, j] = p
                 self.shared_page_maps += 1
                 continue
-            k, plain = remat[j]
+            tier, k, plain, nb = remat[j]
             p = next(taken)
             self.table[slot, j] = p
             self._index[k] = p
             self._page_key[p] = k
             writes[p] = plain
-            self._events.append(("rematerialize",
-                                 sum(st.n_bytes
-                                     for st in self._parked[k].values()),
-                                 len(self._parked[k])))
+            if tier == "store":
+                self._count_store_hit(nb, len(plain))
+            else:
+                self._events.append(("rematerialize", nb, len(plain)))
         self._alloc[slot] = n_alloc
         self.pos[slot] = pos
-        self.pages_written += len(writes)
+        # store-restored pages stay out of pages_written, as in
+        # insert_prefill
+        self.pages_written += len(writes) - sum(
+            1 for tier, *_ in remat.values() if tier == "store")
         self._scatter_pages(writes)
 
     def discard_sealed(self, key: SealingKey, sealed: Dict[str, SealedTensor],
                        prefix: str) -> None:
         """Release a spent sealed dict's shared-content references (after a
         fully successful restore, or when a sealed-out request is dropped
-        unrestored): parked ciphertext dies with its last reference."""
+        unrestored): parked ciphertext dies with its last reference, handed
+        to the store first when there is one (it is the store's canonical
+        ciphertext, and admission may already have discounted a waiting
+        request against it; a membership no-op when the release path
+        already published it)."""
         name = f"{prefix}/sharedkeys"
         if name not in sealed:
             return
@@ -775,7 +940,12 @@ class PagedKVBackend(KVBackend):
                 self._sealed_refs[k] -= 1
                 if self._sealed_refs[k] <= 0:
                     del self._sealed_refs[k]
-                    self._parked.pop(k, None)
+                    blobs = self._parked.pop(k, None)
+                    if (blobs is not None and self.page_store is not None
+                            and k not in self._partial_keys):
+                        skey = self._content_key()
+                        if skey is not None:
+                            self._publish_store(skey, k, blobs)
 
     @torch.inference_mode()
     def _scatter_pages(self, writes: Dict[int, Dict[str, torch.Tensor]]

@@ -21,11 +21,13 @@ from repro.core import SealingKey as JKey
 from repro.core import TrustDomain as JTD
 from repro.launch import serve as jserve
 from repro.models import build_model as jbuild
+from repro.roofline.analysis import HBM_BW as J_HBM_BW
 from repro.runtime import Engine as JEngine
 from repro.runtime import GenerationRequest as JGen
 from repro_torch.configs import smoke_config as tsmoke
 from repro_torch.core import SealingKey as TKey
 from repro_torch.core import TrustDomain as TTD
+import repro_torch.core.overheads as t_over
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model as tbuild
 from repro_torch.models.convert import params_from_jax
@@ -178,12 +180,19 @@ def test_out_of_slice_options_raise(models):
     _, _, tm, tp = models
     kw = dict(CANONICAL_ENGINE, device="cpu")
     paged = dict(kv_backend="paged", page_size=8)
-    for bad in (dict(mesh="dp=2"), dict(continuous_batching=True),
-                dict(prefill_plan="dedicated"),
-                dict(paged, page_store=True),
-                dict(paged, prefix_sharing=True, page_store=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(tm, tp, **kw, **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TEngine(tm, tp, **kw, mesh="dp=2")
+    # the store and two-phase serving are in the slice
+    store = TEngine(tm, tp, **kw, **paged, prefix_sharing=True,
+                    page_store=True).kv
+    assert store.page_store is not None and store.store_key is not None
+    assert TEngine(tm, tp, **kw, **paged, prefix_sharing=True,
+                   store_budget_pages=4).kv.page_store.budget_pages == 4
+    assert TEngine(tm, tp, **kw, continuous_batching=True)._step_tokens == 10
+    assert TEngine(tm, tp, **kw, **paged, prefill_plan="dedicated",
+                   handoff_batch=2).prefill_plan is not None
+    with pytest.raises(ValueError, match="requires prefix_sharing"):
+        TEngine(tm, tp, **kw, **paged, page_store=True)
     # the paged backend is in the slice, with sharing and on-demand pages;
     # its options need kv_backend="paged"
     for decode in ("gather", "kernel"):
@@ -232,6 +241,39 @@ def test_serve_prints_reference_report_lines(monkeypatch):
     served = [l.split(" in ")[0] for l in tlines if l.startswith("served")]
     assert served == [l.split(" in ")[0] for l in jlines
                       if l.startswith("served")] == ["served 3 requests / 12 tokens"]
+
+
+EXACT_LINES = ("boundary:", "frame coalescing:", "epoch ", "store hits:",
+               "prefix sharing:", "sealed handoff:", "continuous batching:",
+               "sealed-KV traffic:", "store restore-vs-recompute")
+
+
+@pytest.mark.parametrize("flags,shown", [
+    (["--page-store", "--store-policy", "cost", "--store-budget-pages", "8",
+      "--epochs", "2"], ("epoch 1:", "store hits:")),
+    (["--continuous-batching"], ("continuous batching:",)),
+    (["--prefill-plan", "dedicated", "--handoff-batch", "2"],
+     ("sealed handoff:",)),
+], ids=["store", "continuous", "two-plan"])
+def test_serve_store_and_two_phase_report_lines(monkeypatch, flags, shown):
+    """The store and two-phase flags print the reference launcher's lines;
+    counts, bytes, boundary traffic and, with the port's memory rate set to
+    the reference's, the store pricing line agree exactly (timings do
+    not)."""
+    argv = ["--arch", "deepseek-7b", "--smoke", "--requests", "3",
+            "--max-new-tokens", "4", "--slots", "2", "--kv-backend", "paged",
+            "--page-size", "8"] + flags
+    monkeypatch.setattr(t_over, "HBM_BYTES_PER_S", J_HBM_BW)
+    jlines = _report(jserve.main, argv, monkeypatch)
+    tlines = _report(tserve.main, argv + ["--device", "cpu"], monkeypatch)
+    label = re.compile(r"^[^0-9(]*")
+    assert [label.match(l).group(0) for l in tlines] == \
+        [label.match(l).group(0) for l in jlines]
+    for prefix in EXACT_LINES:
+        assert [l for l in tlines if l.startswith(prefix)] == \
+            [l for l in jlines if l.startswith(prefix)], prefix
+    for prefix in shown:
+        assert any(l.startswith(prefix) for l in tlines), prefix
 
 
 def _imported_modules(path: Path):

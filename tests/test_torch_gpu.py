@@ -459,3 +459,132 @@ def test_paged_sharing_engine_on_card(card):
         solo = Engine(model, params,
                       trust_domain=TrustDomain("tdx", device=card), **kw)
         assert req.output == solo.generate(gen(spec)).tokens
+
+
+def _sampled(spec):
+    from repro_torch.runtime import SamplingParams
+    prompt, mnt, prio, seed = spec
+    return GenerationRequest(
+        prompt=np.asarray(prompt, np.int32), max_new_tokens=mnt,
+        priority=prio,
+        params=SamplingParams(temperature=0.9, top_k=16, seed=seed))
+
+
+def _card_model(card):
+    cfg = smoke_config("deepseek-7b")
+    return build_model(cfg, device=card), tree_map(
+        lambda t: t.to(card), build_model(cfg, device="cpu").init_params(seed=3))
+
+
+def test_paged_store_engine_on_card(card):
+    """The canonical scenario twice on one paged-store engine with kernel
+    decode on the card: the warm epoch hits the store and writes fewer
+    pages, its tokens are the cold epoch's, and every request equals its
+    solo run; the pool invariants hold after every step."""
+    from conftest import canonical_requests, check_pool_invariants
+    model, params = _card_model(card)
+    kw = dict(kv_backend="paged", page_size=8, kv_decode="kernel",
+              prefix_sharing=True, page_store=True, max_slots=2, max_len=64,
+              prefill_buckets=(4, 8), device=card)
+    low, high = canonical_requests()
+    eng = Engine(model, params, trust_domain=TrustDomain("tdx", device=card),
+                 **kw)
+    epochs = []
+    for _ in range(2):
+        written, hits = eng.kv.pages_written, eng.kv.store_hits
+        P.reset_launches()
+        reqs = [eng.submit(_sampled(s)) for s in low]
+        for _ in range(3):
+            eng.step()
+            check_pool_invariants(eng.kv)
+        reqs += [eng.submit(_sampled(s)) for s in high]
+        while not eng.idle:
+            eng.step()
+            check_pool_invariants(eng.kv)
+        assert P.launches["paged_attention"] > 0
+        epochs.append(([r.output for r in reqs],
+                       eng.kv.pages_written - written,
+                       eng.kv.store_hits - hits))
+    (cold, cold_written, _), (warm, warm_written, warm_hits) = epochs
+    assert warm == cold
+    assert warm_hits > 0 and warm_written < cold_written
+    solo = Engine(model, params, trust_domain=TrustDomain("tdx", device=card),
+                  **dict(kw, page_store=None, prefix_sharing=False))
+    for spec, out in zip(low + high, cold):
+        assert out == solo.generate(_sampled(spec)).tokens
+
+
+def test_two_plan_engine_on_card_rerun_identical(card):
+    """Disaggregated prefill on the card (its own CUDA stream, sealed
+    handoff two rows a crossing) over the long-prompt burst, twice: equal
+    tokens both times (the handoff waits for the prefill's stream) and
+    each request equal to its solo run on a slot engine."""
+    from conftest import burst_requests
+    model, params = _card_model(card)
+    base = dict(max_slots=2, max_len=64, prefill_buckets=(4, 8), device=card)
+    runs = []
+    for _ in range(2):
+        eng = Engine(model, params,
+                     trust_domain=TrustDomain("tdx", device=card),
+                     kv_backend="paged", page_size=8, kv_decode="kernel",
+                     prefill_plan="dedicated", handoff_batch=2, **base)
+        assert eng.prefill_plan.stream is not None
+        assert (eng.prefill_params["embedding"]["table"].data_ptr()
+                == eng.params["embedding"]["table"].data_ptr())
+        reqs = [eng.submit(_sampled(s)) for s in burst_requests()]
+        stats = eng.run()
+        assert stats.handoffs == len(reqs) and stats.handoff_bytes > 0
+        assert eng.handoff_crossings < len(reqs)
+        runs.append([r.output for r in reqs])
+    assert runs[0] == runs[1]
+    solo = Engine(model, params, trust_domain=TrustDomain("tdx", device=card),
+                  **base)
+    assert runs[0] == [solo.generate(_sampled(s)).tokens
+                       for s in burst_requests()]
+
+
+def test_store_blobs_sealed_on_card_open_on_cpu(card):
+    """A page the card publishes to the store is the same blob a CPU
+    unseal opens, to the pool's bits."""
+    from repro_torch.core.sealing import unseal_tensor
+    model, params = _card_model(card)
+    td = TrustDomain("tdx", device=card)
+    eng = Engine(model, params, trust_domain=td, kv_backend="paged",
+                 page_size=8, prefix_sharing=True, page_store=True,
+                 max_slots=2, max_len=64, prefill_len=8, device=card)
+    eng.generate(_sampled((np.arange(1, 9), 10, 0, 1)))
+    entries = eng.kv.page_store._domains[td.sealing_key.key_id()]
+    assert entries
+    for entry in entries.values():
+        for st in entry.blobs.values():
+            on_card = unseal_tensor(td.sealing_key, st)
+            cpu_blob = type(st)(st.name, st.ciphertext.cpu(), st.mac,
+                                st.shape, st.dtype, st.n_bytes)
+            assert torch.equal(unseal_tensor(td.sealing_key, cpu_blob),
+                               on_card.cpu())
+
+
+def test_batched_prefill_rows_equal_solo_on_card(card):
+    """A bf16 model's batched prefill (the engine's plan, 4 rows of 16
+    tokens) gives each row the logits and KV of the same prompt prefilled
+    alone, bit for bit: cuBLAS's kernel for 64 rows rounds otherwise than
+    its kernel for 16 (a Llama2-7B row differed by 0.1 in its logits), so
+    the plan runs one row a call."""
+    import dataclasses
+    from repro_torch.runtime.plan import SingleDevicePlan
+    cfg = dataclasses.replace(smoke_config("llama2-7b"), d_model=1024,
+                              num_heads=8, num_kv_heads=8, head_dim=128,
+                              d_ff=2816, vocab_size=32000, dtype="bfloat16")
+    model = build_model(cfg, device=card)
+    params = model.init_params(seed=0)
+    prefill = SingleDevicePlan(model).compile_prefill()
+    g = torch.Generator(device="cpu").manual_seed(31)
+    tokens = torch.randint(1, 32000, (4, 16), generator=g,
+                           dtype=torch.int32).to(card)
+    logits, cache = prefill(params, tokens, model.init_cache(4, 64))
+    for i in range(4):
+        one, solo = prefill(params, tokens[i:i + 1], model.init_cache(1, 64))
+        assert torch.equal(logits[i], one[0])
+        for leaf in ("k", "v"):
+            assert torch.equal(cache["layers"]["slot_0"][leaf][:, i],
+                               solo["layers"]["slot_0"][leaf][:, 0])
