@@ -53,7 +53,21 @@ Phases, each fatal on failure:
      paged-kernel dedicated prefill plan (its own CUDA stream, sealed
      handoff two rows a crossing): tokens equal within each backend, the
      handoff crossings as counted from the prefills in flight, TTFT and
-     next-token latency per mode.
+     next-token latency per mode. Then the fleet path: two EngineWorkers
+     sharing the weights behind an attested Gateway and a tenant-affinity
+     Orchestrator, two tenants' sampled traffic over their own shared
+     heads; the busiest worker is killed mid-decode (its KV migrates
+     sealed under the tenant key domains and the survivor decodes it
+     through B4), the killed name is respawned and the survivor drained
+     onto it: every request equals its solo run and the run without the
+     kill, the migrated bytes equal the migrants' sealed bytes, a
+     cross-tenant restore fails MAC without a leak, and every pool ends
+     all free. Then the RAG path: RAGPipeline in bm25+rerank mode over the
+     paged-kernel engine, the corpus sealed through the bounce buffer, the
+     dense encoder on the card ranking as on the CPU, each answer
+     reproduced by engine.generate on its trimmed prompt (a determinism
+     check: B3 at this engine's 9-page table is held to its plain walk in
+     the kernel checks).
      Each path runs with every kernel count set to 0 just before it; every
      request's tokens must equal the same request served alone on a fresh
      engine of that path; the pool invariants hold after every sharing and
@@ -73,8 +87,11 @@ Phases, each fatal on failure:
      version and near the bf16 product with the original weights, flash
      near layers.sdpa;
   7. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
-     memory (slot, paged, sharing, store, two-phase and int8 paths), TTFT
-     and next-token latency of every serving path, a bucket group's prefill
+     memory (slot, paged, sharing, store, two-phase, fleet and int8 paths),
+     TTFT and next-token latency of every serving path (the fleet's with
+     and without the kill), the fleet's gateway and migration counters and
+     its kill-to-resume time, the RAG path's retrieval and generation
+     times, a bucket group's prefill
      as one batched call against one row a call (the plan's),
      the store's restore-vs-recompute price at the measured prefill time,
      kernel launches on each path, and one JSON line listing every ported
@@ -140,6 +157,16 @@ PAGED_CASES = [
     ("gqa f32", "float32",
      dict(b=3, h=8, hk=2, hd=64, ps=8, pages=6, valid=[48, 13, 0]),
      (1e-5, 1e-5)),
+    # the RAG path's engine: 2 slots x 9 pages (max_len 144), 5 splits of
+    # 2 pages whose last holds 1; a full slot and one at the trimmed prompt
+    ("llama2-7b bf16, RAG 2 x 9 pages", "bfloat16",
+     dict(b=2, h=32, hk=32, hd=128, ps=16, pages=9, valid=[144, 129]),
+     (1e-2, 1e-3)),
+    # the two-phase path's engine: 4 slots x 12 pages (max_len 192)
+    ("llama2-7b bf16, two-phase 4 x 12 pages", "bfloat16",
+     dict(b=4, h=32, hk=32, hd=128, ps=16, pages=12,
+          valid=[192, 130, 17, 0]),
+     (1e-2, 1e-3)),
 ]
 PAGED_LAYER = 5      # counter_base = layer * blocks_per_page
 # the main path's paged call: one Llama2-7B layer, 2 slots at 256 positions
@@ -192,6 +219,10 @@ FLASH_CASES = [
 QMM_ERR_MARGIN = 1.5
 FLASH_SDPA_TOL = (2e-2, 2e-2)
 QUANT_PROMPT = 128
+# the int8 path runs at full width but QUANT_LAYERS of Llama2-7B's 32
+# layers deep: it reads layer 0 only, and sealing all 32 quantized layers
+# cost some 17 s of host MAC a run
+QUANT_LAYERS = 2
 
 
 def qmm_err_limit(x, w) -> float:
@@ -806,6 +837,44 @@ TWO_PHASE_MODES = {
                                   kv_decode="kernel",
                                   prefill_plan="dedicated", handoff_batch=2),
 }
+# the fleet path (the reference's examples/fleet_rag.py at Llama2-7B width):
+# two EngineWorkers on the card share the unsealed weights, each its own
+# tdx TrustDomain, behind a Gateway (attestation, tenant key domains,
+# prompt envelopes) and a tenant-affinity Orchestrator. The paged-kernel
+# engine with prefix sharing, 2 slots, max_len 256, one 128 bucket. Two
+# tenants each send four 128-token prompts over their own 96-token head
+# (numpy seed 29), sampled (temperature 0.7, top-k 20, a seed per request)
+# for 16 tokens. After FLEET_KILL_AT fleet steps the busiest worker is
+# killed: its requests migrate sealed under their tenant's key domain to
+# the survivor, which restores them as ciphertext (B4) once a slot frees.
+# When a migrant has decoded its next token there, the killed worker's name
+# is respawned once through the worker factory, the survivor is drained
+# onto it, and the fleet runs to the end.
+FLEET_KW = dict(PAGED_KW, prefix_sharing=True, prefill_buckets=(128,))
+FLEET_TENANTS = ("hospital", "bank")
+FLEET_HEAD = 96
+FLEET_PROMPT = 128
+FLEET_PER_TENANT = 4
+FLEET_NEW = 16
+FLEET_KILL_AT = 4
+FLEET_SEED0 = 700
+# the RAG path: RAGPipeline in bm25+rerank mode over the paged-kernel
+# Llama2-7B engine (tdx) and the tests' corpus (tests/test_rag.py: fifteen
+# synthetic five-sentence documents and one needle); the corpus crosses the
+# bounce buffer sealed, the dense encoder (bf16, the port's seeded init)
+# runs on the card. Its card embeddings must agree with the CPU's on the
+# same weights within RAG_EMB_TOL (two bf16 roundings of a unit-norm
+# embedding) and rank the documents the same up to near ties (two
+# documents whose CPU scores lie within 2 x RAG_EMB_TOL may swap). The
+# engine's max_len 144 holds the 128 bucket and 16 new tokens, so the
+# pipeline trims each prompt to 129 tokens: one bucket's prefill and one
+# prompt token fed through decode.
+RAG_KW = dict(PAGED_KW, max_len=144)
+RAG_QUERIES = ("confidential enclave attestation llama",
+               "which enclave protects patient records?")
+RAG_TOP_K = 3
+RAG_NEW = 16
+RAG_EMB_TOL = 4e-3
 # the card's Gumbel noise against the CPU's: both evaluate -log(-log(u)) in
 # float64 and round to float32, so they may differ where the two float64
 # logs round the last bit apart (tests/test_torch_sampling.py states the
@@ -1227,6 +1296,274 @@ def phase_two_phase(torch, np, model, params, cfg) -> dict:
                 tokens=sum(map(len, slot_b["outputs"])), agree=agree)
 
 
+def phase_fleet(torch, np, model, params, cfg) -> dict:
+    """The fleet path: each request alone on a one-slot engine, the fleet
+    without a kill, a cross-tenant restore, then (every kernel count set to
+    0 just before it) the fleet with the kill, the respawn and the drain;
+    then the checks."""
+    from repro_torch.core import TrustDomain
+    from repro_torch.core.sealing import IntegrityError, sealed_nbytes
+    from repro_torch.fleet import (DEAD, READY, EngineWorker, Gateway,
+                                   Orchestrator)
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.runtime import (Engine, GenerationRequest,
+                                     SamplingParams, stats_from_requests)
+
+    rng = np.random.default_rng(29)
+    specs = []
+    for tenant in FLEET_TENANTS:
+        head = rng.integers(1, cfg.vocab_size, FLEET_HEAD).astype(np.int32)
+        for _ in range(FLEET_PER_TENANT):
+            tail = rng.integers(1, cfg.vocab_size, FLEET_PROMPT - FLEET_HEAD)
+            specs.append((np.concatenate([head, tail.astype(np.int32)]),
+                          tenant, FLEET_SEED0 + len(specs)))
+
+    def gen(spec):
+        prompt, tenant, seed = spec
+        return GenerationRequest(
+            prompt=prompt.copy(), max_new_tokens=FLEET_NEW, tenant=tenant,
+            params=SamplingParams(temperature=0.7, top_k=20, seed=seed))
+
+    def worker(name):
+        return EngineWorker(name, model, params, engine_kw=FLEET_KW)
+
+    def fleet():
+        workers = [worker(f"w{i}") for i in range(2)]
+        gateway = Gateway(config_repr=cfg.name)
+        for tenant in FLEET_TENANTS:
+            gateway.register_tenant(tenant)
+        return gateway, Orchestrator(gateway, workers,
+                                     placement="tenant_affinity",
+                                     worker_factory=worker), workers
+
+    def pool_free(w):
+        kv = w.engine.kv
+        check(w.engine.slots.num_active == 0
+              and kv.free_physical_pages == kv.num_pages,
+              f"fleet: worker {w.name}'s pool is back to all pages free")
+        check_pool_invariants(kv)
+
+    solo = []
+    for spec in specs:
+        eng = Engine(model, params, trust_domain=TrustDomain("tdx"),
+                     **dict(FLEET_KW, max_slots=1))
+        solo.append(eng.generate(gen(spec)).tokens)
+        del eng
+
+    # the fleet without a kill (comparison only)
+    _, orch, workers = fleet()
+    t0 = time.perf_counter()
+    handles = [orch.submit(gen(s)) for s in specs]
+    orch.run()
+    torch.cuda.synchronize()
+    calm_s = time.perf_counter() - t0
+    calm = [list(h.output) for h in handles]
+    calm_stats = stats_from_requests(handles)
+    check(calm == solo, "fleet: without a kill every request equals its "
+          "solo run")
+    check(orch.stats.migrations == 0, "fleet: no migration without a kill")
+    for w in workers:
+        pool_free(w)
+    # a hospital migrant presented under the bank's domain fails MAC on the
+    # other worker, which leaks nothing; under its own domain it finishes
+    # with its solo tokens
+    a, b = workers
+    req = a.engine.submit(gen(specs[0]))
+    for _ in range(2):
+        a.engine.step()
+    (m,), _ = a.export_state()
+    try:
+        b.engine.restore_slot(m.sealed, m.req, key=b.tenant_keys["bank"],
+                              prefix=m.prefix)
+        failed = False
+    except IntegrityError:
+        failed = True
+    check(failed, "fleet: a migrant restored under the other tenant's "
+          "domain fails MAC")
+    pool_free(b)
+    b.engine.import_sealed_state([m])
+    b.engine.run()
+    check(req.output == solo[0], "fleet: the same migrant under its own "
+          "domain finishes with its solo tokens")
+    pool_free(b)
+    del orch, workers, a, b, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    seen = []
+    real_import = Engine.import_sealed_state
+
+    def spy(self, migrants, queued=()):
+        seen.extend(migrants)
+        return real_import(self, migrants, queued)
+
+    # ---- the fleet path: every kernel count starts at 0 here -------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(C, P, Q, FA)
+    Engine.import_sealed_state = spy
+    try:
+        gateway, orch, (w0, w1) = fleet()
+        t0 = time.perf_counter()
+        handles = [orch.submit(gen(s)) for s in specs]
+        for _ in range(FLEET_KILL_AT):
+            orch.step()
+        victim = max(orch.ready_workers(), key=lambda w: w.load())
+        survivor = w1 if victim is w0 else w0
+        b4_0 = P.launches["paged_attention_unseal"]
+        fused_0 = survivor.engine.kv.fused_restore_pages
+        torch.cuda.synchronize()
+        t_kill = time.perf_counter()
+        orch.kill(victim.name)
+        killed = [p.req for p in seen]
+        seal_s = time.perf_counter() - t_kill
+        lens = [len(r.output) for r in killed]
+        steps = 0
+        while not any(len(r.output) > n for r, n in zip(killed, lens)):
+            check(steps < 10_000, "fleet: a migrant resumed")
+            orch.step()
+            steps += 1
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t_kill
+        survivor_b4 = P.launches["paged_attention_unseal"] - b4_0
+        survivor_fused = survivor.engine.kv.fused_restore_pages - fused_0
+        respawned = orch.respawn(victim.name)
+        orch.drain(survivor.name)
+        orch.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        Engine.import_sealed_state = real_import
+    launches = path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the fleet path ---------------------------------------------
+    outputs = [list(h.output) for h in handles]
+    check(all(h.finished for h in handles), "fleet: every request finished")
+    check(outputs == solo, "fleet: with the kill every request equals its "
+          "solo run")
+    check(outputs == calm, "fleet: with the kill every request equals the "
+          "fleet run without it")
+    fs = orch.stats
+    check(fs.migrations > 0 and fs.migrations == len(seen),
+          f"fleet: {fs.migrations} migrations, one per migrant imported")
+    moved = sum(sealed_nbytes(p.sealed) for p in seen)
+    check(fs.migrated_bytes == moved > 0
+          and sum(h.migrated_bytes for h in handles) == moved,
+          f"fleet: migrated bytes ({fs.migrated_bytes}) equal the sum of "
+          f"the migrants' sealed bytes ({moved})")
+    check((fs.kills, fs.drains, fs.respawns) == (1, 1, 1),
+          "fleet: one kill, one drain, one respawn")
+    check(victim.state == DEAD and survivor.state == DEAD
+          and respawned.state == READY, "fleet: the worker states")
+    check(survivor_fused > 0 and survivor_b4 > 0,
+          f"fleet: the survivor restored {survivor_fused} migrated pages as "
+          f"ciphertext and launched B4 on them ({survivor_b4} launches)")
+    for name in ("chacha20_xor_blocked", "paged_attention",
+                 "paged_attention_unseal"):
+        check(launches[name] > 0, f"fleet: the path launched {name}")
+    check(launches["flash_attention"] + launches["qmatmul"] == 0,
+          "the fleet path runs no int8 or flash kernel")
+    for w in (w0, w1, respawned):
+        pool_free(w)
+    shared = sum(w.engine.kv.shared_page_maps for w in (w0, w1, respawned))
+    out = dict(n=len(specs), launches=launches, peak=peak, wall_s=wall_s,
+               calm_s=calm_s, resume_s=resume_s, seal_s=seal_s,
+               resume_steps=steps, stats=stats_from_requests(handles),
+               calm_stats=calm_stats, fleet=fs, gateway=gateway.stats,
+               channel=orch.channel_totals(), migrated=len(seen),
+               moved=moved, survivor_b4=survivor_b4,
+               survivor_fused=survivor_fused, shared=shared,
+               victim=victim.name, survivor=survivor.name)
+    del orch, w0, w1, respawned, survivor, victim, seen, killed
+    return out
+
+
+def rag_corpus() -> dict:
+    """The corpus of tests/test_rag.py."""
+    from repro_torch.data import synthetic_text
+    docs = {f"d{i}": synthetic_text(i, 5) for i in range(15)}
+    docs["needle"] = ("confidential enclave attestation protects llama "
+                      "inference throughput inside trusted hardware")
+    return docs
+
+
+def same_ranking(got, ref, tol, what) -> None:
+    """``got`` ranks ``ref``'s documents with scores within ``tol`` and in
+    the same order up to near ties (reference scores within 2 x tol)."""
+    want = dict(ref)
+    check(sorted(d for d, _ in got) == sorted(want),
+          f"{what}: the same documents")
+    check(all(abs(s - want[d]) <= tol for d, s in got),
+          f"{what}: scores within {tol}")
+    order = [d for d, _ in got]
+    check(all(want[x] >= want[y] - 2 * tol for x, y in zip(order, order[1:])),
+          f"{what}: the same ranking up to near ties")
+
+
+def phase_rag(torch, np, model, params, cfg) -> dict:
+    """The RAG path: RAGPipeline(bm25+rerank) over the paged-kernel engine,
+    every kernel count set to 0 just before it; then the encoder card vs
+    CPU and each answer against engine.generate on the trimmed prompt on
+    the same engine. That last check shows determinism only (the same
+    kernel on the same input); B3's correctness at this engine's 9-page
+    table is checked against its plain walk in PAGED_CASES."""
+    from repro_torch.core import TrustDomain
+    from repro_torch.core.sealing import tree_map
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.rag import DenseRetriever, RAGPipeline
+    from repro_torch.runtime import Engine, GenerationRequest
+
+    docs = rag_corpus()
+    engine = Engine(model, params, trust_domain=TrustDomain("tdx"), **RAG_KW)
+    # ---- the RAG path: every kernel count starts at 0 here ---------------
+    reset_counts(C, P, Q, FA)
+    t0 = time.perf_counter()
+    rag = RAGPipeline(docs, mode="bm25+rerank", engine=engine)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    results = [rag.query(q, top_k=RAG_TOP_K, max_new_tokens=RAG_NEW)
+               for q in RAG_QUERIES]
+    torch.cuda.synchronize()
+    launches = path_launches()
+    # ---- end of the RAG path -----------------------------------------------
+    for name in ("chacha20_xor_blocked", "paged_attention"):
+        check(launches[name] > 0, f"rag: the path launched {name}")
+    check(launches["flash_attention"] + launches["qmatmul"] == 0,
+          "the RAG path runs no int8 or flash kernel")
+    cpu = DenseRetriever(device="cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), rag.dense.params)
+    cpu.build(docs)
+    emb_err = float((rag.dense.embeddings.cpu() - cpu.embeddings).abs().max())
+    check(emb_err <= RAG_EMB_TOL, f"rag: encoder embeddings card vs CPU "
+          f"within {RAG_EMB_TOL} ({emb_err:.3g})")
+    for q in RAG_QUERIES:
+        same_ranking(rag.dense.search(q, len(docs)), cpu.search(q, len(docs)),
+                     RAG_EMB_TOL, f"rag: the card's ranking for {q!r}")
+    for q, r in zip(RAG_QUERIES, results):
+        check(len(r.retrieved) == RAG_TOP_K and len(r.answer_tokens) ==
+              RAG_NEW and all(0 <= t < cfg.vocab_size
+                              for t in r.answer_tokens),
+              f"rag: {RAG_TOP_K} hits and {RAG_NEW} answer tokens")
+        prompt = rag.prompt_for(q, r.retrieved, RAG_NEW)
+        again = engine.generate(GenerationRequest(prompt=prompt,
+                                                  max_new_tokens=RAG_NEW))
+        check(again.tokens == r.answer_tokens, "rag: determinism: the "
+              "answer equals engine.generate on the same trimmed prompt")
+    out = dict(launches=launches, build_s=build_s, emb_err=emb_err,
+               retrieval_ms=[r.retrieval_s * 1e3 for r in results],
+               generation_ms=[r.generation_s * 1e3 for r in results],
+               hits=[[d for d, _ in r.retrieved] for r in results],
+               prompt_len=[len(rag.prompt_for(q, r.retrieved, RAG_NEW))
+                           for q, r in zip(RAG_QUERIES, results)])
+    del rag, engine, cpu
+    return out
+
+
 def reset_counts(*kernels) -> None:
     for K in kernels:
         K.reset_launches()
@@ -1278,6 +1615,8 @@ def phase_serve(torch, np) -> dict:
         return GenerationRequest(prompt=prompt.copy(), max_new_tokens=mnt,
                                  priority=prio)
 
+    path_s = {}
+    t_path = time.perf_counter()
     # ---- the slot path: every kernel count starts at 0 here -------------
     torch.cuda.reset_peak_memory_stats()
     reset_counts(C, P, Q, FA)
@@ -1325,6 +1664,8 @@ def phase_serve(torch, np) -> dict:
     check_solo(Engine, TrustDomain, model, unsealed, specs, gen, outputs,
                ENGINE_KW)
     print(f"  slot path: {len(specs)} requests, tokens equal their solo runs")
+    path_s["slot"] = time.perf_counter() - t_path
+    t_path = time.perf_counter()
 
     # ---- the paged-kernel path: every kernel count starts at 0 here ------
     gc.collect()    # the peak starts from what is live, not from garbage
@@ -1360,8 +1701,11 @@ def phase_serve(torch, np) -> dict:
           f"to bf16 before p.v)")
     pch = td2.channel.stats
     del paged
+    path_s["paged-kernel"] = time.perf_counter() - t_path
 
+    t_path = time.perf_counter()
     sh = phase_share(torch, np, model, unsealed, cfg)
+    path_s["sharing"] = time.perf_counter() - t_path
     print(f"  sharing path: {sh['n']} sampled requests ({sh['tokens']} "
           f"tokens), each equal to its solo run; {sh['shared']} shared-page "
           f"maps, {sh['cow']} CoW copies, {sh['written']} pages written "
@@ -1370,7 +1714,9 @@ def phase_serve(torch, np) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
+    t_path = time.perf_counter()
     st = phase_store(torch, np, model, unsealed, cfg)
+    path_s["store"] = time.perf_counter() - t_path
     print(f"  store path: {st['n']} sampled requests x 2 epochs on one "
           f"engine; warm tokens equal cold and every request its solo run; "
           f"pages written {st['cold']['written']} cold vs "
@@ -1379,12 +1725,35 @@ def phase_serve(torch, np) -> dict:
           f"before any page moved; pool invariants held after every step")
     gc.collect()
     torch.cuda.empty_cache()
+    t_path = time.perf_counter()
     tp = phase_two_phase(torch, np, model, unsealed, cfg)
+    path_s["two-phase"] = time.perf_counter() - t_path
     print(f"  two-phase path: {tp['n']} sampled requests in "
           f"{len(tp['modes'])} modes; tokens equal within each backend and "
           f"every request its solo run; {tp['agree']} of {tp['tokens']} "
           f"tokens agree between the slot and paged-kernel backends (not "
           f"required)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    fl = phase_fleet(torch, np, model, unsealed, cfg)
+    path_s["fleet"] = time.perf_counter() - t_path
+    print(f"  fleet path: {fl['n']} sampled requests over 2 tenants on 2 "
+          f"workers; killed {fl['victim']} after {FLEET_KILL_AT} steps, "
+          f"respawned it, drained {fl['survivor']} onto it; every request "
+          f"equals its solo run and the run without the kill; "
+          f"{fl['migrated']} migrants; a cross-tenant restore failed MAC "
+          f"and leaked nothing; every pool all free after the run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    rg = phase_rag(torch, np, model, unsealed, cfg)
+    path_s["RAG"] = time.perf_counter() - t_path
+    print(f"  RAG path: bm25+rerank over {len(rag_corpus())} documents; "
+          f"encoder embeddings card vs CPU within {rg['emb_err']:.3g} "
+          f"(limit {RAG_EMB_TOL}), the same ranking up to near ties; "
+          f"determinism: each answer equals engine.generate on its trimmed "
+          f"prompt (B3 at this table checked against plain above)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1461,13 +1830,17 @@ def phase_serve(torch, np) -> dict:
                 paged_launches=paged_launches, paged_peak=paged_peak,
                 logit_err=logit_err,
                 kv_decode_s=kv_decode_s, kv_positions=kv_positions,
-                share=sh, store=st, two_phase=tp)
+                share=sh, store=st, two_phase=tp, fleet=fl, rag=rg,
+                path_s=path_s)
 
 
 def phase_quant(torch, np) -> dict:
-    """The int8 weight path at full width: quantize Llama2-7B's weights on
-    the card, seal, attest, unseal (bit-exact), then ops.qmm on layer 0's
-    FFN weights and ops.mha_flash on layer 0's q, k, v."""
+    """The int8 weight path at full width, QUANT_LAYERS deep: quantize
+    Llama2-7B's weights on the card, seal, attest, unseal (bit-exact), then
+    ops.qmm on layer 0's FFN weights and ops.mha_flash on layer 0's q, k,
+    v."""
+    import dataclasses
+
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.core import SealingKey, TrustDomain
@@ -1480,7 +1853,8 @@ def phase_quant(torch, np) -> dict:
     from repro_torch.models import build_model, layers
     from repro_torch.quant import QTensor, quantize_params, quantized_bytes
 
-    cfg = get_config("llama2-7b")
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              num_layers=QUANT_LAYERS)
     model = build_model(cfg)            # the card
     params = model.init_params(seed=0)
     blk = params["layers"]["slot_0"]
@@ -1649,6 +2023,8 @@ def main() -> int:
             f"{n} {r} regs, {sp} B spilled"
             for n, r, sp in ptxas_summary(build.BUILD_LOG[src]["ptxas"])))
 
+    phase_t = {"device and build": time.perf_counter() - t_start}
+    t_phase = time.perf_counter()
     print("[3/7] kernel check: chacha20_xor_blocked vs plain, bit for bit; "
           "paged_attention (B3) and paged_attention_unseal (B4) vs plain; "
           "qmatmul (B5) vs plain, bit for bit; flash_attention (B2) vs plain")
@@ -1658,6 +2034,8 @@ def main() -> int:
     qmm_err = phase_qmm_check(Q, torch)
     flash_err = phase_flash_check(FA, torch)
 
+    phase_t["kernel check"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     tm = phase_kernel_timing(C, torch, np)
     print(f"[4/7] kernel timing at N={W_GATE_BLOCKS} blocks "
           f"({W_GATE_BLOCKS * 64} B): kernel {tm['ms']:.4f} ms, bound "
@@ -1707,6 +2085,8 @@ def main() -> int:
               f"{r['bound_by']}), plain {r['plain_ms']:.3f} ms, sdpa "
               f"{r['lib_ms']:.4f} ms")
 
+    phase_t["kernel timing"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     print("[5/7] serve: llama2-7b (32 layers, d_model 4096, bf16) under tdx")
     sp = phase_sampler(torch, np)
     print(f"  sampler on the card vs the CPU: keys, raw bits and uniforms "
@@ -1718,9 +2098,13 @@ def main() -> int:
     sv = phase_serve(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
-    print("[6/7] int8 weight path: llama2-7b quantized, sealed, unsealed; "
+    print(f"[6/7] int8 weight path: llama2-7b at full width, {QUANT_LAYERS} "
+          f"of 32 layers deep, quantized, sealed, unsealed; "
           "ops.qmm and ops.mha_flash on layer 0")
+    phase_t["serve"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     qp = phase_quant(torch, np)
+    phase_t["int8"] = time.perf_counter() - t_phase
 
     st, ch = sv["stats"], sv["channel"]
     per_req = (sv["launches"] - sv["weight_launches"]) / sv["n_requests"]
@@ -1807,6 +2191,40 @@ def main() -> int:
               f"{r['fused']} pages restored as ciphertext; peak "
               f"{r['peak']} B")
         print(f"    launches: {r['launches']}")
+    fl = sv["fleet"]
+    gs, fs, ch_ = fl["gateway"], fl["fleet"], fl["channel"]
+    print(f"  fleet path: gateway {gs.attested_workers} workers attested / "
+          f"{gs.rejected_quotes} quote rejections / {gs.keys_released} "
+          f"tenant keys released / {gs.envelopes} prompt envelopes "
+          f"({gs.envelope_bytes} B); fleet {fs.submitted} submitted, "
+          f"{fs.migrations} migrations / {fs.migrated_bytes} B, "
+          f"{fs.requeued} requeued, {fs.kills} kills, {fs.drains} drains, "
+          f"{fs.respawns} respawns; boundary {ch_}")
+    print(f"  fleet path: kill to resume {fl['resume_s'] * 1e3:.2f} ms "
+          f"(the kill's export {fl['seal_s'] * 1e3:.2f} ms, then "
+          f"{fl['resume_steps']} fleet steps until a migrant's next token); "
+          f"{fl['moved']} B migrated; the survivor restored "
+          f"{fl['survivor_fused']} migrated pages as ciphertext and "
+          f"launched B4 {fl['survivor_b4']} times before the drain; "
+          f"{fl['shared']} shared-page maps; peak device memory "
+          f"{fl['peak']} B")
+    for tag, fst, fw in (("kill", fl["stats"], fl["wall_s"]),
+                         ("no kill", fl["calm_stats"], fl["calm_s"])):
+        print(f"  fleet path, {tag}: {fst.total_requests} requests / "
+              f"{fst.total_tokens} tokens in {fw:.2f}s wall; TTFT p50 "
+              f"{fst.p50_ttft_s * 1e3:.2f} ms; next-token p50 "
+              f"{fst.p50_latency_s * 1e3:.2f} ms")
+    print(f"  launches on the fleet path: {fl['launches']}")
+    rg = sv["rag"]
+    print(f"  RAG path: index build {rg['build_s'] * 1e3:.2f} ms (corpus "
+          f"ingress, BM25, dense encoding on the card); per query retrieval "
+          + ", ".join(f"{x:.2f}" for x in rg["retrieval_ms"])
+          + " ms, generation " + ", ".join(f"{x:.2f}"
+                                          for x in rg["generation_ms"])
+          + f" ms ({RAG_NEW} tokens over prompts of "
+          + ", ".join(str(n) for n in rg["prompt_len"])
+          + f" tokens); hits {rg['hits']}")
+    print(f"  launches on the RAG path: {rg['launches']}")
     print(f"  sampler vs the decode step: sample() {sp['ms']:.4f} ms device "
           f"/ {sp['host_ms']:.4f} ms with host issue, beside a 2-row "
           f"decode_step of {sv['decode_s'] * 1e3:.2f} ms (host clock)")
@@ -1817,17 +2235,22 @@ def main() -> int:
           f"device memory {qp['peak']} B")
     print(f"  launches on the int8 path: {qp['launches']} "
           f"({qp['weight_launches']} chacha20 for the weights)")
-    print(f"  total {time.perf_counter() - t_start:.1f}s")
-    later = [sh["launches"], st_["launches"]] + [
+    print(f"  total {time.perf_counter() - t_start:.1f}s: " + ", ".join(
+        f"{k} {v:.1f}s" for k, v in phase_t.items())
+        + "; serve paths with their checks: " + ", ".join(
+            f"{k} {v:.1f}s" for k, v in sv["path_s"].items()))
+    later = [sh["launches"], st_["launches"], fl["launches"],
+             rg["launches"]] + [
         r["launches"] for r in sv["two_phase"]["modes"].values()]
     pl = {k: v + sum(x[k] for x in later)
           for k, v in sv["paged_launches"].items()}
     b1_launches = (sv["launches"] + pl["chacha20_xor_blocked"]
                    + qp["launches"]["chacha20_xor_blocked"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
-          f"{b1_launches} (slot, paged, sharing, store, two-phase, int8), B3 "
-          f"{pl['paged_attention']} and B4 {pl['paged_attention_unseal']} "
-          f"(paged, sharing, store, two-phase)")
+          f"{b1_launches} (slot, paged, sharing, store, two-phase, fleet, "
+          f"RAG, int8), B3 {pl['paged_attention']} (paged, sharing, store, "
+          f"two-phase, fleet, RAG) and B4 {pl['paged_attention_unseal']} "
+          f"(paged, sharing, store, two-phase, fleet)")
     fm, qm = ft[128], qt[QMM_MAIN]
     print(json.dumps({"kernels": [{
         "name": "chacha20_xor_blocked", "route": "cuda",

@@ -21,9 +21,16 @@ step-time page grants (``--kv-alloc ondemand``, implied). ``--page-store``
 and ``--epochs N`` replays the workload so later epochs hit the store.
 ``--continuous-batching`` (``--step-tokens``) interleaves prefill into the
 decode steps; ``--prefill-plan dedicated`` (``--handoff-batch N``)
-prefills on its own plan and hands the KV rows over sealed. The
-reference's fleet and mesh flags are not ported yet (ROADMAP.md queue A,
-items 14 and 18).
+prefills on its own plan and hands the KV rows over sealed.
+
+``--workers N`` switches to fleet mode: N engine workers, each in its own
+TrustDomain, behind an attested gateway (quote-gated per-tenant key
+release, prompt envelopes) and an orchestrator (``--placement`` policy,
+``--tenants M`` round-robin tenancy). ``--kill-worker-at STEP`` fails the
+busiest worker mid-serve; its sealed KV migrates to a survivor under the
+per-tenant key domains and every in-flight request still finishes with the
+same tokens. The workers share one copy of the weights on the device. The
+reference's mesh flag is not ported yet (ROADMAP.md queue A item 18).
 """
 
 from __future__ import annotations
@@ -70,9 +77,32 @@ def parse_priority_mix(spec: str):
     return prios, [w / total for w in weights]
 
 
-def build_requests(args, cfg):
+def engine_kwargs(args, device):
+    """Engine construction kwargs shared by the single-engine and fleet
+    paths (the trust domain is path-specific)."""
+    return dict(device=device, max_slots=args.slots, max_len=args.max_len,
+                prefill_len=args.prefill_len,
+                prefill_buckets=args.prefill_buckets,
+                kv_backend=args.kv_backend, page_size=args.page_size,
+                num_pages=args.num_pages, kv_decode=args.kv_decode,
+                prefix_sharing=args.prefix_sharing,
+                kv_alloc=args.kv_alloc,
+                continuous_batching=args.continuous_batching,
+                step_tokens=args.step_tokens,
+                prefill_plan=args.prefill_plan,
+                handoff_batch=args.handoff_batch,
+                page_store=(args.store_policy if args.page_store else None),
+                store_budget_pages=(args.store_budget_pages
+                                    if args.page_store else None),
+                reject_infeasible=args.reject_infeasible,
+                step_time_hint_s=(None if args.step_time_hint_ms is None
+                                  else args.step_time_hint_ms * 1e-3))
+
+
+def build_requests(args, cfg, tenants: int = 0):
     """The generated workload: the reference launcher's rng stream, so both
-    launchers serve the same prompts, priorities and lengths."""
+    launchers serve the same prompts, priorities and lengths; fleet mode
+    stamps round-robin tenants."""
     rng = np.random.default_rng(0)
     shared_head = rng.integers(
         1, min(cfg.vocab_size, 200),
@@ -93,8 +123,72 @@ def build_requests(args, cfg):
             prompt=prompt, max_new_tokens=args.max_new_tokens,
             priority=priority, params=sp,
             frame=FramePolicy(coalesce=args.coalesce),
-            deadline_s=args.deadline_s))
+            deadline_s=args.deadline_s,
+            tenant=f"t{i % tenants}" if tenants else None))
     return gens
+
+
+def serve_fleet(args, cfg, model, params, device):
+    """Fleet mode: N attested workers behind a gateway + orchestrator."""
+    from repro_torch.fleet import EngineWorker, Gateway, Orchestrator
+
+    kw = engine_kwargs(args, device)
+    workers = [EngineWorker(f"w{i}", model, params, tee=args.tee,
+                            engine_kw=kw) for i in range(args.workers)]
+    gateway = Gateway(config_repr=cfg.name)
+    for t in range(args.tenants):
+        gateway.register_tenant(f"t{t}")
+    orch = Orchestrator(gateway, workers, placement=args.placement)
+
+    t0 = time.monotonic()
+    for gen in build_requests(args, cfg, tenants=args.tenants):
+        orch.submit(gen)
+    step_i = 0
+    while not orch.idle and step_i < 10_000:
+        if step_i == args.kill_worker_at:
+            live = orch.ready_workers()
+            if len(live) > 1:
+                victim = max(live, key=lambda w: w.load()).name
+                orch.kill(victim)
+                print(f"[fleet] killed {victim} at step {step_i}; sealed KV "
+                      f"migrated under the tenant key domains")
+        orch.step()
+        step_i += 1
+    stats = orch.fleet_stats()
+    wall = time.monotonic() - t0
+
+    gs = gateway.stats
+    fs = orch.stats
+    print(f"served {stats.total_requests} requests / {stats.total_tokens} "
+          f"tokens in {wall:.2f}s "
+          f"[fleet={args.workers}x{args.tee}, kv={args.kv_backend}]")
+    print(f"throughput {stats.throughput_tps:.1f} tok/s | next-token latency "
+          f"p50 {stats.p50_latency_s * 1e3:.1f}ms "
+          f"mean {stats.mean_latency_s * 1e3:.1f}ms "
+          f"p99 {stats.p99_latency_s * 1e3:.1f}ms")
+    print(f"fleet: {gs.attested_workers} workers attested / "
+          f"{gs.rejected_quotes} quote rejections / "
+          f"{gs.keys_released} tenant keys released / "
+          f"{gs.envelopes} prompt envelopes ({gs.envelope_bytes} B)")
+    print(f"migration: {fs.migrations} sealed moves / "
+          f"{fs.migrated_bytes} B migrated / {fs.kills} kills, "
+          f"{fs.drains} drains, {fs.requeued} requeued")
+    if stats.rejected_infeasible:
+        print(f"admission control: {stats.rejected_infeasible} "
+              f"infeasible rejections")
+    if stats.handoffs:
+        print(f"sealed handoff: {stats.handoffs} prefill->decode handoffs / "
+              f"{stats.handoff_bytes} B across the plan boundary "
+              f"({stats.handoff_bytes // max(stats.handoffs, 1)} B/handoff)")
+    tot = orch.channel_totals()
+    print(f"fleet boundary: {tot['messages_out']} egress frames / "
+          f"{tot['tokens_out']} tokens, "
+          f"{tot['seal_events']} seals / {tot['seal_bytes']} B out, "
+          f"{tot['restore_events']} restores / {tot['restore_bytes']} B back")
+    if tot["store_hits"] or tot["store_evictions"]:
+        print(f"fleet store: {tot['store_hits']} hits / "
+              f"{tot['store_restored_bytes']} B restored / "
+              f"{tot['store_evictions']} evictions")
 
 
 def main(argv=None):
@@ -192,6 +286,21 @@ def main(argv=None):
     ap.add_argument("--step-time-hint-ms", type=float, default=None,
                     help="prior lower bound on decode step time for "
                          "--reject-infeasible before any step has run")
+    ap.add_argument("--workers", type=int, default=0, metavar="N",
+                    help="fleet mode: N engine workers (own TrustDomain "
+                         "each) behind an attested gateway + orchestrator "
+                         "(0 = single-engine path)")
+    ap.add_argument("--tenants", type=int, default=2, metavar="M",
+                    help="fleet mode: round-robin requests over M tenant "
+                         "key domains")
+    ap.add_argument("--placement", default="least_loaded",
+                    choices=["least_loaded", "tenant_affinity",
+                             "store_affinity"],
+                    help="fleet placement policy")
+    ap.add_argument("--kill-worker-at", type=int, default=None,
+                    metavar="STEP",
+                    help="fleet mode: kill the busiest worker at this step; "
+                         "its sealed KV migrates to survivors")
     args = ap.parse_args(argv)
     if args.page_store:
         # the store is the tier behind the content index: it needs page keys
@@ -204,6 +313,10 @@ def main(argv=None):
     model = build_model(cfg, device=device)
     params = model.init_params(0)
 
+    if args.workers:
+        serve_fleet(args, cfg, model, params, device)
+        return
+
     td = TrustDomain(args.tee, device=device)
     if td.confidential:
         sealed = td.seal_params(params)
@@ -214,25 +327,8 @@ def main(argv=None):
         print(f"[{args.tee}] attested; model digest bound "
               f"({quote.measurement[:16]}...)")
 
-    engine = Engine(model, params, trust_domain=td, device=device,
-                    max_slots=args.slots, max_len=args.max_len,
-                    prefill_len=args.prefill_len,
-                    prefill_buckets=args.prefill_buckets,
-                    kv_backend=args.kv_backend, page_size=args.page_size,
-                    num_pages=args.num_pages, kv_decode=args.kv_decode,
-                    prefix_sharing=args.prefix_sharing,
-                    kv_alloc=args.kv_alloc,
-                    continuous_batching=args.continuous_batching,
-                    step_tokens=args.step_tokens,
-                    prefill_plan=args.prefill_plan,
-                    handoff_batch=args.handoff_batch,
-                    page_store=(args.store_policy if args.page_store
-                                else None),
-                    store_budget_pages=(args.store_budget_pages
-                                        if args.page_store else None),
-                    reject_infeasible=args.reject_infeasible,
-                    step_time_hint_s=(None if args.step_time_hint_ms is None
-                                      else args.step_time_hint_ms * 1e-3))
+    engine = Engine(model, params, trust_domain=td,
+                    **engine_kwargs(args, device))
     t0 = time.monotonic()
     for epoch in range(max(args.epochs, 1)):
         pages0 = getattr(engine.kv, "pages_written", 0)

@@ -162,6 +162,19 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def attention_forward(params: Params, cfg: AttentionConfig, x: torch.Tensor,
+                      positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention without a cache (the encoder's trunk and a
+    teacher-forced pass). Chunked attention is not ported (the trunk
+    refuses ``parallel.attention_chunk``)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    q, k, v = _qkv(params, cfg, x, positions)
+    out = sdpa(q, k, v, causal=cfg.causal, q_positions=positions)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
 def init_kv_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
                   dtype=torch.bfloat16, device=None, layers: int = 1) -> Params:
     shape = (layers, batch, max_len, num_kv_heads, head_dim)

@@ -6,12 +6,13 @@ of ``num_layers`` stacked ``slot_0`` layers (attn + swiglu), e.g.
 ``cache["layers"]["slot_0"]["k"]`` of shape ``[L, b, max_len, hk, hd]``, plus
 ``cache["pos"]`` ``[b]``. A Python loop over the stacked layers takes the
 place of ``lax.scan``; prefill and decode write the cache in place and
-return it (the reference returned a rebuilt cache).
+return it (the reference returned a rebuilt cache). ``forward`` is the
+cache-free full-sequence pass (the dense encoder of ``repro_torch.rag``).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -85,26 +86,48 @@ class DecoderLM:
 
     # -- forward -----------------------------------------------------------
     def _layer_fwd(self, lp: Params, x: torch.Tensor, positions: torch.Tensor,
-                   cache_sl: Params, mode: str) -> torch.Tensor:
+                   cache_sl: Optional[Params], mode: str) -> torch.Tensor:
+        """One layer; mode is 'train' (no cache), 'prefill' or 'decode'."""
         cfg = self.cfg
         h = layers.rmsnorm(lp["pre_norm"], x, cfg.norm_eps)
-        attend = (layers.attention_prefill if mode == "prefill"
-                  else layers.attention_decode)
-        x = x + attend(lp["attn"], self.acfg, h, cache_sl, positions)
+        if mode == "train":
+            mix = layers.attention_forward(lp["attn"], self.acfg, h, positions)
+        else:
+            attend = (layers.attention_prefill if mode == "prefill"
+                      else layers.attention_decode)
+            mix = attend(lp["attn"], self.acfg, h, cache_sl, positions)
+        x = x + mix
         h = layers.rmsnorm(lp["post_norm"], x, cfg.norm_eps)
         return x + layers.swiglu(lp["ffn"], h)
 
     def _run(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
-             cache: Params, mode: str) -> torch.Tensor:
-        bp, bc = params[BLOCK], cache[BLOCK]
+             cache: Optional[Params], mode: str) -> torch.Tensor:
+        bp = params[BLOCK]
+        bc = cache[BLOCK] if cache is not None else None
         for j in range(self.cfg.num_layers):
             x = self._layer_fwd(_layer(bp, j)[SLOT], x, positions,
-                                _layer(bc, j)[SLOT], mode)
+                                _layer(bc, j)[SLOT] if bc is not None
+                                else None, mode)
         return x
 
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = layers.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return layers.unembed(params["embedding"], x)
+
+    def _trunk(self, params: Params, tokens: torch.Tensor):
+        """Embed + every layer, no cache: (hidden [b, s, d], aux). The
+        dense family has no auxiliary loss, so aux is an f32 zero."""
+        b, s = tokens.shape[:2]
+        positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        x = layers.embed(params["embedding"], tokens)
+        x = self._run(params, x, positions, None, "train")
+        return x, torch.zeros((), dtype=torch.float32, device=tokens.device)
+
+    def forward(self, params: Params, tokens: torch.Tensor):
+        """Teacher-forced full-sequence pass -> (logits [b, s, vocab] f32,
+        aux)."""
+        x, aux = self._trunk(params, tokens)
+        return self._unembed(params, x), aux
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Params):
         """tokens [b, s] -> (last-position logits [b, vocab] f32, cache);

@@ -36,16 +36,23 @@ Two-phase serving, as in the reference:
     ``kvhandoff/{stream}``, up to ``handoff_batch`` rows a crossing,
     accounted in ``ChannelStats`` like a preemption.
 
-Decoded tokens are the same under every mode. Not ported yet (each raises
-``NotImplementedError``): fleet drain and migration (ROADMAP.md queue A
-item 14), meshes (item 18).
+Decoded tokens are the same under every mode.
+
+Fleet drain and migration: :meth:`Engine.drain` stops new submissions,
+:meth:`Engine.export_sealed_state` seals every live request out under a
+caller-chosen key (a fleet tenant's key domain) in a caller-named nonce
+namespace, and :meth:`Engine.import_sealed_state` adopts another engine's
+export. Not ported yet (raises ``NotImplementedError``): meshes (ROADMAP.md
+queue A item 18).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+import heapq
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -69,9 +76,17 @@ Params = Any
 
 @dataclasses.dataclass
 class PreemptedRequest:
-    """A sealed-out request waiting for a slot: KV as ciphertext only."""
+    """A sealed-out request waiting for a slot: KV as ciphertext only.
+
+    ``key``/``prefix`` override the engine's defaults at restore time: a
+    cross-worker migrant (fleet drain or failure) is sealed under a
+    fleet-shared tenant key domain in a ``kvmigrate/{worker}/...`` nonce
+    namespace instead of this worker's own key and ``kvslot/`` space.
+    ``None`` means the local-preemption defaults."""
     sealed: Dict[str, Any]
     req: Request
+    key: Optional[Any] = None
+    prefix: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -286,6 +301,8 @@ class Engine:
         self._reject_infeasible = reject_infeasible
         self._step_time_hint_s = step_time_hint_s
         self._step_floor: Optional[float] = None  # fastest observed step
+        # -- fleet migration -----------------------------------------------
+        self._draining = False
 
     @property
     def slots(self) -> SlotState:
@@ -299,6 +316,10 @@ class Engine:
         if not isinstance(request, GenerationRequest):
             raise TypeError("submit takes a GenerationRequest "
                             "(repro_torch.runtime.api)")
+        if self._draining:
+            raise RuntimeError(
+                "engine is draining (drain()/export_sealed_state was "
+                "called); route new work to another worker")
         gen = request
         gen.validate(self._vocab)
         # worst-case KV positions: the padded prefill bucket (or the full
@@ -616,8 +637,9 @@ class Engine:
             # garbled blob is tolerated here
             try:
                 self.kv.discard_sealed(
-                    self.td.sealing_key, p.sealed,
-                    f"kvslot/{p.req.stream_id}/{p.req.seal_epoch - 1}")
+                    p.key or self.td.sealing_key, p.sealed,
+                    p.prefix
+                    or f"kvslot/{p.req.stream_id}/{p.req.seal_epoch - 1}")
             except (IntegrityError, ValueError):
                 pass
             self.scheduler.finish_detached(p.req)
@@ -956,7 +978,8 @@ class Engine:
                             best.req.kv_need,
                             n_pages=best.req.sealed_pages or None):
                         self._preempted.remove(best)
-                        self.restore_slot(best.sealed, best.req)
+                        self.restore_slot(best.sealed, best.req,
+                                          key=best.key, prefix=best.prefix)
                         continue
             if (self.scheduler.queue and self.slots.free
                     and (self._admit_continuous() if self._continuous
@@ -1114,7 +1137,9 @@ class Engine:
         # must never encrypt two plaintexts under one nonce).
         return f"kvslot/{req.stream_id}/{req.seal_epoch}"
 
-    def seal_slot(self, slot: int) -> Tuple[Dict[str, Any], Request]:
+    def seal_slot(self, slot: int, *, key=None,
+                  prefix: Optional[str] = None) -> Tuple[Dict[str, Any],
+                                                         Request]:
         """Evict a running slot: returns (sealed_cache_dict, request). Any
         not-yet-prefilled prompt tail travels on ``request.pending_input``
         and not-yet-flushed egress tokens stay buffered on the request.
@@ -1122,14 +1147,28 @@ class Engine:
         A partially-evicted (paused) slot can be whole-sealed too: only its
         resident remainder is encrypted now, and the already-sealed tail
         blob rides along in the returned dict (its own epoch prefix keeps
-        the nonces apart); ``restore_slot`` reassembles both."""
+        the nonces apart); ``restore_slot`` reassembles both.
+
+        ``key``/``prefix`` override the worker's defaults for cross-worker
+        migration: the blob seals under a fleet-shared tenant key domain in
+        a caller-supplied nonce namespace that embeds the worker's name. A
+        slot with a paused tail cannot be sealed so (that tail is under
+        this worker's key; ``export_sealed_state`` reunites it first)."""
         paused = self._paused.pop(slot, None)
         req = self.scheduler.running.pop(slot)
-        prefix = self._seal_prefix(req)
+        assert paused is None or key is None, \
+            "cannot migration-seal a paused slot: its tail blob is local"
+        # a key override means the blob leaves this worker: shared pages
+        # seal by value (detach), since a by-reference entry resolves only
+        # against this pool's content index and parked blobs
+        detach = key is not None and self.kv.supports_sharing
+        key = key if key is not None else self.td.sealing_key
+        prefix = prefix if prefix is not None else self._seal_prefix(req)
         if self.kv.supports_partial:
             req.sealed_pages = (self.kv.allocated_pages(slot)
                                 + (paused.n_pages if paused else 0))
-        sealed = self.kv.seal(self.td.sealing_key, slot, prefix)
+        sealed = (self.kv.seal(key, slot, prefix, detach=True) if detach
+                  else self.kv.seal(key, slot, prefix))
         req.seal_epoch += 1
         nb = sealed_nbytes(sealed)
         req.sealed_bytes += nb
@@ -1143,32 +1182,36 @@ class Engine:
         self._drain_kv_events()
         return sealed, req
 
-    def restore_slot(self, sealed, req: Request) -> int:
+    def restore_slot(self, sealed, req: Request, *, key=None,
+                     prefix: Optional[str] = None) -> int:
         """Re-admit a sealed-out request into a free slot. On-demand pools
         acquire without a pledge (``can_restore(n_pages=...)`` gated the
         page takes); reservation pools re-reserve the effective worst
-        case."""
+        case. ``key``/``prefix`` override the worker's defaults when the
+        blob is a cross-worker migrant (sealed under a fleet-shared tenant
+        domain in a ``kvmigrate/`` namespace)."""
         slot = self.kv.acquire(req.rid,
                                0 if self.kv.on_demand else req.kv_need)
         if slot is None:
             raise RuntimeError("no free slot/KV room to restore into")
-        prefix = f"kvslot/{req.stream_id}/{req.seal_epoch - 1}"
+        key = key if key is not None else self.td.sealing_key
+        if prefix is None:
+            prefix = f"kvslot/{req.stream_id}/{req.seal_epoch - 1}"
         try:
-            self.kv.restore(self.td.sealing_key, sealed, slot, prefix,
-                            req.kv_need)
+            self.kv.restore(key, sealed, slot, prefix, req.kv_need)
             # a sealed-while-paused eviction carries its earlier tail blob
             # under an older epoch prefix: graft it back on top of the
             # remainder (acquire() above already reserved the full need)
             for gprefix in tail_blob_names(sealed):
-                self.kv.restore_tail_pages(self.td.sealing_key, sealed, slot,
-                                           gprefix, reserve=False)
+                self.kv.restore_tail_pages(key, sealed, slot, gprefix,
+                                           reserve=False)
         except Exception:
-            self.kv.release(slot)   # a failed (e.g. tampered) restore must
-            raise                   # not leak the slot
+            self.kv.release(slot)   # a failed (e.g. tampered or
+            raise                   # cross-tenant) restore must not leak
         # the whole restore succeeded: only now are the dict's shared-page
         # references spent (a rolled-back restore leaves them for
         # co-sharers)
-        self.kv.discard_sealed(self.td.sealing_key, sealed, prefix)
+        self.kv.discard_sealed(key, sealed, prefix)
         self.scheduler.running[slot] = req
         self._active_mask[slot] = True
         self._set_slot_sampling(slot, req)
@@ -1207,13 +1250,101 @@ class Engine:
 
     # -- fleet: drain + sealed-state migration ---------------------------------
     def drain(self) -> None:
-        raise _not_ported("fleet drain", 14)
+        """Stop taking new work (later ``submit`` calls raise); everything
+        already accepted keeps stepping. Pair with
+        :meth:`export_sealed_state` to move the rest to another worker."""
+        self._draining = True
 
-    def export_sealed_state(self, **kw):
-        raise _not_ported("fleet sealed-state export", 14)
+    def export_sealed_state(
+            self, *,
+            key_for: Optional[Callable[[Request], Any]] = None,
+            namespace: str = "kvmigrate",
+    ) -> Tuple[List[PreemptedRequest], List[Request]]:
+        """Seal every piece of live state out of this engine for adoption
+        by another (the fleet's drain and failure path). Returns
+        ``(migrants, queued)``: migrants are :class:`PreemptedRequest` blobs
+        sealed under ``key_for(req)`` (the fleet passes the request's tenant
+        key domain, the same on every attested worker) in the
+        ``{namespace}/{stream}/{epoch}`` nonce space. The namespace must
+        embed this worker's fleet-unique name: the tenant key is shared and
+        stream ids are not unique across workers. Queued requests carry no
+        KV and move as they are.
 
-    def import_sealed_state(self, migrants, queued=()):
-        raise _not_ported("fleet sealed-state import", 14)
+        The export is staged so the pool always has room: pending prefill
+        handoffs complete first, plain running slots migration-seal
+        directly, a paused slot goes through this worker's own seal and
+        restore (reuniting its head with its local tail) before it
+        migrates whole, and already-preempted blobs restore into the freed
+        slots and re-seal under the export key. Every crossing is priced
+        in ``ChannelStats``; per-request ``n_migrations`` and
+        ``migrated_bytes`` roll up into ``ServeStats``."""
+        self._draining = True
+        if key_for is None:
+            key_for = lambda req: self.td.sealing_key  # noqa: E731
+        if self._inflight:
+            self._handoff_ready()
+        migrants: List[PreemptedRequest] = []
+
+        def _migrate(slot: int) -> None:
+            req = self.scheduler.running[slot]
+            key = key_for(req)
+            prefix = f"{namespace}/{req.stream_id}/{req.seal_epoch}"
+            sealed, req = self.seal_slot(slot, key=key, prefix=prefix)
+            nb = sealed_nbytes(sealed)
+            req.n_migrations += 1
+            req.migrated_bytes += nb
+            self.td._log("migrate_out", f"rid={req.rid} {nb}B {prefix}")
+            self.td.close_stream(req.stream_id)
+            migrants.append(PreemptedRequest(sealed, req, key=key,
+                                             prefix=prefix))
+
+        while self.scheduler.running:
+            slot = next((s for s in self.scheduler.running
+                         if s not in self._paused), None)
+            if slot is None:
+                # every survivor is paused: its sealed tail is under this
+                # worker's key and cannot cross. Whole-seal it (the tail
+                # rides along), restore, and migrate the reunited slot.
+                slot = next(iter(self._paused))
+                sealed, req = self.seal_slot(slot)
+                slot = self.restore_slot(sealed, req)
+            _migrate(slot)
+        # already-preempted blobs are under the local key and namespace:
+        # bring each back through a now-free slot, re-seal under the export
+        # key
+        while self._preempted:
+            p = self._preempted.pop(0)
+            slot = self.restore_slot(p.sealed, p.req, key=p.key,
+                                     prefix=p.prefix)
+            _migrate(slot)
+        queued = [req for _, _, req in sorted(self.scheduler.queue)]
+        self.scheduler.queue.clear()
+        for req in queued:
+            self.td.close_stream(req.stream_id)
+        return migrants, queued
+
+    def import_sealed_state(self, migrants: Sequence[PreemptedRequest],
+                            queued: Sequence[Request] = ()) -> None:
+        """Adopt another worker's exported state. Requests keep their
+        object identity (the caller's handle finishes here, with the same
+        tokens: seeded sampling, output and penalty history travel on the
+        request) but get fresh rids and fresh egress streams on this
+        engine's channel. Migrants join the sealed-restore queue and
+        re-enter through the ordinary admission gates; a later local
+        re-seal falls back to this worker's key and ``kvslot/``
+        namespace."""
+        for p in migrants:
+            p.req.rid = self.scheduler._next_rid
+            self.scheduler._next_rid += 1
+            p.req.stream_id = self.td.open_stream()
+            self.td._log("migrate_in", f"rid={p.req.rid} {p.prefix}")
+            self._preempted.append(p)
+        for req in queued:
+            req.rid = self.scheduler._next_rid
+            self.scheduler._next_rid += 1
+            req.stream_id = self.td.open_stream()
+            heapq.heappush(self.scheduler.queue,
+                           (self.scheduler._key(req), req.rid, req))
 
     # -- convenience -----------------------------------------------------------
     def generate(self, request: GenerationRequest) -> RequestOutput:

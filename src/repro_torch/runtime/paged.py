@@ -781,14 +781,17 @@ class PagedKVBackend(KVBackend):
 
     def seal(self, key, slot, prefix,
              detach: bool = False) -> Dict[str, SealedTensor]:
-        if detach:
-            raise _not_ported("by-value (detached) seals for migration", "14")
         self._seal_key_cache = key
         n_alloc = int(self._alloc[slot])
         shared, private = [], []
         for j in range(n_alloc):
-            (shared if int(self.table[slot, j]) in self._page_key
-             else private).append(j)
+            # by-value seal for cross-pool migration (detach): shared pages
+            # ship as private per-page ciphertext, so the blob needs neither
+            # this pool's content index nor its parked blobs. The copies
+            # restore as private pages on the destination; this pool's
+            # residents, refcounts and _sealed_refs are left as they are.
+            (shared if not detach and int(self.table[slot, j])
+             in self._page_key else private).append(j)
         # meta v2: [pos, n_alloc, n_shared, (ordinal, refcount) per shared
         # page]; the content keys ride in their own sealed blob. The
         # refcount is the seal-time count (a diagnostic: it moves while

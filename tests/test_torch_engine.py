@@ -206,10 +206,9 @@ def test_out_of_slice_options_raise(models):
     req = eng.submit(TGen(prompt=np.arange(1, 5, dtype=np.int32),
                           params=TSampling(temperature=0.9, seed=1)))
     assert req.seed == 1       # seeded sampling is in the slice
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.drain()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        eng.export_sealed_state()
+    eng.drain()                # fleet drain is in the slice: new work is
+    with pytest.raises(RuntimeError, match="draining"):   # refused
+        eng.submit(TGen(prompt=np.arange(1, 5, dtype=np.int32)))
     if torch.cuda.is_available():
         with pytest.raises(ValueError):    # model on the CPU, engine on the card
             TEngine(tm, tp, **CANONICAL_ENGINE)
@@ -288,6 +287,7 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 20
     for path in files:
         for mod in _imported_modules(path):

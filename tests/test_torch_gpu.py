@@ -96,6 +96,12 @@ CASES = [  # (dtype, geometry, tolerance)
                          valid=[40, 13, 0]), 1e-4),
     (torch.bfloat16, dict(b=3, h=4, hk=2, hd=10, ps=16, pages=4,
                           valid=[64, 21, 0]), 1e-2),
+    # serving tables: the RAG engine's 9 pages (5 splits of 2, the last
+    # holding 1) and the two-phase engine's 12 pages at Llama2-7B width
+    (torch.bfloat16, dict(b=3, h=32, hk=32, hd=128, ps=16, pages=9,
+                          valid=[144, 129, 0]), 1e-2),
+    (torch.bfloat16, dict(b=4, h=32, hk=32, hd=128, ps=16, pages=12,
+                          valid=[192, 130, 0, 17]), 1e-2),
 ]
 
 
@@ -588,3 +594,78 @@ def test_batched_prefill_rows_equal_solo_on_card(card):
         for leaf in ("k", "v"):
             assert torch.equal(cache["layers"]["slot_0"][leaf][:, i],
                                solo["layers"]["slot_0"][leaf][:, 0])
+
+
+def test_fleet_kill_on_card_equals_solo(card):
+    """Two workers on the card share the smoke model's weights (paged
+    kernel decode); the busiest is killed mid-decode, its KV migrates
+    sealed under the tenant key domains, the survivor restores it as
+    ciphertext (B4), and every request equals its solo run on the card,
+    with no page or slot leaked anywhere."""
+    from repro_torch.fleet import EngineWorker, Gateway, Orchestrator
+    from repro_torch.runtime import SamplingParams
+    model, params = _card_model(card)
+    kw = dict(max_slots=2, max_len=64, prefill_buckets=(4, 8),
+              kv_backend="paged", page_size=8, kv_decode="kernel",
+              device=card)
+    rng = np.random.default_rng(3)
+    specs = [(rng.integers(1, 100, size=int(n)).astype(np.int32), 50 + i,
+              "ab"[i % 2]) for i, n in enumerate(rng.integers(4, 12, size=6))]
+
+    def gen(spec):
+        prompt, seed, tenant = spec
+        return GenerationRequest(
+            prompt=prompt.copy(), max_new_tokens=6, tenant=tenant,
+            params=SamplingParams(temperature=0.9, top_k=16, seed=seed))
+    solo = Engine(model, params, trust_domain=TrustDomain("tdx", device=card),
+                  **dict(kw, max_slots=1))
+    want = [solo.generate(gen(s)).tokens for s in specs]
+    workers = [EngineWorker(f"w{i}", model, params, engine_kw=kw)
+               for i in range(2)]
+    table = [w.engine.params["embedding"]["table"] for w in workers]
+    assert table[0].data_ptr() == table[1].data_ptr()   # one weight copy
+    gateway = Gateway(config_repr="test")
+    for t in ("a", "b"):
+        gateway.register_tenant(t)
+    orch = Orchestrator(gateway, workers)
+    handles = [orch.submit(gen(s)) for s in specs]
+    for _ in range(3):
+        orch.step()
+    victim = max(orch.ready_workers(), key=lambda w: w.load())
+    survivor = next(w for w in workers if w is not victim)
+    P.reset_launches()
+    orch.kill(victim.name)
+    orch.run()
+    assert [h.output for h in handles] == want
+    assert orch.stats.migrations > 0
+    assert survivor.engine.kv.fused_restore_pages > 0
+    assert P.launches["paged_attention_unseal"] > 0
+    for w in workers:
+        assert w.engine.slots.num_active == 0
+        assert w.engine.kv.free_physical_pages == w.engine.kv.num_pages
+
+
+def test_dense_encoder_ranking_on_card_equals_cpu(card):
+    """The RAG encoder (bf16) on the card embeds the corpus within two bf16
+    roundings of the CPU's on the same weights, and ranks it the same up
+    to near ties."""
+    from repro_torch.data import synthetic_text
+    from repro_torch.rag import DenseRetriever
+    tol = 4e-3
+    docs = {f"d{i}": synthetic_text(i, 5) for i in range(15)}
+    docs["needle"] = ("confidential enclave attestation protects llama "
+                      "inference throughput inside trusted hardware")
+    gpu = DenseRetriever(device=card).build(docs)
+    cpu = DenseRetriever(device="cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), gpu.params)
+    cpu.build(docs)
+    assert gpu.embeddings.device.type == "cuda"
+    assert float((gpu.embeddings.cpu() - cpu.embeddings).abs().max()) <= tol
+    for q in ("confidential enclave attestation llama",
+              "sealed keystream memory encryption"):
+        got, ref = gpu.search(q, len(docs)), dict(cpu.search(q, len(docs)))
+        assert sorted(d for d, _ in got) == sorted(ref)
+        assert all(abs(s - ref[d]) <= tol for d, s in got)
+        order = [d for d, _ in got]
+        assert all(ref[a] >= ref[b] - 2 * tol
+                   for a, b in zip(order, order[1:]))

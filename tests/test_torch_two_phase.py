@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref import REF_TRIES, reference_run
 from conftest import (CANONICAL_CONFIGS, CANONICAL_ENGINE, burst_requests,
                       check_pool_invariants)
 from repro_torch.runtime.plan import PrefillOnlyPlan
@@ -22,31 +23,11 @@ TWO_PHASE = [("slot-cb", 1), ("paged-cb", 1), ("slot-2plan", 1),
              ("slot-2plan", 2), ("paged-2plan", 1), ("paged-2plan", 2)]
 PHASE_STATS = ("handoffs", "handoff_bytes", "backfilled_requests")
 PHASE_REQ = ("n_handoffs", "handoff_bytes", "backfilled", "phase")
-# The reference's XLA:CPU two-plan engine is not rerun-stable under load:
-# with six test processes beside it, its paged-2plan canonical run gave
-# request 2 other tokens in 4 of 20 runs, while the port gave the same
-# tokens, equal to the solo runs, in 20 of 20 (ROADMAP.md queue C). For that
-# configuration alone, a reference run whose tokens differ from the port's
-# is rerun, at most REF_TRIES times; the last run is the one compared, in
-# full. Every other configuration is compared on a single reference run.
+# The reference's two-plan engine is not rerun-stable under load (ROADMAP.md
+# queue C): for that configuration alone, a reference run whose tokens differ
+# from the port's is rerun (tests/_torch_ref.py). Every other configuration
+# is compared on a single reference run.
 UNSTABLE_REFERENCE = ("paged-2plan",)
-REF_TRIES = 4
-
-
-def _tokens(result):
-    return [list(r.output) for r in result[0]]
-
-
-def reference_run(name, run, port_result):
-    """``run()``, a reference replay of configuration ``name``: once, or
-    for an UNSTABLE_REFERENCE configuration until its tokens equal those of
-    the port's result, at most REF_TRIES times. Returns the last run."""
-    want = _tokens(port_result)
-    for _ in range(REF_TRIES if name in UNSTABLE_REFERENCE else 1):
-        got = run()
-        if _tokens(got) == want:
-            break
-    return got
 
 
 def _kw(name, handoff_batch):
@@ -76,7 +57,8 @@ def test_canonical_two_phase_scenario_identical(models, solo_refs, name,
     kw = _kw(name, handoff_batch)
     port, ref = Side(True, models), Side(False, models)
     t = _canonical(port, **kw)
-    j = reference_run(name, lambda: _canonical(ref, **kw), t)
+    j = reference_run(lambda: _canonical(ref, **kw), t,
+                      tries=REF_TRIES if name in UNSTABLE_REFERENCE else 1)
     assert_same_run(j, t)
     _assert_same_phases(j, t)
     assert [list(r.output) for r in t[0]] == solo_refs
@@ -117,7 +99,8 @@ def test_burst_two_phase_scenario_identical(models, burst_solo, name,
     kw = _kw(name, handoff_batch)
     port, ref = Side(True, models), Side(False, models)
     t = _burst(port, **kw)
-    j = reference_run(name, lambda: _burst(ref, **kw), t)
+    j = reference_run(lambda: _burst(ref, **kw), t,
+                      tries=REF_TRIES if name in UNSTABLE_REFERENCE else 1)
     (treqs, teng, ttables), (jreqs, jeng, jtables) = t, j
     assert [r.output for r in treqs] == [r.output for r in jreqs] == burst_solo
     tstats, jstats = teng.run(), jeng.run()
