@@ -11,9 +11,11 @@ Phases, each fatal on failure:
      nvcc -Xptxas -v reports them (B4's and B5's summed up on a line each);
   3. kernel check: each kernel held against its plain PyTorch version on
      the card. ChaCha20 bit for bit (the RFC 8439 vector; random data at the
-     main path's sizes: a token frame, a KV leaf, the largest weight;
-     counter bases across the u32 wrap). Paged attention (B3) and its
-     fused-unseal variant (B4) at the Llama2-7B geometry (bf16) and a GQA
+     main path's sizes: a token frame, a KV leaf, the largest weight,
+     and the families path's largest leaf, deepseek-v3's expert stack,
+     compared range by range; counter bases across the u32 wrap). Paged attention (B3) and its
+     fused-unseal variant (B4) at the Llama2-7B geometry (bf16), at
+     chameleon-34b's (bf16, 64 query heads over 8 kv heads) and a GQA
      f32 geometry, valid on and off page boundaries, an idle row, live and
      dead pages, within the stated tolerances; B4 on a ciphertext pool
      bit-equal to B3 on the same pool in plaintext; and every slot's B3 and
@@ -27,10 +29,11 @@ Phases, each fatal on failure:
      ops.mha_flash pads it, and unpadded through the kernel's own edge
      masks), and a GQA f32 case, within the stated tolerances (and the
      share of each tolerance used);
-  4. kernel timing: CUDA events at the main paths' shapes, beside the bound,
-     the plain version's time and, where one exists, a PyTorch call's; B4
-     also with every page dead (its walk without keystream), beside its
-     keystream blocks timed at B1's measured rate;
+  4. kernel timing: CUDA events at the main paths' shapes (B3 and B4 also
+     at chameleon-34b's call), beside the bound, the plain version's time
+     and, where one exists, a PyTorch call's; B4 also with every page dead
+     (its walk without keystream), beside its keystream blocks timed at
+     B1's measured rate;
   5. serve: Llama2-7B at full width (random weights from a seed) under a
      TDX trust domain: seal, attest, unseal (bit-exact), then two paths over
      a low-priority wave and a preempting high-priority wave: an Engine on
@@ -78,7 +81,21 @@ Phases, each fatal on failure:
      raw bits and uniforms on the card must equal the CPU's bit for bit and
      its Gumbel noise stay within the stated ulp bound; it is timed at
      vocab 32000 and 2 rows;
-  6. int8 weight path: the same model's weights quantized on the card
+  6. families: after Llama2-7B is freed, one model of each family beyond
+     dense at its published widths, depth cut (FAMILIES): rwkv6-3b (4
+     layers, slot backend), chameleon-34b (2 layers, paged-kernel: B3, and
+     B4 on pages restored as ciphertext), dbrx-132b (1 layer), deepseek-v3
+     (one MLA + dense and one MLA + MoE layer) and jamba (one group of 8)
+     on the paged backend with gather decode; one at a time: random weights
+     on the card, sealed, the plaintext freed, attested, unsealed bit-equal
+     (by fingerprint: at most two copies of the weights on the card), then
+     the low wave and a preempting request under tdx. Chameleon's and
+     rwkv6's requests equal their solo runs; the MoE families' rerun on a
+     fresh engine repeats every token; on jamba a partially evicted row's
+     Mamba state stays bit-equal through a step it sits out. Then
+     whisper-small at full size: prefill over 1,500 frames and 16 decode
+     steps, each within a stated tolerance of the cache-free forward;
+  7. int8 weight path: the same model's weights quantized on the card
      (quant.quantize_params), sealed, attested and unsealed bit for bit,
      then ops.qmm (B5) on layer 0's unsealed w_gate, w_up and w_down (and
      on w_gate at M = 1, a decode-shaped call in the small-M regime) and
@@ -86,9 +103,10 @@ Phases, each fatal on failure:
      every kernel count set to 0 just before; qmm bit-equal to its plain
      version and near the bf16 product with the original weights, flash
      near layers.sdpa;
-  7. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
+  8. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
      memory (slot, paged, sharing, store, two-phase, fleet and int8 paths),
-     TTFT and next-token latency of every serving path (the fleet's with
+     each family's load, step times, latency and memory (printed with
+     phase 6), TTFT and next-token latency of every serving path (the fleet's with
      and without the kill), the fleet's gateway and migration counters and
      its kill-to-resume time, the RAG path's retrieval and generation
      times, a bucket group's prefill
@@ -144,6 +162,11 @@ RFC_CIPHER = bytes.fromhex(
 # KV leaf of one slot, [32, 1, 256, 32, 128] bf16, is 1024 tiles
 W_GATE_BLOCKS = 44032 * 1024
 KV_LEAF_BLOCKS = 1024 * 1024
+# the largest ChaCha20 call of the families path: sealing deepseek-v3's
+# expert stack, [1, 256, 7168, 2048] bf16 = 114688 tiles; phase 3 checks it
+# whole against the plain version range by range, and load_family holds
+# every leaf it seals to at most this size
+FAMILY_LEAF_BLOCKS = 114688 * 1024
 
 # paged attention checks: (label, dtype, geometry, (rtol, atol) of
 # torch.testing.assert_close against the plain version). The kernel sums in
@@ -167,6 +190,11 @@ PAGED_CASES = [
      dict(b=4, h=32, hk=32, hd=128, ps=16, pages=12,
           valid=[192, 130, 17, 0]),
      (1e-2, 1e-3)),
+    # the families path's chameleon-34b engine: GQA, 64 query heads over 8
+    # kv heads (a group of 8 per CTA), 16 pages of 16
+    ("chameleon-34b bf16, GQA 64/8", "bfloat16",
+     dict(b=4, h=64, hk=8, hd=128, ps=16, pages=16, valid=[256, 100, 0, 17]),
+     (1e-2, 1e-3)),
 ]
 PAGED_LAYER = 5      # counter_base = layer * blocks_per_page
 # the main path's paged call: one Llama2-7B layer, 2 slots at 256 positions
@@ -174,6 +202,10 @@ PAGED_MAIN = dict(b=2, h=32, hk=32, hd=128, ps=16, pages=16, valid=[256, 256])
 # a larger shape where launch overhead no longer hides the kernel
 PAGED_LARGE = dict(b=16, h=32, hk=32, hd=128, ps=16, pages=128,
                    valid=[2048] * 16)
+# the families path's chameleon-34b call: one layer, 2 slots at 256
+# positions, 64 query heads over 8 kv heads
+PAGED_CHAMELEON = dict(b=2, h=64, hk=8, hd=128, ps=16, pages=16,
+                       valid=[256, 256])
 # one decode step's logits, paged-kernel vs slot path, bf16 Llama2-7B: the
 # slot path's sdpa casts probabilities to bf16 before p.v, the kernel does
 # not, so the two differ by bf16 rounding carried through 32 layers
@@ -349,6 +381,37 @@ def phase_kernel_check(C, ops, torch, np) -> int:
             print(f"  N={n_blocks} counter_base={cb}: bit-equal")
             del out, plain
         del data
+    torch.cuda.empty_cache()
+    # the families path's largest leaf: one launch over the whole tensor,
+    # compared with the plain version over W_GATE_BLOCKS columns at a time
+    # (each range's counters start at its first block), so the plain
+    # version's temporaries stay those of the size above; every range is
+    # compared, the counter wrapping past 2**32 in the second case
+    n_blocks = FAMILY_LEAF_BLOCKS
+    gen = torch.Generator(device=dev).manual_seed(1)
+    data = torch.randint(0, 256, (16 * n_blocks * 4,), dtype=torch.uint8,
+                         device=dev, generator=gen).view(torch.int32)
+    data = data.view(16, n_blocks)
+    for cb in (0, 2**32 - 2):
+        kw = rng.integers(0, 2**32, 8, dtype=np.uint32)
+        nw = rng.integers(0, 2**32, 3, dtype=np.uint32)
+        out = C.chacha20_xor_blocked(kw, nw, data, counter_base=cb)
+        err = 0
+        for a in range(0, n_blocks, W_GATE_BLOCKS):
+            b = min(a + W_GATE_BLOCKS, n_blocks)
+            plain = C.chacha20_xor_plain(kw, nw, data[:, a:b],
+                                         counter_base=(cb + a) % 2**32)
+            err = max(err, int((out[:, a:b].long() - plain.long())
+                               .abs().max()))
+            del plain
+        torch.cuda.synchronize()
+        worst = max(worst, err)
+        check(err == 0, f"kernel == plain at N={n_blocks} (the families' "
+                        f"largest leaf), counter_base={cb} (max |diff| {err})")
+        print(f"  N={n_blocks} counter_base={cb}: bit-equal over "
+              f"{-(-n_blocks // W_GATE_BLOCKS)} ranges")
+        del out
+    del data
     torch.cuda.empty_cache()
     return worst
 
@@ -534,10 +597,13 @@ def paged_bounds(c, geo) -> dict:
 
 def phase_paged_timing(P, torch, np, F) -> dict:
     """CUDA events at the main path's call (8 layer copies of the pools in
-    turn, 67 MB, so the 50 MB L2 does not hold them between calls) and at
-    the larger shape."""
+    turn, 67 MB, so the 50 MB L2 does not hold them between calls), at the
+    larger shape and at the families path's chameleon-34b call."""
     out = {}
-    for tag, geo, copies in (("main", PAGED_MAIN, 8), ("large", PAGED_LARGE, 1)):
+    # 32 layer copies of chameleon's pools (hk 8) are 69 MB, as 8 of
+    # Llama2-7B's (hk 32) are 67 MB
+    for tag, geo, copies in (("main", PAGED_MAIN, 8), ("large", PAGED_LARGE, 1),
+                             ("chameleon", PAGED_CHAMELEON, 32)):
         c = paged_case(torch, np, "bfloat16", **geo, live_every=1,
                        copies=copies, seed=1, sealed=False)
         args = (c["table"], c["valid"])
@@ -1834,6 +1900,370 @@ def phase_serve(torch, np) -> dict:
                 path_s=path_s)
 
 
+# the families path: one model of each family beyond dense, at its published
+# widths (d_model, heads, kv heads, head dim, experts, top-k, expert d_ff,
+# MLA ranks, SSM state, vocab), depth cut to the smallest unit that holds
+# every layer kind of the family: (config, depth cut, engine). Each runs
+# under tdx with 2 slots, max_len 256 and buckets 32/64/128; the load is
+# seal, attest, unseal; the traffic the slot path's low wave (prompts of 20,
+# 24, 100 and 40 tokens) at 16 new tokens each, then after 3 steps one
+# preempting high-priority request of 100 tokens. On jamba the low with the
+# lower rid is first partially evicted (one tail page); the high request
+# then whole-seals its mate and reserves the last free pages of an
+# 11-page pool (2 pages stay with the paused low, the high takes 9), so
+# the paused low sits out decode steps until the high finishes.
+FAMILY_GATHER = dict(PAGED_KW, kv_decode="gather")
+JAMBA_PAGES = 11
+FAMILIES = [
+    ("rwkv6-3b", dict(num_layers=4), ENGINE_KW),
+    ("chameleon-34b", dict(num_layers=2), PAGED_KW),
+    ("dbrx-132b", dict(num_layers=1), FAMILY_GATHER),
+    # one MLA + dense layer and one MLA + MoE layer (256 experts + 1 shared)
+    ("deepseek-v3-671b", dict(num_layers=2, moe=dict(first_k_dense=1)),
+     FAMILY_GATHER),
+    # one whole group: 7 Mamba + 1 attention, MoE on the odd slots
+    ("jamba-v0.1-52b", dict(num_layers=8),
+     dict(FAMILY_GATHER, num_pages=JAMBA_PAGES)),
+]
+FAMILY_WAVE = [(20, 16, 0), (24, 16, 0), (100, 16, 0), (40, 16, 0)]
+FAMILY_HIGH = (100, 8, 5)
+# whisper-small at full size (12 + 12 layers): no engine (the reference's
+# server refuses the encoder-decoder); Model.prefill over WHISPER_FRAMES
+# frame embeddings and a WHISPER_PROMPT-token prompt, then WHISPER_STEPS
+# greedy decode_steps, each step's logits within WHISPER_LOGIT_TOL x
+# max |logit| of the cache-free forward over the same tokens (bf16: the
+# two run their products at other row counts, so cuBLAS rounds them apart)
+WHISPER_FRAMES = 1500
+WHISPER_PROMPT = 4
+WHISPER_STEPS = 16
+WHISPER_LOGIT_TOL = 0.05
+# words of a tensor fingerprinted at a time on the card
+FINGERPRINT_CHUNK = 1 << 24
+
+
+def fingerprint(torch, t) -> int:
+    """A 64-bit digest of a tensor's bytes, on its device: the bytes as
+    int32 words (zero-padded to a whole word), each times an odd weight
+    from its index, summed modulo 2**64. A flipped bit changes one word by
+    +-2**k (k < 32), and so the sum by an odd multiple of 2**k: never 0
+    modulo 2**64. The bit-equality check of an unseal keeps these, not a
+    second copy of the weights."""
+    raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if raw.numel() % 4:
+        raw = torch.cat([raw, raw.new_zeros(4 - raw.numel() % 4)])
+    words = raw.view(torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i in range(0, words.numel(), FINGERPRINT_CHUNK):
+        w = words[i:i + FINGERPRINT_CHUNK].to(torch.int64)
+        idx = torch.arange(i, i + w.numel(), dtype=torch.int64,
+                           device=t.device)
+        total += (w * ((idx * 2654435761 + 12345) % (1 << 31) | 1)).sum()
+    return int(total)
+
+
+def family_config(name: str, cut: dict):
+    """The registered config with its depth cut applied (a dict value
+    replaces fields of that sub-config)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+        else v for k, v in cut.items()})
+
+
+def load_family(torch, model, key: bytes):
+    """Random weights from seed 0 on the card, sealed (ciphertext on the
+    card), the plaintext freed, attested, unsealed; the unsealed leaves
+    must fingerprint as the originals did. At most two copies of the
+    weights are on the card at a time. Returns (TrustDomain, weights,
+    load figures)."""
+    from repro_torch.core import SealingKey, TrustDomain
+    from repro_torch.core.sealing import tree_leaves_with_names, tree_map
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    prints = {n: fingerprint(torch, leaf)
+              for n, leaf in tree_leaves_with_names(params)}
+    skeleton = tree_map(lambda t: None, params)
+    sizes = [leaf.numel() * leaf.element_size()
+             for _, leaf in tree_leaves_with_names(params)]
+    n_bytes = sum(sizes)
+    check(max(sizes) <= FAMILY_LEAF_BLOCKS * 64,
+          f"{model.cfg.name}: its largest leaf ({max(sizes)} B) is within "
+          f"the size phase 3 checks B1 at ({FAMILY_LEAF_BLOCKS * 64} B)")
+    td = TrustDomain("tdx", sealing_key=SealingKey.generate(key),
+                     io_key=SealingKey.generate(key + b"-io"))
+    t0 = time.perf_counter()
+    sealed = td.seal_params(params)
+    torch.cuda.synchronize()
+    seal_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    verifier = td.make_verifier(model.cfg.name)
+    verifier.verify(td.quote(verifier.challenge(), model.cfg.name))
+    t0 = time.perf_counter()
+    unsealed = td.load_sealed(sealed, skeleton)
+    torch.cuda.synchronize()
+    unseal_s = time.perf_counter() - t0
+    del sealed
+    gc.collect()
+    torch.cuda.empty_cache()
+    for n, leaf in tree_leaves_with_names(unsealed):
+        check(fingerprint(torch, leaf) == prints[n],
+              f"{model.cfg.name}: unsealed weight {n} bit-equal to the "
+              f"original (fingerprint)")
+    return td, unsealed, dict(seal_s=seal_s, unseal_s=unseal_s,
+                              weight_bytes=n_bytes, n_leaves=len(prints))
+
+
+def family_waves(eng, specs, gen, partial: bool):
+    """FAMILY_WAVE, 3 steps, then FAMILY_HIGH, to the end. With ``partial``
+    the lower-rid low is partially evicted (one tail page) just before
+    the high request's step; its recurrent-state rows must come out of
+    that step, which it sits out while the high request steps, bit for bit
+    as they went in. Returns (requests, stats, rows frozen or None)."""
+    import torch
+    reqs = [eng.submit(gen(s)) for s in specs[:len(FAMILY_WAVE)]]
+    for _ in range(3):
+        eng.step()
+    frozen = None
+    reqs.append(eng.submit(gen(specs[-1])))
+    if partial:
+        running = eng.scheduler.running
+        slot = min(running, key=lambda s: running[s].rid)
+        eng.partial_preempt(slot, 1)
+        dense = eng.kv._dense
+        check(bool(dense), "jamba keeps recurrent-state leaves slot-dense")
+        before = {k: v[:, slot].clone() for k, v in dense.items()}
+        eng.step()
+        check(slot in eng._paused and len(eng.scheduler.running) == 2,
+              "jamba: the partially evicted low sat out the step in which "
+              "the high request stepped")
+        frozen = all(torch.equal(v[:, slot], before[k])
+                     for k, v in dense.items())
+    stats = eng.run(max_steps=10_000)
+    return reqs, stats, frozen
+
+
+def phase_family(torch, np, name, cut, kw) -> dict:
+    """One decoder family: load, the waves with every kernel count set to
+    0 just before the load, then the checks (finite logits, tokens in the
+    vocabulary, solo runs or a rerun, the pause freeze on jamba) and the
+    prefill and decode_step times."""
+    from repro_torch.core import SealingKey, TrustDomain
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Engine, GenerationRequest
+
+    cfg = family_config(name, cut)
+    model = build_model(cfg)            # the card
+    rng = np.random.default_rng(13)
+    specs = [(rng.integers(1, cfg.vocab_size, n).astype(np.int32), mnt, prio)
+             for n, mnt, prio in FAMILY_WAVE + [FAMILY_HIGH]]
+
+    def gen(spec):
+        prompt, mnt, prio = spec
+        return GenerationRequest(prompt=prompt.copy(), max_new_tokens=mnt,
+                                 priority=prio)
+
+    partial = name == "jamba-v0.1-52b"
+    key = f"chip-family-{name}".encode()
+    # ---- the family's path: every kernel count starts at 0 here ----------
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(C, P, Q, FA)
+    td, params, load = load_family(torch, model, key)
+    eng = Engine(model, params, trust_domain=td, **kw)
+    t0 = time.perf_counter()
+    reqs, stats, frozen = family_waves(eng, specs, gen, partial)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the family's path -----------------------------------------
+    check(launches["flash_attention"] + launches["qmatmul"] == 0,
+          f"{name}: the path runs no int8 or flash kernel")
+    check(launches["chacha20_xor_blocked"] > 0,
+          f"{name}: the path launched chacha20_xor_blocked")
+    if kw.get("kv_decode") == "kernel":
+        for k in ("paged_attention", "paged_attention_unseal"):
+            check(launches[k] > 0, f"{name}: the path launched {k}")
+        check(eng.kv.fused_restore_pages > 0,
+              f"{name}: a restore admitted pages as ciphertext")
+    else:
+        check(sum(P.launches.values()) == 0,
+              f"{name}: gather decode runs no paged kernel")
+    check(all(r.finished for r in reqs), f"{name}: every request finished")
+    check(stats.preemptions > 0, f"{name}: the high request preempted")
+    outputs = [list(r.output) for r in reqs]
+    for spec, out in zip(specs, outputs):
+        check(len(out) == spec[1] and all(0 <= t < cfg.vocab_size
+                                          for t in out),
+              f"{name}: request produced {spec[1]} tokens in the vocabulary")
+    if partial:
+        check(frozen, "jamba: the paused row's recurrent-state rows are "
+                      "bit-equal before and after the step it sat out")
+    if model.rows_coupled:
+        # MoE capacity couples a row's tokens to its batch-mates (in the
+        # reference too): a rerun on a fresh engine must repeat them
+        again = Engine(model, params, **kw, trust_domain=TrustDomain(
+            "tdx", sealing_key=SealingKey.generate(key),
+            io_key=SealingKey.generate(key + b"-io")))
+        rerun, _, _ = family_waves(again, specs, gen, partial)
+        check([list(r.output) for r in rerun] == outputs,
+              f"{name}: a rerun on a fresh engine repeats every token")
+        del again
+        same = "a rerun on a fresh engine repeats every token"
+    else:
+        check_solo(Engine, TrustDomain, model, params, specs, gen, outputs,
+                   kw)
+        same = "every request equals its solo run"
+    # logits finite on a real prompt, and the model's own step times
+    b, max_len = ENGINE_KW["max_slots"], ENGINE_KW["max_len"]
+    with torch.inference_mode():
+        logits, cache = model.prefill(
+            params, {"tokens": torch.as_tensor(specs[2][0][None, :],
+                                               device="cuda")},
+            model.init_cache(1, max_len))
+        step, _ = model.decode_step(params, torch.ones(
+            (1, 1), dtype=torch.int32, device="cuda"), cache)
+        check(bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(step).all())
+              and tuple(logits.shape) == (1, cfg.vocab_size),
+              f"{name}: prefill and decode logits finite")
+        cache = model.init_cache(b, max_len)
+        cache["pos"].fill_(128)
+        tok = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+        prompt = torch.ones((1, 128), dtype=torch.int32, device="cuda")
+        decode_s = time_host(lambda: model.decode_step(params, tok, cache), 5)
+        prefill_s = time_host(lambda: model.prefill(
+            params, {"tokens": prompt}, model.init_cache(1, max_len)), 3)
+    out = dict(name=name, cut=cut, layers=cfg.num_layers, stats=stats,
+               wall_s=wall_s, launches=launches, peak=peak, same=same,
+               decode_s=decode_s, prefill_s=prefill_s,
+               fused=getattr(eng.kv, "fused_restore_pages", 0), **load)
+    del eng, params, model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_whisper(torch, np) -> dict:
+    """whisper-small at full size: load as the families do, then prefill
+    over WHISPER_FRAMES frames and WHISPER_STEPS greedy decode steps, each
+    held to the cache-free forward over the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.models import build_model
+
+    cfg = get_config("whisper-small")
+    model = build_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    frames = torch.randn((1, WHISPER_FRAMES, cfg.d_model), generator=g,
+                         device="cuda").to(cfg.torch_dtype)
+    toks = torch.as_tensor(np.random.default_rng(17).integers(
+        1, cfg.vocab_size, (1, WHISPER_PROMPT)), dtype=torch.int32,
+        device="cuda")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(C, P, Q, FA)
+    td, params, load = load_family(torch, model, b"chip-family-whisper")
+    worst, step_s = 0.0, []
+    with torch.inference_mode():
+        cache = model.init_cache(1, WHISPER_FRAMES)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"frames": frames,
+                                               "tokens": toks}, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        for i in range(WHISPER_STEPS + 1):
+            ref = model.forward(params, {"frames": frames,
+                                         "tokens": toks})[0][:, -1]
+            err = float((logits - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(bool(torch.isfinite(logits).all()),
+                  "whisper: logits finite")
+            check(err <= WHISPER_LOGIT_TOL * scale,
+                  f"whisper: step {i}'s logits within {WHISPER_LOGIT_TOL} x "
+                  f"max |logit| of the cache-free forward ({err:.4g} vs max "
+                  f"{scale:.4g})")
+            worst = max(worst, err / scale)
+            if i == WHISPER_STEPS:
+                break
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            toks = torch.cat([toks, nxt], dim=1)
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, nxt, cache)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    launches = path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["chacha20_xor_blocked"] > 0
+          and sum(v for k, v in launches.items()
+                  if k != "chacha20_xor_blocked") == 0,
+          "whisper: the path launched chacha20_xor_blocked only")
+    out = dict(launches=launches, peak=peak, prefill_s=prefill_s,
+               step_ms=float(np.median(step_s)) * 1e3, worst=worst,
+               tokens=toks.shape[1] - WHISPER_PROMPT, **load)
+    del params, cache, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(torch, np) -> dict:
+    """Every family of FAMILIES, then whisper, one model on the card at a
+    time."""
+    print(f"  device memory in use before the families (Llama2-7B freed): "
+          f"{torch.cuda.memory_allocated()} B")
+    out = {}
+    for name, cut, kw in FAMILIES:
+        t0 = time.perf_counter()
+        out[name] = phase_family(torch, np, name, cut, kw)
+        out[name]["path_s"] = time.perf_counter() - t0
+        print_family(out[name])
+    t0 = time.perf_counter()
+    out["whisper-small"] = phase_whisper(torch, np)
+    out["whisper-small"]["path_s"] = time.perf_counter() - t0
+    print_whisper(out["whisper-small"])
+    return out
+
+
+def print_family(r) -> None:
+    st = r["stats"]
+    print(f"  {r['name']} (depth cut {r['cut']}): "
+          f"{r['weight_bytes']} B of weights in {r['n_leaves']} leaves, seal "
+          f"{r['seal_s']:.2f}s + unseal {r['unseal_s']:.2f}s, unsealed "
+          f"bit-equal; {st.total_requests} requests / {st.total_tokens} "
+          f"tokens in {r['wall_s']:.2f}s wall, {st.preemptions} "
+          f"preemptions, {r['fused']} pages restored as ciphertext; "
+          f"next-token p50 {st.p50_latency_s * 1e3:.2f} ms, TTFT p50 "
+          f"{st.p50_ttft_s * 1e3:.2f} ms; prefill (1 x 128) "
+          f"{r['prefill_s'] * 1e3:.2f} ms, decode_step (2 rows) "
+          f"{r['decode_s'] * 1e3:.2f} ms; peak device memory {r['peak']} B; "
+          f"{r['same']}; launches {r['launches']}; {r['path_s']:.1f}s with "
+          f"its checks")
+
+
+def print_whisper(r) -> None:
+    print(f"  whisper-small (full, 12 + 12 layers): {r['weight_bytes']} B of "
+          f"weights in {r['n_leaves']} leaves, seal {r['seal_s']:.2f}s + "
+          f"unseal {r['unseal_s']:.2f}s, unsealed bit-equal; prefill over "
+          f"{WHISPER_FRAMES} frames + {WHISPER_PROMPT} tokens "
+          f"{r['prefill_s'] * 1e3:.2f} ms, decode_step p50 "
+          f"{r['step_ms']:.2f} ms over {r['tokens']} greedy steps, each "
+          f"within {r['worst']:.3g} x max |logit| of the cache-free forward "
+          f"(limit {WHISPER_LOGIT_TOL}); peak device memory {r['peak']} B; "
+          f"launches {r['launches']}; {r['path_s']:.1f}s with its checks")
+
+
 def phase_quant(torch, np) -> dict:
     """The int8 weight path at full width, QUANT_LAYERS deep: quantize
     Llama2-7B's weights on the card, seal, attest, unseal (bit-exact), then
@@ -2001,7 +2431,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[1/7] device: {name} x{count}; torch {torch.__version__} "
+    print(f"[1/8] device: {name} x{count}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -2010,7 +2440,7 @@ def main() -> int:
                "flash_attention.cu")
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
         list(pool.map(lambda K: K._kernel_fn(), kernels))
-    print(f"[2/7] build: {', '.join(sources)} with nvcc for sm_90a in "
+    print(f"[2/8] build: {', '.join(sources)} with nvcc for sm_90a in "
           f"{time.perf_counter() - t0:.2f}s")
     for src in sources:
         log = build.BUILD_LOG[src]
@@ -2025,7 +2455,7 @@ def main() -> int:
 
     phase_t = {"device and build": time.perf_counter() - t_start}
     t_phase = time.perf_counter()
-    print("[3/7] kernel check: chacha20_xor_blocked vs plain, bit for bit; "
+    print("[3/8] kernel check: chacha20_xor_blocked vs plain, bit for bit; "
           "paged_attention (B3) and paged_attention_unseal (B4) vs plain; "
           "qmatmul (B5) vs plain, bit for bit; flash_attention (B2) vs plain")
     max_err = phase_kernel_check(C, ops, torch, np)
@@ -2037,7 +2467,7 @@ def main() -> int:
     phase_t["kernel check"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     tm = phase_kernel_timing(C, torch, np)
-    print(f"[4/7] kernel timing at N={W_GATE_BLOCKS} blocks "
+    print(f"[4/8] kernel timing at N={W_GATE_BLOCKS} blocks "
           f"({W_GATE_BLOCKS * 64} B): kernel {tm['ms']:.4f} ms, bound "
           f"{tm['bound_ms']:.4f} ms (bytes {tm['bytes_ms']:.4f} ms, integer "
           f"ops {tm['ops_ms']:.4f} ms -> {tm['bound_by']}), plain version "
@@ -2069,6 +2499,19 @@ def main() -> int:
           f"{mn['b4'][0]:.4f} ms, {mn['b4'][1]}: bytes {mn['bytes_ms']:.4f} "
           f"ms, ops {mn['ops_ms']:.4f} ms; plain {mn['plain4']:.3f} ms)")
 
+    cm = pt["chameleon"]
+    print(f"  paged attention at the families path's chameleon-34b call "
+          f"({PAGED_CHAMELEON['b']} slots x {PAGED_CHAMELEON['valid'][0]} "
+          f"positions, h {PAGED_CHAMELEON['h']} / hk {PAGED_CHAMELEON['hk']}, "
+          f"one layer; 32 layer copies in turn): B3 {cm['ms3']:.4f} ms "
+          f"(bound {cm['b3'][0]:.4f} ms, bytes; gather + sdpa "
+          f"{cm['lib3']:.4f} ms); B4 {cm['ms4']:.4f} ms, every page dead "
+          f"{cm['ms4_dead']:.4f} ms (bound {cm['b4'][0]:.4f} ms, "
+          f"{cm['b4'][1]}: bytes {cm['bytes_ms']:.4f} ms, ops "
+          f"{cm['ops_ms']:.4f} ms)")
+    print("  B4 at chameleon-34b's call: " + paged_keystream_text(
+        P, PAGED_CHAMELEON["hk"], PAGED_CHAMELEON["hd"],
+        PAGED_CHAMELEON["ps"], 2))
     qt = phase_qmm_timing(Q, torch)
     for (label, m), r in qt.items():
         lib = f"{r['lib_ms']:.4f} ms" if r["lib_ms"] is not None else "n/a"
@@ -2087,7 +2530,7 @@ def main() -> int:
 
     phase_t["kernel timing"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    print("[5/7] serve: llama2-7b (32 layers, d_model 4096, bf16) under tdx")
+    print("[5/8] serve: llama2-7b (32 layers, d_model 4096, bf16) under tdx")
     sp = phase_sampler(torch, np)
     print(f"  sampler on the card vs the CPU: keys, raw bits and uniforms "
           f"bit-equal over {sp['draws']} draws; Gumbel noise within "
@@ -2098,17 +2541,24 @@ def main() -> int:
     sv = phase_serve(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[6/7] int8 weight path: llama2-7b at full width, {QUANT_LAYERS} "
-          f"of 32 layers deep, quantized, sealed, unsealed; "
-          "ops.qmm and ops.mha_flash on layer 0")
     phase_t["serve"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
+    print("[6/8] families: " + ", ".join(
+        f"{n} {cut}" for n, cut, _ in FAMILIES)
+        + " at published width, one at a time under tdx; whisper-small at "
+          "full size")
+    fam = phase_families(torch, np)
+    phase_t["families"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    print(f"[7/8] int8 weight path: llama2-7b at full width, {QUANT_LAYERS} "
+          f"of 32 layers deep, quantized, sealed, unsealed; "
+          "ops.qmm and ops.mha_flash on layer 0")
     qp = phase_quant(torch, np)
     phase_t["int8"] = time.perf_counter() - t_phase
 
     st, ch = sv["stats"], sv["channel"]
     per_req = (sv["launches"] - sv["weight_launches"]) / sv["n_requests"]
-    print(f"[7/7] served {st.total_requests} requests / {st.total_tokens} "
+    print(f"[8/8] served {st.total_requests} requests / {st.total_tokens} "
           f"tokens in {sv['serve_s']:.2f}s wall; {st.preemptions} preemptions")
     print(f"  sealed KV: {ch.seal_events} seals / {ch.seal_bytes} B out, "
           f"{ch.restore_events} restores / {ch.restore_bytes} B back; egress "
@@ -2239,8 +2689,14 @@ def main() -> int:
         f"{k} {v:.1f}s" for k, v in phase_t.items())
         + "; serve paths with their checks: " + ", ".join(
             f"{k} {v:.1f}s" for k, v in sv["path_s"].items()))
+    fam_launches = {k: sum(r["launches"][k] for r in fam.values())
+                    for k in ("chacha20_xor_blocked", "paged_attention",
+                              "paged_attention_unseal")}
+    print(f"  launches on the families path: " + "; ".join(
+        f"{n} {r['launches']}" for n, r in fam.items())
+        + f"; summed {fam_launches}")
     later = [sh["launches"], st_["launches"], fl["launches"],
-             rg["launches"]] + [
+             rg["launches"], fam_launches] + [
         r["launches"] for r in sv["two_phase"]["modes"].values()]
     pl = {k: v + sum(x[k] for x in later)
           for k, v in sv["paged_launches"].items()}
@@ -2248,9 +2704,10 @@ def main() -> int:
                    + qp["launches"]["chacha20_xor_blocked"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
           f"{b1_launches} (slot, paged, sharing, store, two-phase, fleet, "
-          f"RAG, int8), B3 {pl['paged_attention']} (paged, sharing, store, "
-          f"two-phase, fleet, RAG) and B4 {pl['paged_attention_unseal']} "
-          f"(paged, sharing, store, two-phase, fleet)")
+          f"RAG, families, int8), B3 {pl['paged_attention']} (paged, "
+          f"sharing, store, two-phase, fleet, RAG, chameleon) and B4 "
+          f"{pl['paged_attention_unseal']} (paged, sharing, store, "
+          f"two-phase, fleet, chameleon)")
     fm, qm = ft[128], qt[QMM_MAIN]
     print(json.dumps({"kernels": [{
         "name": "chacha20_xor_blocked", "route": "cuda",

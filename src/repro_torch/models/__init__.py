@@ -1,4 +1,4 @@
-"""Models (port of ``repro.models``; dense decoders in this slice)."""
+"""Models (port of ``repro.models``: every family)."""
 
 from repro_torch.models.model import build_model, Model
 

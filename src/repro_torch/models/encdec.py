@@ -1,0 +1,169 @@
+"""Encoder-decoder transformer, the Whisper backbone (port of
+``repro.models.encdec``).
+
+The audio conv frontend is a stub, as in the reference: precomputed frame
+embeddings ``[b, frames, d_model]`` go straight into the encoder. RoPE
+stands in for Whisper's sinusoidal and learned position tables; LayerNorm
+and the tanh-approximated GELU match Whisper. Params and caches keep the
+reference's layout: ``enc_layers``/``dec_layers`` stacked on a leading
+layer axis, and a cache of ``self_k``/``self_v``
+``[L, b, max_target_len, hk, hd]``, ``cross_k``/``cross_v``
+``[L, b, enc_len, hk, hd]`` and ``pos`` ``[b]``, written in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+from repro_torch.models.transformer import _layer
+
+Params = Any
+
+
+def _attn_cfg(cfg: ModelConfig, causal: bool) -> layers.AttentionConfig:
+    return layers.AttentionConfig(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
+        qk_norm=False, rope_theta=cfg.rope_theta, causal=causal)
+
+
+class EncDecLM:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.enc_cfg = _attn_cfg(cfg, causal=False)
+        self.dec_cfg = _attn_cfg(cfg, causal=True)
+
+    def init_params(self, seed: int, device) -> Params:
+        """Random weights from ``seed`` on ``device`` (torch generator
+        bits, not the reference's)."""
+        cfg = self.cfg
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        kw = dict(dtype=cfg.torch_dtype, device=device)
+        d, ff = cfg.d_model, cfg.d_ff
+        le, ld = cfg.encoder_layers, cfg.decoder_layers
+        enc = {
+            "pre_norm": layers.init_layernorm(d, layers=le, **kw),
+            "attn": layers.init_attention(gen, self.enc_cfg, layers=le, **kw),
+            "post_norm": layers.init_layernorm(d, layers=le, **kw),
+            "mlp": layers.init_gelu_mlp(gen, d, ff, layers=le, **kw),
+        }
+        dec = {
+            "norm1": layers.init_layernorm(d, layers=ld, **kw),
+            "self_attn": layers.init_attention(gen, self.dec_cfg, layers=ld,
+                                               **kw),
+            "norm2": layers.init_layernorm(d, layers=ld, **kw),
+            "cross_attn": layers.init_cross_attention(gen, self.enc_cfg,
+                                                      layers=ld, **kw),
+            "norm3": layers.init_layernorm(d, layers=ld, **kw),
+            "mlp": layers.init_gelu_mlp(gen, d, ff, layers=ld, **kw),
+        }
+        return {
+            "embedding": layers.init_embedding(gen, cfg.vocab_size, d, **kw),
+            "enc_layers": enc,
+            "dec_layers": dec,
+            "enc_final_norm": layers.init_layernorm(d, **kw),
+            "dec_final_norm": layers.init_layernorm(d, **kw),
+        }
+
+    # -- encoder -----------------------------------------------------------
+    def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = frames.shape
+        positions = torch.arange(s, device=frames.device)[None, :].expand(b, s)
+        x = frames
+        for j in range(cfg.encoder_layers):
+            lp = _layer(params["enc_layers"], j)
+            h = layers.layernorm(lp["pre_norm"], x, cfg.norm_eps)
+            x = x + layers.attention_forward(lp["attn"], self.enc_cfg, h,
+                                             positions)
+            h = layers.layernorm(lp["post_norm"], x, cfg.norm_eps)
+            x = x + layers.gelu_mlp(lp["mlp"], h)
+        return layers.layernorm(params["enc_final_norm"], x, cfg.norm_eps)
+
+    def _dec_tail(self, lp: Params, x: torch.Tensor, ek: torch.Tensor,
+                  ev: torch.Tensor) -> torch.Tensor:
+        """A decoder layer after its self-attention: cross-attention over
+        the encoder's k/v, then the GELU MLP."""
+        eps = self.cfg.norm_eps
+        h = layers.layernorm(lp["norm2"], x, eps)
+        x = x + layers.cross_attention(lp["cross_attn"], self.enc_cfg, h,
+                                       ek, ev)
+        h = layers.layernorm(lp["norm3"], x, eps)
+        return x + layers.gelu_mlp(lp["mlp"], h)
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = layers.layernorm(params["dec_final_norm"], x, self.cfg.norm_eps)
+        return layers.unembed(params["embedding"], x)
+
+    # -- teacher-forced decoder --------------------------------------------
+    def forward(self, params: Params, frames: torch.Tensor,
+                tokens: torch.Tensor):
+        """-> (logits [b, t, vocab] f32, aux = f32 zero)."""
+        cfg = self.cfg
+        enc_out = self.encode(params, frames)
+        b, t = tokens.shape
+        positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
+        x = layers.embed(params["embedding"], tokens)
+        for j in range(cfg.decoder_layers):
+            lp = _layer(params["dec_layers"], j)
+            h = layers.layernorm(lp["norm1"], x, cfg.norm_eps)
+            x = x + layers.attention_forward(lp["self_attn"], self.dec_cfg, h,
+                                             positions)
+            ek, ev = layers.encode_kv(lp["cross_attn"], enc_out)
+            x = self._dec_tail(lp, x, ek, ev)
+        return (self._logits(params, x),
+                torch.zeros((), dtype=torch.float32, device=tokens.device))
+
+    # -- serving -------------------------------------------------------------
+    def init_cache(self, batch: int, enc_len: int, device) -> Params:
+        cfg = self.cfg
+        L, hk, hd = cfg.decoder_layers, cfg.num_kv_heads, cfg.head_dim_
+        kw = dict(dtype=cfg.torch_dtype, device=device)
+        return {
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "self_k": torch.zeros((L, batch, cfg.max_target_len, hk, hd), **kw),
+            "self_v": torch.zeros((L, batch, cfg.max_target_len, hk, hd), **kw),
+            "cross_k": torch.zeros((L, batch, enc_len, hk, hd), **kw),
+            "cross_v": torch.zeros((L, batch, enc_len, hk, hd), **kw),
+        }
+
+    def prefill(self, params: Params, frames: torch.Tensor,
+                tokens: torch.Tensor, cache: Params):
+        """Encode the frames, store every decoder layer's cross k/v, and
+        prefill the decoder's self k/v: -> (last-position logits, cache)."""
+        cfg = self.cfg
+        enc_out = self.encode(params, frames)
+        b, t = tokens.shape
+        positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
+        x = layers.embed(params["embedding"], tokens)
+        for j in range(cfg.decoder_layers):
+            lp = _layer(params["dec_layers"], j)
+            h = layers.layernorm(lp["norm1"], x, cfg.norm_eps)
+            x = x + layers.attention_prefill(
+                lp["self_attn"], self.dec_cfg, h,
+                {"k": cache["self_k"][j], "v": cache["self_v"][j]}, positions)
+            ek, ev = layers.encode_kv(lp["cross_attn"], enc_out)
+            cache["cross_k"][j] = ek.to(cache["cross_k"].dtype)
+            cache["cross_v"][j] = ev.to(cache["cross_v"].dtype)
+            x = self._dec_tail(lp, x, ek, ev)
+        cache["pos"].fill_(t)
+        return self._logits(params, x[:, -1:])[:, 0], cache
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache: Params):
+        """tokens [b, 1] -> (logits [b, vocab] f32, cache), in place."""
+        cfg = self.cfg
+        positions = cache["pos"][:, None].clone()
+        x = layers.embed(params["embedding"], tokens)
+        for j in range(cfg.decoder_layers):
+            lp = _layer(params["dec_layers"], j)
+            h = layers.layernorm(lp["norm1"], x, cfg.norm_eps)
+            x = x + layers.attention_decode(
+                lp["self_attn"], self.dec_cfg, h,
+                {"k": cache["self_k"][j], "v": cache["self_v"][j]}, positions)
+            x = self._dec_tail(lp, x, cache["cross_k"][j], cache["cross_v"][j])
+        cache["pos"] += 1
+        return self._logits(params, x)[:, 0], cache

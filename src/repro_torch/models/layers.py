@@ -1,5 +1,5 @@
-"""Core transformer layers: norms, RoPE, GQA attention, MLPs (port of
-``repro.models.layers``, dense path).
+"""Core transformer layers: norms, RoPE, GQA and cross attention, MLPs
+(port of ``repro.models.layers``).
 
 Plain functions over nested-dict params with the reference's layouts
 (``wq [d, h, hd]``, ``wo [h, hd, d]``, ``w_gate [d, ff]``, caches
@@ -55,6 +55,23 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype=torch.bfloat16, device=None,
+                   layers: Optional[int] = None) -> Params:
+    shape = (d,) if layers is None else (layers, d)
+    return {"scale": torch.ones(shape, dtype=dtype, device=device),
+            "bias": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 over the population variance (``jnp.var``'s)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +233,31 @@ def attention_decode(params: Params, cfg: AttentionConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# cross-attention (the encoder-decoder's decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(gen: torch.Generator, cfg: AttentionConfig,
+                         dtype=torch.bfloat16, device=None,
+                         layers: int = 1) -> Params:
+    return init_attention(gen, dataclasses.replace(cfg, qk_norm=False),
+                          dtype, device, layers)
+
+
+def cross_attention(params: Params, cfg: AttentionConfig, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """x: [b, sq, d]; enc_k/enc_v: precomputed [b, skv, hk, hd]."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    out = sdpa(q, enc_k, enc_v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def encode_kv(params: Params, enc_out: torch.Tensor):
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"])
+    return k, v
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
@@ -234,6 +276,26 @@ def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     g = torch.einsum("bsd,df->bsf", x, params["w_gate"])
     u = torch.einsum("bsd,df->bsf", x, params["w_up"])
     return torch.einsum("bsf,fd->bsd", F.silu(g) * u, params["w_down"])
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.bfloat16, device=None, layers: int = 1) -> Params:
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "w_in": dense_init(gen, (layers, d_model, d_ff), **kw),
+        "b_in": torch.zeros((layers, d_ff), **kw),
+        "w_out": dense_init(gen, (layers, d_ff, d_model), in_axis_size=d_ff,
+                            **kw),
+        "b_out": torch.zeros((layers, d_model), **kw),
+    }
+
+
+def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """GELU in f32 with the tanh approximation (``jax.nn.gelu``'s
+    default)."""
+    h = torch.einsum("bsd,df->bsf", x, params["w_in"]) + params["b_in"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return torch.einsum("bsf,fd->bsd", h, params["w_out"]) + params["b_out"]
 
 
 # ---------------------------------------------------------------------------

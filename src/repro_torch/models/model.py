@@ -1,9 +1,13 @@
-"""Model facade (port of ``repro.models.model``, dense decoders only).
+"""Model facade over every family (port of ``repro.models.model``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose serving entry points the
 engine calls: ``init_params``, ``init_cache``, ``prefill`` and
-``decode_step``. A model lives on one device: the card unless the caller
-passes ``device="cpu"``.
+``decode_step``; ``forward`` is the cache-free teacher-forced pass. The
+decoder families (dense, moe, hybrid, ssm, vlm) run through
+:class:`~repro_torch.models.transformer.DecoderLM`, the encoder-decoder
+(whisper) through :class:`~repro_torch.models.encdec.EncDecLM`, whose
+batches carry ``frames`` beside ``tokens``. A model lives on one device:
+the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
 
 Params = Any
@@ -21,13 +26,18 @@ Params = Any
 
 class Model:
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"the port builds dense decoders only; the {cfg.family!r} "
-                f"family arrives with ROADMAP.md queue A item 17")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._impl = DecoderLM(cfg)
+        self.is_encdec = cfg.family == "encdec"
+        self._impl = EncDecLM(cfg) if self.is_encdec else DecoderLM(cfg)
+
+    @property
+    def rows_coupled(self) -> bool:
+        """Does a row's output depend on the other rows of its call? True
+        for the MoE families: expert capacity is reckoned from every token
+        in the call, so at a capacity factor that drops, batch-mates
+        compete for the same expert slots (in the reference too)."""
+        return self.cfg.moe is not None
 
     # -- params --------------------------------------------------------------
     def init_params(self, seed: int = 0) -> Params:
@@ -36,6 +46,8 @@ class Model:
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Params:
+        """A zeroed cache; for the encoder-decoder ``max_len`` is the
+        encoder length (the decoder's is ``cfg.max_target_len``)."""
         return self._impl.init_cache(batch, max_len, self.device)
 
     def abstract_cache(self, batch: int, max_len: int) -> Params:
@@ -44,10 +56,21 @@ class Model:
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 cache: Params):
+        if self.is_encdec:
+            return self._impl.prefill(params, batch["frames"],
+                                      batch["tokens"], cache)
         return self._impl.prefill(params, batch["tokens"], cache)
 
     def decode_step(self, params: Params, tokens: torch.Tensor, cache: Params):
         return self._impl.decode_step(params, tokens, cache)
+
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """Teacher-forced full-sequence pass -> (logits [b, s, vocab] f32,
+        aux loss)."""
+        if self.is_encdec:
+            return self._impl.forward(params, batch["frames"],
+                                      batch["tokens"])
+        return self._impl.forward(params, batch["tokens"])
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

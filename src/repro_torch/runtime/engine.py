@@ -17,7 +17,8 @@ victims (paged), step-time page grants with evict-by-slack (on demand),
 coalesced egress, streaming, drop/abort deadlines and admission-time
 deadline feasibility. Scheduler decisions are the reference's, so the same
 requests produce the same admissions, preemptions, seals, frames and
-tokens.
+tokens. Every decoder family serves (dense, moe, hybrid, ssm, vlm; the
+encoder-decoder has no token-in/token-out server, as in the reference).
 
 Two-phase serving, as in the reference:
 
@@ -685,7 +686,8 @@ class Engine:
 
         # the reference pads rows to a power of two to bound its compiled
         # prefill shapes; the port's prefill runs one row a call, so it
-        # takes the group's rows only
+        # takes the group's rows only (the plan pads a MoE model's group,
+        # whose rows are coupled, as the reference does)
         rows = len(group)
         tokens = np.zeros((rows, bucket), np.int32)
         for i, req in enumerate(group):

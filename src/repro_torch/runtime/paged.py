@@ -1,11 +1,16 @@
 """Paged KV backend (port of ``repro.runtime.paged``).
 
-Layout. Every cache leaf with a sequence-length axis (attention ``k``/``v``)
-is stored as a pool ``[L, num_pages + 1, page_size, ...]``: physical page 0
-is the null page (the write target of rows that are not appending), pages
-``1..num_pages`` are allocatable. A host-side ``[max_slots, max_pages]``
-int32 page table maps each sequence's logical pages to physical ones
-(entry 0 = unmapped); positions live host-side too.
+Layout. Every cache leaf with a sequence-length axis (attention ``k``/``v``,
+MLA ``ckv``/``krope``) is stored as a pool ``[L, num_pages + 1, page_size,
+...]``: physical page 0 is the null page (the write target of rows that
+are not appending), pages ``1..num_pages`` are allocatable. A host-side
+``[max_slots, max_pages]`` int32 page table maps each sequence's logical
+pages to physical ones (entry 0 = unmapped); positions live host-side too.
+Leaves without a length axis (Mamba ``conv``/``ssm``, RWKV rows) stay
+slot-dense ``[L, max_slots, ...]``: a decode step advances only the rows
+that append, so a paused row's state stays frozen bit for bit, and a seal
+carries the slot's row of each under ``{prefix}{leaf}``. A model with no
+length leaf at all has nothing to page (use the slot backend).
 
 Allocation (``alloc=``). ``"reserve"`` (the default): admission reserves
 ``ceil(need / page_size)`` pages, the request's worst case, and physical
@@ -28,7 +33,9 @@ Decode (``decode=``). ``"gather"`` gathers each slot's pages into the dense
 runs it, and writes the one appended position back into the pool in place.
 ``"kernel"`` runs the dense family's layer loop itself and attends through
 ``kernels/paged_attention.py`` (kernels B3 and B4 on the card), which walk
-the page table without a gather: write-then-attend, as the gather path.
+the page table without a gather: write-then-attend, as the gather path. It
+takes one uniform attn + swiglu block (the dense and vlm families) and
+refuses any other model, as the reference does.
 
 Sealing. Preemption seals per page: each private page of each paged leaf
 becomes its own ciphertext + MAC under ``{prefix}{leaf}/p{ordinal}``, with a
@@ -89,11 +96,6 @@ Params = Any
 
 # cache-leaf names that carry a [.., max_len, ..] sequence axis at dim 2
 _LENGTH_LEAVES = ("k", "v", "ckv", "krope")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A item {item})")
 
 
 def prefix_page_keys(tokens: np.ndarray, page_size: int, written_len: int,
@@ -188,19 +190,27 @@ class PagedKVBackend(KVBackend):
         self.num_pages = num_pages
         self._key_salt = f"{model.cfg.name}|{page_size}|{max_len}".encode()
 
-        # classify leaves once; paged leaves move to pool layout
+        # classify leaves once: length leaves move to pool layout, the
+        # recurrent-state rest stays slot-dense
         template = model.abstract_cache(max_slots, max_len)
         template.pop("pos")
         self._pools: Dict[str, torch.Tensor] = {}
+        self._dense: Dict[str, torch.Tensor] = {}
         for path, leaf in tree_leaves_with_names(template):
-            if not (path.endswith(tuple(f"[{k!r}]" for k in _LENGTH_LEAVES))
+            if (path.endswith(tuple(f"[{k!r}]" for k in _LENGTH_LEAVES))
                     and leaf.dim() >= 3 and leaf.shape[2] == max_len):
-                raise _not_ported(f"a recurrent-state cache leaf ({path})",
-                                  "17")
-            self._pools[path] = torch.zeros(
-                (leaf.shape[0], num_pages + 1, page_size, *leaf.shape[3:]),
-                dtype=leaf.dtype, device=self.device)
-        self.blocks = _with_leaves(template, lambda p, _: self._pools[p])
+                self._pools[path] = torch.zeros(
+                    (leaf.shape[0], num_pages + 1, page_size,
+                     *leaf.shape[3:]), dtype=leaf.dtype, device=self.device)
+            else:
+                self._dense[path] = torch.zeros(leaf.shape, dtype=leaf.dtype,
+                                                device=self.device)
+        if not self._pools:
+            raise ValueError(
+                f"model {model.cfg.name} has no sequence-length KV leaves to "
+                f"page; use kv_backend='slot' for pure-state families")
+        leaves = {**self._pools, **self._dense}
+        self.blocks = _with_leaves(template, lambda p, _: leaves[p])
 
         # host-side sequence state
         self.pos = np.zeros(max_slots, np.int32)           # live KV positions
@@ -251,7 +261,7 @@ class PagedKVBackend(KVBackend):
                             for p, t in self._pools.items()}
         self._page_dtype = {p: t.dtype for p, t in self._pools.items()}
         if decode == "kernel":
-            self._init_kernel_decode()
+            self._init_kernel_decode(model)
             self._decode_fn = self.plan.compile_decode(self._decode_kernel)
         else:
             self._decode_fn = self.plan.compile_decode(self._decode_gather)
@@ -261,12 +271,16 @@ class PagedKVBackend(KVBackend):
                        write_off):
         """Gather every slot's pages into the dense view, run the model's
         ``decode_step`` on it, and write the appended position (at ``pos``)
-        back into the pool at (write_phys, write_off). Returns the logits."""
+        back into the pool at (write_phys, write_off). The model steps a
+        copy of each slot-dense leaf, and only the rows that append
+        (``write_phys > 0``) take its new rows: a paused row's recurrent
+        state stays where its sealed tail left it. Returns the logits."""
         b = self.max_slots
         view = {p: pool[:, table.long()].reshape(pool.shape[0], b,
                                                  self.max_len,
                                                  *pool.shape[3:])
                 for p, pool in self._pools.items()}
+        view.update({p: leaf.clone() for p, leaf in self._dense.items()})
         cache = _with_leaves(self.blocks, lambda p, _: view[p])
         cache["pos"] = pos.clone()
         logits, _ = self.model.decode_step(params, tokens, cache)
@@ -274,12 +288,25 @@ class PagedKVBackend(KVBackend):
         at = pos.long().clamp(max=self.max_len - 1)
         for p, pool in self._pools.items():
             pool[:, write_phys, write_off] = view[p][:, rows, at]
+        stepped = write_phys > 0
+        for p, leaf in self._dense.items():
+            mask = stepped.reshape(1, b, *([1] * (leaf.dim() - 2)))
+            leaf.copy_(torch.where(mask, view[p], leaf))
         return logits
 
-    def _init_kernel_decode(self) -> None:
-        """Kernel mode's page geometry and fused-unseal eligibility: pages
-        must cover whole ChaCha20 blocks and be f32 or bf16, and every leaf
-        must share one blocks-per-page (k and v do)."""
+    def _init_kernel_decode(self, model) -> None:
+        """Kernel mode's gate, page geometry and fused-unseal eligibility:
+        the model must be one uniform attn + swiglu block (the reference's
+        gate, with its error), pages must cover whole ChaCha20 blocks and
+        be f32 or bf16, and every leaf must share one blocks-per-page (k
+        and v do)."""
+        blocks_desc = getattr(model._impl, "blocks", None)
+        if (not blocks_desc or len(blocks_desc) != 1
+                or blocks_desc[0][2] != [("attn", "swiglu")]):
+            raise ValueError(
+                f"decode='kernel' supports the dense attention family only "
+                f"(one uniform attn+swiglu block); {model.cfg.name} has "
+                f"{blocks_desc!r} — use decode='gather'")
         self._k_path = next(p for p in self._pools if p.endswith("['k']"))
         self._v_path = next(p for p in self._pools if p.endswith("['v']"))
         page_bytes = {p: int(np.prod(t.shape[2:])) * t.element_size()
@@ -553,7 +580,8 @@ class PagedKVBackend(KVBackend):
         takes a fresh page, registered under its key, and gets the
         prefilled rows copied in. Every store hit is unsealed (MAC-checked)
         before any page or refcount moves, so a tampered entry fails the
-        whole group without a leak."""
+        whole group without a leak. Slot-dense leaves take the group's rows
+        (row i into slot ``slots[i]``)."""
         n_pages = self.pages_for(written_len)
         skey = self._content_key() if self.page_store is not None else None
         # phase 1: plan every slot's pages without touching state; pending
@@ -618,12 +646,14 @@ class PagedKVBackend(KVBackend):
         # counts the restores)
         self.pages_written += len(phys)
         self._scatter_pages(store_writes)
-        if not phys:
-            return
         idx = [torch.as_tensor(x, dtype=torch.long, device=self.device)
-               for x in (src_rows, page_ord, phys)]
+               for x in (src_rows, page_ord, phys, slots)]
+        k = len(slots)
         for path, src in tree_leaves_with_names(prefilled):
-            if path in self._pools:
+            if path in self._dense:
+                leaf = self._dense[path]
+                leaf[:, idx[3]] = src[:, :k].to(leaf.dtype)
+            elif path in self._pools and phys:
                 pool = self._pools[path]
                 pages = src.reshape(src.shape[0], src.shape[1],
                                     self.max_pages, self.page_size,
@@ -700,7 +730,8 @@ class PagedKVBackend(KVBackend):
         return logits
 
     def cache_nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self._pools.values())
+        return sum(t.numel() * t.element_size()
+                   for t in (*self._pools.values(), *self._dense.values()))
 
     # -- ciphertext-resident pages (fused-unseal restore path) ----------------
     def _admit_cipher_page(self, key: SealingKey, phys: int,
@@ -814,6 +845,9 @@ class PagedKVBackend(KVBackend):
         sealed.update(self._seal_pages(
             key, prefix, private,
             [int(self.table[slot, j]) for j in private]))
+        for kpath, leaf in self._dense.items():
+            name = f"{prefix}{kpath}"
+            sealed[name] = seal_tensor(key, name, leaf[:, slot:slot + 1])
         return sealed
 
     def _shared_keys(self, key: SealingKey, sealed: Dict[str, SealedTensor],
@@ -889,6 +923,8 @@ class PagedKVBackend(KVBackend):
                     f"shared page (ordinal {j}) is neither resident, "
                     f"parked, nor store-resident: sealed state references "
                     f"lost content")
+        dense_rows = {kpath: unseal_tensor(key, sealed[f"{prefix}{kpath}"])
+                      for kpath in self._dense}
         # phase 2: commit: map, write, and account. Sealed references are
         # released by discard_sealed once the engine's whole restore
         # succeeded, so a rolled-back restore leaves parked blobs intact.
@@ -925,6 +961,15 @@ class PagedKVBackend(KVBackend):
         self.pages_written += len(writes) - sum(
             1 for tier, *_ in remat.values() if tier == "store")
         self._scatter_pages(writes)
+        self._put_dense_rows(slot, dense_rows)
+
+    def _put_dense_rows(self, slot: int,
+                        rows: Dict[str, torch.Tensor]) -> None:
+        """Write each slot-dense leaf's restored ``[L, 1, ...]`` row into
+        slot ``slot``."""
+        for kpath, row in rows.items():
+            leaf = self._dense[kpath]
+            leaf[:, slot] = row[:, 0].to(leaf.device, leaf.dtype)
 
     def discard_sealed(self, key: SealingKey, sealed: Dict[str, SealedTensor],
                        prefix: str) -> None:

@@ -40,11 +40,25 @@ class SingleDevicePlan:
         others would differ in the last bits from the same prompt prefilled
         alone (and a sampled token can tip). One row a call keeps every
         request's tokens a function of its own prompt, as the reference's
-        are."""
+        are. A model whose rows are coupled anyway (MoE expert capacity is
+        reckoned over every token of the call) prefills the whole group in
+        one call, padded with zero rows to a power of two as the
+        reference's group is, since the pad rows' tokens take capacity
+        too; the pad rows are cut from what it returns."""
         model = self.model
 
         @torch.inference_mode()
         def _prefill(params, tokens, cache):
+            if model.rows_coupled:
+                b = tokens.shape[0]
+                pad = (1 << (b - 1).bit_length()) - b
+                if pad:
+                    tokens = torch.cat([tokens, tokens.new_zeros(
+                        (pad,) + tokens.shape[1:])])
+                    cache = _pad_rows(cache, pad)
+                logits, cache = model.prefill(params, {"tokens": tokens},
+                                              cache)
+                return logits[:b], _row_view(cache, 0, b)
             if tokens.shape[0] == 1:
                 return model.prefill(params, {"tokens": tokens}, cache)
             logits = [model.prefill(params, {"tokens": tokens[i:i + 1]},
@@ -59,13 +73,26 @@ class SingleDevicePlan:
         return torch.inference_mode()(fn)
 
 
-def _row_view(cache: Params, i: int) -> Params:
-    """Row ``i`` of a batched cache as a one-row cache of views (``pos`` is
-    ``[b]``, every other leaf ``[L, b, ...]``), so a prefill into it writes
-    the batched cache in place."""
-    return {k: (_row_view(v, i) if isinstance(v, dict)
-                else v[i:i + 1] if k == "pos" else v[:, i:i + 1])
+def _row_view(cache: Params, i: int, j: Optional[int] = None) -> Params:
+    """Rows ``i:j`` (row ``i`` alone by default) of a batched cache as a
+    cache of views (``pos`` is ``[b]``, every other leaf ``[L, b, ...]``),
+    so a prefill into it writes the batched cache in place."""
+    j = i + 1 if j is None else j
+    return {k: (_row_view(v, i, j) if isinstance(v, dict)
+                else v[i:j] if k == "pos" else v[:, i:j])
             for k, v in cache.items()}
+
+
+def _pad_rows(cache: Params, n: int) -> Params:
+    """The cache with ``n`` zeroed rows appended (a fresh cache is zeros)."""
+    def pad(k, v):
+        if isinstance(v, dict):
+            return {kk: pad(kk, vv) for kk, vv in v.items()}
+        axis = 0 if k == "pos" else 1
+        shape = list(v.shape)
+        shape[axis] = n
+        return torch.cat([v, v.new_zeros(shape)], dim=axis)
+    return {k: pad(k, v) for k, v in cache.items()}
 
 
 class PrefillOnlyPlan(SingleDevicePlan):

@@ -669,3 +669,118 @@ def test_dense_encoder_ranking_on_card_equals_cpu(card):
         order = [d for d, _ in got]
         assert all(ref[a] >= ref[b] - 2 * tol
                    for a, b in zip(order, order[1:]))
+
+
+# -- the model families (f32 smoke configs) ------------------------------------
+
+FAMILIES = ["chameleon-34b", "dbrx-132b", "deepseek-v3-671b",
+            "jamba-v0.1-52b", "rwkv6-3b", "whisper-small"]
+FAMILY_KV = {"chameleon-34b": dict(kv_backend="paged", page_size=8,
+                                   kv_decode="kernel"),
+             "dbrx-132b": dict(kv_backend="paged", page_size=8),
+             "deepseek-v3-671b": dict(kv_backend="paged", page_size=8),
+             "jamba-v0.1-52b": dict(kv_backend="paged", page_size=8),
+             "rwkv6-3b": dict(kv_backend="slot")}
+
+
+def _family_batch(model, device, s=8):
+    g = torch.Generator().manual_seed(5)
+    cfg = model.cfg
+    b = {"tokens": torch.randint(0, cfg.vocab_size, (2, s), generator=g,
+                                 dtype=torch.int32).to(device)}
+    if model.is_encdec:
+        b["frames"] = torch.randn(2, 12, cfg.d_model, generator=g).to(device)
+    return b
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_model_on_card_matches_cpu(card, arch):
+    """Each family's f32 smoke model on the card: prefill and 8 greedy
+    decode steps within 1e-4 of the CPU's logits (f32 products in another
+    order), the same greedy tokens, and the cache-free forward within
+    1e-4."""
+    cfg = smoke_config(arch)
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device=card)
+    params = cpu.init_params(seed=4)
+    gparams = tree_map(lambda t: t.to(card), params)
+    n = 12 if cpu.is_encdec else 32
+    cb, gb = _family_batch(cpu, "cpu"), _family_batch(gpu, card)
+    cl, cc = cpu.prefill(params, cb, cpu.init_cache(2, n))
+    gl, gc = gpu.prefill(gparams, gb, gpu.init_cache(2, n))
+    for _ in range(8):
+        torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+        tok = cl.argmax(-1)
+        assert torch.equal(gl.argmax(-1).cpu(), tok)
+        cl, cc = cpu.decode_step(params, tok[:, None].int(), cc)
+        gl, gc = gpu.decode_step(gparams, tok[:, None].int().to(card), gc)
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gpu.forward(gparams, gb)[0].cpu(),
+                               cpu.forward(params, cb)[0], rtol=1e-4,
+                               atol=1e-4)
+
+
+def _family_serve(device, model, params, **kv):
+    """The preempting scenario of ``_serve`` on a family's backend."""
+    eng = Engine(model, params, trust_domain=TrustDomain("tdx", device=device),
+                 max_slots=2, max_len=64, prefill_buckets=(4, 8),
+                 device=device, **kv)
+    prompts = [np.arange(1, 5), np.arange(1, 9), np.full(8, 7)]
+    reqs = [eng.submit(GenerationRequest(prompt=p.astype(np.int32),
+                                         max_new_tokens=6)) for p in prompts]
+    for _ in range(3):
+        eng.step()
+    reqs.append(eng.submit(GenerationRequest(
+        prompt=np.arange(1, 13, dtype=np.int32), max_new_tokens=4,
+        priority=5)))
+    assert eng.run(max_steps=10_000).preemptions > 0
+    return [list(r.output) for r in reqs]
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_KV))
+def test_family_engine_on_card_matches_cpu(card, arch):
+    """Each decoder family's f32 smoke model serves the preempting scenario
+    on the card with the CPU run's tokens (chameleon through B3 and B4)."""
+    cfg = smoke_config(arch)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(seed=3)
+    expect = _family_serve("cpu", cpu, params, **FAMILY_KV[arch])
+    P.reset_launches()
+    got = _family_serve(card, build_model(cfg, device=card),
+                        tree_map(lambda t: t.to(card), params),
+                        **FAMILY_KV[arch])
+    assert got == expect
+    if arch == "chameleon-34b":
+        assert P.launches["paged_attention"] > 0
+        assert P.launches["paged_attention_unseal"] > 0
+
+
+def test_hybrid_pause_freezes_recurrent_state_on_card(card):
+    """On the card, a paused jamba row's Mamba state rows stay bit-equal
+    through a decode step it sits out while its mate's rows move, and both
+    requests finish with the CPU run's tokens."""
+    cfg = smoke_config("jamba-v0.1-52b")
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(seed=2)
+    outs = []
+    for device, model, p in (("cpu", cpu, params),
+                             (card, build_model(cfg, device=card),
+                              tree_map(lambda t: t.to(card), params))):
+        eng = Engine(model, p, trust_domain=TrustDomain("tdx", device=device),
+                     max_slots=2, max_len=64, prefill_buckets=(8,),
+                     kv_backend="paged", page_size=8, device=device)
+        low = eng.submit(GenerationRequest(
+            prompt=np.arange(1, 9, dtype=np.int32), max_new_tokens=10))
+        mate = eng.submit(GenerationRequest(
+            prompt=np.full(8, 3, np.int32), max_new_tokens=10))
+        for _ in range(3):
+            eng.step()
+        dense = eng.kv._dense
+        before = {k: v[:, 0].clone() for k, v in dense.items()}
+        mate_before = {k: v[:, 1].clone() for k, v in dense.items()}
+        eng.kv.decode(eng.params, eng._last_token, None, 0, write_slots=[1])
+        assert all(torch.equal(v[:, 0], before[k]) for k, v in dense.items())
+        assert any(not torch.equal(v[:, 1], mate_before[k])
+                   for k, v in dense.items())
+        eng.run()
+        outs.append((list(low.output), list(mate.output)))
+    assert outs[0] == outs[1]
