@@ -70,7 +70,14 @@ Phases, each fatal on failure:
      dense encoder on the card ranking as on the CPU, each answer
      reproduced by engine.generate on its trimmed prompt (a determinism
      check: B3 at this engine's 9-page table is held to its plain walk in
-     the kernel checks).
+     the kernel checks). Then the mesh path: the same weights on a dp=2
+     mesh of logical shards on the card (ShardedPlan: each sharded leaf at
+     rest in two chunks, gathered before every step), the slot path's
+     waves on the slot backend and on the paged backend with gather decode:
+     tokens bit-equal to the single-device engine's and to each request's
+     solo run on the mesh engine, every sealed name tagged /s0 or /s1, a
+     victim restored onto the other shard, one counted gather of half the
+     non-norm weights a decode step, B1 the only kernel.
      Each path runs with every kernel count set to 0 just before it; every
      request's tokens must equal the same request served alone on a fresh
      engine of that path; the pool invariants hold after every sharing and
@@ -112,7 +119,10 @@ Phases, each fatal on failure:
      times, a bucket group's prefill
      as one batched call against one row a call (the plan's),
      the store's restore-vs-recompute price at the measured prefill time,
-     kernel launches on each path, and one JSON line listing every ported
+     the mesh path's wall, TTFT and next-token latency beside a warm
+     single-device run on the same backend, the CUDA-event time of every
+     decode step's gather (the plan's collective seconds) beside its bound,
+     its link-tax line and peak memory, kernel launches on each path, and one JSON line listing every ported
      kernel, with its launches summed over the paths it runs on. The last
      line is the device JSON.
 
@@ -1630,6 +1640,151 @@ def phase_rag(torch, np, model, params, cfg) -> dict:
     return out
 
 
+# the mesh path: Llama2-7B on a dp=2 mesh of logical shards on the card
+# (ShardedPlan: the weights at rest in two chunks a leaf, gathered before
+# every decode step and prefill call), 2 slots so each shard holds one, the
+# slot path's waves, first on the slot backend and then on the paged
+# backend with gather decode (a mesh runs no kernel decode, as in the
+# reference). Tokens must equal the single-device engine's on the same
+# backend and waves, and each request's solo run on the same mesh engine.
+MESH = "dp=2"
+MESH_BACKENDS = {"slot": ENGINE_KW,
+                 "paged-gather": dict(PAGED_KW, kv_decode="gather")}
+
+
+def mesh_serve(Engine, TrustDomain, model, params, specs, gen, kw, mesh):
+    """The waves on one engine (a mesh engine when ``mesh``), recording in
+    order each whole-slot seal ("seal", rid, sealed names) and restore
+    ("restore", rid, slot) and counting decode steps. Returns (engine,
+    requests, stats, wall seconds, events, decode steps)."""
+    import torch
+    eng = Engine(model, params, trust_domain=TrustDomain("tdx"), mesh=mesh,
+                 **kw)
+    events, steps = [], [0]
+    seal_slot, restore_slot, decode = (eng.seal_slot, eng.restore_slot,
+                                       eng.kv.decode)
+
+    def sealing(slot, **k):
+        sealed, req = seal_slot(slot, **k)
+        events.append(("seal", req.rid, sorted(sealed)))
+        return sealed, req
+
+    def restoring(sealed, req, **k):
+        slot = restore_slot(sealed, req, **k)
+        events.append(("restore", req.rid, slot))
+        return slot
+
+    def decoding(*a, **k):
+        steps[0] += 1
+        return decode(*a, **k)
+
+    eng.seal_slot, eng.restore_slot, eng.kv.decode = (sealing, restoring,
+                                                      decoding)
+    t0 = time.perf_counter()
+    reqs, stats = serve_waves(eng, specs, gen)
+    torch.cuda.synchronize()
+    return eng, reqs, stats, time.perf_counter() - t0, events, steps[0]
+
+
+def phase_mesh(torch, np, model, params, specs, gen, slot_outputs) -> dict:
+    """The mesh path on each of MESH_BACKENDS, every kernel count set to 0
+    just before each engine is built. A warm single-device run on the same
+    backend just before it gives the times to compare with, and the
+    paged-gather backend's tokens (the slot backend's are the slot path's,
+    ``slot_outputs``)."""
+    from repro_torch.core import TrustDomain
+    from repro_torch.core.overheads import measured_link_tax
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.runtime import Engine, ShardedKVBackend
+
+    # half of every weight but the norms: what a dp=2 gather moves into
+    # one shard
+    expect_b = sum(t.numel() * t.element_size()
+                   for name, t in tree_leaves_with_names(params)
+                   if not name.endswith("['scale']")) // 2
+    out = {}
+    for label, kw in MESH_BACKENDS.items():
+        eng, reqs, stats, wall, *_ = mesh_serve(
+            Engine, TrustDomain, model, params, specs, gen, kw, None)
+        single = dict(outputs=[list(r.output) for r in reqs], stats=stats,
+                      wall_s=wall)
+        del eng
+        if label == "slot":
+            check(single["outputs"] == slot_outputs, "mesh path: the warm "
+                  "single-device slot run repeats the slot path's tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # ---- the mesh path on this backend: counts start at 0 here -------
+        reset_counts(C, P, Q, FA)
+        eng, reqs, stats, wall, events, steps = mesh_serve(
+            Engine, TrustDomain, model, params, specs, gen, kw, MESH)
+        launches = path_launches()
+        peak = torch.cuda.max_memory_allocated()
+        # ---- end of the mesh path ------------------------------------------
+        want = slot_outputs if label == "slot" else single["outputs"]
+        outputs = [list(r.output) for r in reqs]
+        check(isinstance(eng.kv, ShardedKVBackend) and eng.plan.dp == 2,
+              f"mesh {label}: the engine spans a dp=2 plan")
+        check(all(r.finished for r in reqs) and stats.preemptions > 0,
+              f"mesh {label}: every request finished, after a preemption")
+        check(outputs == want, f"mesh {label}: tokens bit-equal to the "
+              f"single-device engine's ({outputs} vs {want})")
+        check(launches["chacha20_xor_blocked"] > 0,
+              f"mesh {label}: B1 ran under the seals and unseals")
+        check(sum(launches.values()) == launches["chacha20_xor_blocked"],
+              f"mesh {label}: no kernel but B1 ran ({launches})")
+        names = [n for kind, _, ns in events if kind == "seal" for n in ns]
+        check(names and all(n.startswith("kvslot/")
+                            and n.endswith(("/s0", "/s1")) for n in names),
+              f"mesh {label}: every sealed kvslot/ name ends in /s0 or /s1")
+        # 2 slots over dp=2: slot i is shard i
+        sealed_on, crossed = {}, []
+        for kind, rid, what in events:
+            if kind == "seal":
+                sealed_on[rid] = what[0][-3:]
+            elif sealed_on[rid] != f"/s{what}":
+                crossed.append(rid)
+        check(bool(crossed), f"mesh {label}: a victim was restored onto the "
+              f"other shard from the one it was sealed on ({events})")
+        ch = eng.td.channel.stats
+        per_step = ch.collective_bytes // max(ch.collective_steps, 1)
+        check(ch.collective_steps == steps,
+              f"mesh {label}: collective_steps {ch.collective_steps} == "
+              f"{steps} decode steps")
+        check(per_step == eng.plan.collective_bytes_per_step == expect_b
+              and ch.collective_bytes == steps * expect_b,
+              f"mesh {label}: {per_step} collective B/step == half the "
+              f"non-norm weights ({expect_b} B)")
+        check(ch.collective_s > 0, f"mesh {label}: collective_s measured")
+        moved = eng.params.sharded_bytes
+        _, _, link_line = measured_link_tax(ch, "tdx",
+                                            stats.mean_latency_s or 1e-3)
+        # solo runs on the same mesh engine (comparison only)
+        for i, spec in enumerate(specs):
+            r = eng.submit(gen(spec))
+            eng.run(max_steps=10_000)
+            check(list(r.output) == want[i], f"mesh {label}: request {i} "
+                  f"equals its solo run on the mesh engine")
+        out[label] = dict(stats=stats, wall_s=wall, launches=launches,
+                          peak=peak, steps=steps, per_step=per_step,
+                          gather_ms=ch.collective_s_per_step * 1e3,
+                          moved=moved,
+                          gather_bound_ms=2 * moved / HBM_BYTES_PER_S * 1e3,
+                          link=link_line,
+                          seals=sum(k == "seal" for k, _, _ in events),
+                          crossed=len(crossed), describe=eng.plan.describe(),
+                          single=single)
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def reset_counts(*kernels) -> None:
     for K in kernels:
         K.reset_launches()
@@ -1822,6 +1977,18 @@ def phase_serve(torch, np) -> dict:
           f"prompt (B3 at this table checked against plain above)")
     gc.collect()
     torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    ms = phase_mesh(torch, np, model, unsealed, specs, gen, outputs)
+    path_s["mesh"] = time.perf_counter() - t_path
+    print(f"  mesh path: {len(specs)} requests on a {MESH} mesh per backend "
+          f"({', '.join(ms)}); tokens bit-equal to the single-device "
+          f"engine's and to each request's solo run on the mesh engine; "
+          f"every sealed name tagged /s0 or /s1; victims restored onto the "
+          f"other shard: "
+          + ", ".join(f"{label} {r['crossed']} of {r['seals']}"
+                      for label, r in ms.items())
+          + "; collective bytes a step equal the plan's half of the "
+            "non-norm weights")
 
     # one decode step's logits: paged-kernel path vs slot path, same cache
     from repro_torch.runtime.kvcache import make_backend
@@ -1897,7 +2064,7 @@ def phase_serve(torch, np) -> dict:
                 logit_err=logit_err,
                 kv_decode_s=kv_decode_s, kv_positions=kv_positions,
                 share=sh, store=st, two_phase=tp, fleet=fl, rag=rg,
-                path_s=path_s)
+                mesh=ms, path_s=path_s)
 
 
 # the families path: one model of each family beyond dense, at its published
@@ -2675,6 +2842,27 @@ def main() -> int:
           + ", ".join(str(n) for n in rg["prompt_len"])
           + f" tokens); hits {rg['hits']}")
     print(f"  launches on the RAG path: {rg['launches']}")
+    card = f"[{smi}]"
+    for label, r in sv["mesh"].items():
+        ms_ = r["stats"]
+        one, one_s = r["single"]["stats"], r["single"]["wall_s"]
+        print(f"  mesh path, {label} ({r['describe']}): "
+              f"{ms_.total_requests} requests / {ms_.total_tokens} tokens in "
+              f"{r['wall_s']:.2f}s wall (one device {one_s:.2f}s); "
+              f"next-token p50 {ms_.p50_latency_s * 1e3:.2f} ms (one device "
+              f"{one.p50_latency_s * 1e3:.2f} ms); TTFT p50 "
+              f"{ms_.p50_ttft_s * 1e3:.2f} ms (one device "
+              f"{one.p50_ttft_s * 1e3:.2f} ms); {r['steps']} decode steps, "
+              f"{ms_.preemptions} preemptions {card}")
+        print(f"    gather of {r['moved']} B a step: {r['gather_ms']:.4f} ms "
+              f"(CUDA events on every decode step's gather, mean) vs a "
+              f"{r['gather_bound_ms']:.4f} ms bound (2 x bytes / HBM); "
+              f"{r['per_step']} collective B/step {card}")
+        print(f"    link-tax [{MESH}, tdx]: {r['link']} [measured: the "
+              f"gather's copy in device memory, one card, no link] {card}")
+        print(f"    peak device memory {r['peak']} B (the caller's unsealed "
+              f"weights, the chunks, the gather buffers); launches "
+              f"{r['launches']} {card}")
     print(f"  sampler vs the decode step: sample() {sp['ms']:.4f} ms device "
           f"/ {sp['host_ms']:.4f} ms with host issue, beside a 2-row "
           f"decode_step of {sv['decode_s'] * 1e3:.2f} ms (host clock)")
@@ -2697,6 +2885,7 @@ def main() -> int:
         + f"; summed {fam_launches}")
     later = [sh["launches"], st_["launches"], fl["launches"],
              rg["launches"], fam_launches] + [
+        r["launches"] for r in sv["mesh"].values()] + [
         r["launches"] for r in sv["two_phase"]["modes"].values()]
     pl = {k: v + sum(x[k] for x in later)
           for k, v in sv["paged_launches"].items()}
@@ -2704,7 +2893,7 @@ def main() -> int:
                    + qp["launches"]["chacha20_xor_blocked"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
           f"{b1_launches} (slot, paged, sharing, store, two-phase, fleet, "
-          f"RAG, families, int8), B3 {pl['paged_attention']} (paged, "
+          f"RAG, mesh, families, int8), B3 {pl['paged_attention']} (paged, "
           f"sharing, store, two-phase, fleet, RAG, chameleon) and B4 "
           f"{pl['paged_attention_unseal']} (paged, sharing, store, "
           f"two-phase, fleet, chameleon)")

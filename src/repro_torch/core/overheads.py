@@ -31,11 +31,11 @@ forward-looking TPU estimate (B100-style: HBM + ICI encryption on by
 default), used for the confidential roofline in EXPERIMENTS.md.
 
 Port note: ``fused_unseal_savings`` and ``store_restore_savings`` price
-device-memory traffic at the H100's rate, :data:`HBM_BYTES_PER_S`, read
-when they are called, where the reference used its TPU roofline constant;
-with that constant set to the reference's rate they return the reference's
-floats. ``measured_link_tax`` serves the mesh path this package
-does not have yet (ROADMAP.md queue A, item 18); it is not copied.
+device-memory traffic at the H100's rate, :data:`HBM_BYTES_PER_S`, and
+``measured_link_tax`` prices its closed-form collective term at the H100's
+link rate, :data:`LINK_BYTES_PER_S`, each read when the function is called,
+where the reference used its TPU roofline constants; with those constants
+set to the reference's rates they return the reference's floats.
 """
 
 from __future__ import annotations
@@ -45,6 +45,9 @@ from typing import Dict, Optional
 
 # H100 SXM device-memory rate (NVIDIA data sheet), the card the port runs on
 HBM_BYTES_PER_S = 3.35e12
+# H100 SXM NVLink 4 bandwidth (NVIDIA H100 data sheet: 900 GB/s a GPU, the
+# sum over its 18 links in both directions)
+LINK_BYTES_PER_S = 900e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,9 +176,39 @@ def predict(terms: RooflineTerms, profile: str | TEEProfile,
 # when no per-term measurement exists (launchers' standing estimate for a
 # decode-bound serving point: mostly memory, some compute, the remainder
 # collective/boundary). One definition: serve.py's modeled-overhead block
-# prices from this split.
+# and measured_link_tax price from this split.
 STEP_COMPUTE_FRACTION = 0.3
 STEP_MEMORY_FRACTION = 0.65
+
+
+def measured_link_tax(channel_stats, profile: str, step_s: float
+                      ) -> "tuple[OverheadBreakdown, OverheadBreakdown, str]":
+    """Measured-vs-modeled link-tax comparison for a mesh engine.
+
+    ``channel_stats`` is a :class:`~repro_torch.core.bounce.ChannelStats`
+    (duck-typed): its ``collective_bytes``/``collective_steps`` give the
+    per-step gather volume, priced once through the closed-form estimate
+    (bytes / :data:`LINK_BYTES_PER_S`) and once through the *measured*
+    per-step collective time (``collective_s_per_step``, the plan's timed
+    gathers). ``step_s`` is the observed decode-step latency the
+    compute/memory terms are apportioned from (the launcher's standing
+    0.3/0.65 split). Returns (modeled, measured, report line)."""
+    steps = max(channel_stats.collective_steps, 1)
+    per_step_b = channel_stats.collective_bytes // steps
+    modeled_s = per_step_b / LINK_BYTES_PER_S
+    measured_s = channel_stats.collective_s_per_step
+    terms = RooflineTerms(compute_s=STEP_COMPUTE_FRACTION * step_s,
+                          memory_s=STEP_MEMORY_FRACTION * step_s,
+                          collective_s=modeled_s)
+    modeled = predict(terms, profile)
+    measured = predict(terms, profile, collective_s=measured_s)
+    line = (f"{per_step_b} collective B/step over "
+            f"{channel_stats.collective_steps} steps; collective_s modeled "
+            f"{modeled_s * 1e6:.1f}us vs measured {measured_s * 1e6:.1f}us "
+            f"-> TEE overhead {modeled.overhead * 100:.2f}% vs "
+            f"{measured.overhead * 100:.2f}% "
+            f"(delta {(measured.overhead - modeled.overhead) * 100:+.2f} pts)")
+    return modeled, measured, line
 
 
 def sweep_batch(profile: str, compute_per_token_s: float, memory_s: float,

@@ -29,8 +29,14 @@ release, prompt envelopes) and an orchestrator (``--placement`` policy,
 ``--tenants M`` round-robin tenancy). ``--kill-worker-at STEP`` fails the
 busiest worker mid-serve; its sealed KV migrates to a survivor under the
 per-tenant key domains and every in-flight request still finishes with the
-same tokens. The workers share one copy of the weights on the device. The
-reference's mesh flag is not ported yet (ROADMAP.md queue A item 18).
+same tokens. The workers share one copy of the weights on the device.
+
+``--mesh dp=N`` spans the engine over N logical data shards on the one
+device (``ShardedPlan``): the weights sit at rest in per-shard chunks and
+are gathered every decode step, and the report adds the measured-vs-modeled
+``link-tax`` line. On one device the measured term is that gather's copy in
+device memory, not a transfer over a link. ``tp=M`` with M > 1 is not ported (ROADMAP.md queue A
+item 21).
 """
 
 from __future__ import annotations
@@ -45,11 +51,12 @@ from repro_torch.core import RooflineTerms, TrustDomain
 from repro_torch.core.overheads import (STEP_COMPUTE_FRACTION,
                                         STEP_MEMORY_FRACTION,
                                         fused_unseal_savings,
+                                        measured_link_tax,
                                         store_restore_savings)
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.runtime import (Engine, FramePolicy, GenerationRequest,
-                                 SamplingParams)
+                                 SamplingParams, parse_mesh)
 
 
 def parse_buckets(spec: str):
@@ -262,6 +269,10 @@ def main(argv=None):
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     metavar="K",
                     help="give every generated prompt the same K-token head")
+    ap.add_argument("--mesh", default=None, metavar="dp=N[,tp=M]",
+                    help="span the engine over N logical data shards on the "
+                         "device (weights gathered every step) and report "
+                         "the measured link tax")
     ap.add_argument("--continuous-batching", action="store_true",
                     help="step-level continuous batching: prefill admissions "
                          "interleave into decode steps under a per-step "
@@ -305,6 +316,18 @@ def main(argv=None):
     if args.page_store:
         # the store is the tier behind the content index: it needs page keys
         args.prefix_sharing = True
+    if args.workers and args.mesh is not None:
+        raise SystemExit("--workers (fleet mode) and --mesh are mutually "
+                         "exclusive: a mesh spans one engine")
+    if args.mesh is not None:
+        dp, _ = parse_mesh(args.mesh)
+        padded = args.slots + (-args.slots) % dp
+        if padded != args.slots:
+            # a batch that does not divide maps every row to shard 0: pad
+            # instead so the sharded run really spans the shards
+            print(f"[mesh] rounding --slots {args.slots} up to {padded} "
+                  f"(a dp={dp} mesh shards whole slots per data-shard)")
+            args.slots = padded
     device = resolve_device(args.device)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -327,8 +350,10 @@ def main(argv=None):
         print(f"[{args.tee}] attested; model digest bound "
               f"({quote.measurement[:16]}...)")
 
-    engine = Engine(model, params, trust_domain=td,
+    engine = Engine(model, params, trust_domain=td, mesh=args.mesh,
                     **engine_kwargs(args, device))
+    if args.mesh is not None:
+        print(f"[mesh] engine spans {engine.plan.describe()}")
     t0 = time.monotonic()
     for epoch in range(max(args.epochs, 1)):
         pages0 = getattr(engine.kv, "pages_written", 0)
@@ -402,6 +427,17 @@ def main(argv=None):
             engine.kv.store_restored_pages, engine.kv.store_restored_bytes,
             engine.kv.store_restored_pages * engine.kv.page_size, profile)
         print(line)
+    if args.mesh is not None:
+        # measured-vs-modeled encrypted-interconnect (link_tax) comparison:
+        # same roofline terms, collective time once from the closed form
+        # (bytes / the card's link rate) and once from the plan's timed
+        # gathers, which on one device copy the weights in device memory
+        profile = args.tee if td.confidential else "cgpu"
+        _, _, line = measured_link_tax(ch, profile,
+                                       stats.mean_latency_s or 1e-3)
+        print(f"link-tax [{args.mesh}, {profile}]: {line} [measured: the "
+              f"weight gather's copy in device memory, one device, no "
+              f"link]")
     if td.confidential:
         print(f"boundary: {ch}")
         print(f"frame coalescing: {ch.messages_out} egress frames / "

@@ -1,6 +1,7 @@
 """Serving runtime (port of ``repro.runtime``): request-object API, engine,
-compute plans, slot and paged KV backends, the sealed-page store,
-scheduler, seeded sampling.
+compute plans (one device, or a mesh of data shards on it), slot and
+paged KV backends with the per-shard sealing wrapper, the sealed-page
+store, scheduler, seeded sampling.
 
 Typical use::
 
@@ -17,10 +18,12 @@ from repro_torch.runtime.api import (FINISH_ABORTED, FINISH_DROPPED,
                                      GenerationRequest, RequestOutput,
                                      SamplingParams)
 from repro_torch.runtime.engine import Engine
-from repro_torch.runtime.kvcache import (KVBackend, SlotDenseBackend,
-                                         SlotState, make_backend)
+from repro_torch.runtime.kvcache import (KVBackend, ShardedKVBackend,
+                                         SlotDenseBackend, SlotState,
+                                         make_backend)
 from repro_torch.runtime.pagestore import SealedPageStore
-from repro_torch.runtime.plan import PrefillOnlyPlan, SingleDevicePlan
+from repro_torch.runtime.plan import (PrefillOnlyPlan, ShardedPlan,
+                                      SingleDevicePlan, parse_mesh)
 from repro_torch.runtime.scheduler import (Request, Scheduler, ServeStats,
                                            stats_from_requests)
 
@@ -28,7 +31,9 @@ __all__ = [
     "FINISH_ABORTED", "FINISH_DROPPED", "FINISH_LENGTH", "FINISH_REJECTED",
     "FINISH_STOP",
     "FramePolicy", "GenerationRequest", "RequestOutput", "SamplingParams",
-    "Engine", "KVBackend", "SlotDenseBackend", "SlotState", "make_backend",
-    "PrefillOnlyPlan", "SealedPageStore", "SingleDevicePlan",
+    "Engine", "KVBackend", "ShardedKVBackend", "SlotDenseBackend",
+    "SlotState", "make_backend",
+    "PrefillOnlyPlan", "SealedPageStore", "ShardedPlan", "SingleDevicePlan",
+    "parse_mesh",
     "Request", "Scheduler", "ServeStats", "stats_from_requests",
 ]

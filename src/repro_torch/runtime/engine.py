@@ -1,4 +1,4 @@
-"""Inference engine, single plan (port of ``repro.runtime.engine``).
+"""Inference engine (port of ``repro.runtime.engine``).
 
 Dataflow per the paper's protected stack:
   prompt --(encrypted bounce buffer)--> bucketed batched prefill(slots)
@@ -43,8 +43,15 @@ Fleet drain and migration: :meth:`Engine.drain` stops new submissions,
 :meth:`Engine.export_sealed_state` seals every live request out under a
 caller-chosen key (a fleet tenant's key domain) in a caller-named nonce
 namespace, and :meth:`Engine.import_sealed_state` adopts another engine's
-export. Not ported yet (raises ``NotImplementedError``): meshes (ROADMAP.md
-queue A item 18).
+export.
+
+Meshes: ``Engine(mesh="dp=N")`` (or a ready plan, ``plan=``) runs on a
+:class:`~repro_torch.runtime.plan.ShardedPlan`, N logical data shards on the
+engine's device: the weights sit at rest in per-shard chunks and are
+gathered every step, each step's gather is counted into
+``ChannelStats.collective_*``, and the KV backend is wrapped by
+:class:`~repro_torch.runtime.kvcache.ShardedKVBackend`, so sealed names carry
+the row's ``/s{shard}`` tag. Tokens are the single-device engine's.
 """
 
 from __future__ import annotations
@@ -69,7 +76,8 @@ from repro_torch.runtime.api import (FINISH_ABORTED, GenerationRequest,
 from repro_torch.runtime.kvcache import (KVBackend, SlotState, host_upload,
                                          make_backend, next_pow2,
                                          tail_blob_names)
-from repro_torch.runtime.plan import PrefillOnlyPlan, SingleDevicePlan
+from repro_torch.runtime.plan import (PrefillOnlyPlan, ShardedPlan,
+                                      SingleDevicePlan)
 from repro_torch.runtime.scheduler import Request, Scheduler, ServeStats
 
 Params = Any
@@ -143,11 +151,6 @@ class _RateBucket:
         self.level -= float(n)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A item {item})")
-
-
 class Engine:
     def __init__(self, model: Model, params: Params, *, max_slots: int = 4,
                  max_len: int = 512, trust_domain: Optional[TrustDomain] = None,
@@ -163,6 +166,7 @@ class Engine:
                  page_store: Any = None,
                  store_budget_pages: Optional[int] = None,
                  mesh: Optional[str] = None,
+                 plan: Optional[SingleDevicePlan] = None,
                  admission_order: str = "slack",
                  continuous_batching: bool = False,
                  step_tokens: Optional[int] = None,
@@ -195,16 +199,22 @@ class Engine:
         ``handoff_batch``) are the two-phase modes of the module docstring;
         they exclude each other. ``reject_infeasible`` refuses at ingest a
         request whose ``deadline_s`` is provably unmeetable at the fastest
-        observed (or ``step_time_hint_s``) step time. A mesh raises
-        ``NotImplementedError``."""
-        if mesh is not None:
-            raise _not_ported("a mesh-spanning engine", 18)
+        observed (or ``step_time_hint_s``) step time. ``mesh`` (``"dp=N"``)
+        spans the engine over N logical data shards on its device (see the
+        module docstring); ``"tp=M"`` with M > 1 raises
+        ``NotImplementedError``. Equivalently pass a ready plan as
+        ``plan``."""
+        if plan is not None and mesh is not None:
+            raise ValueError("pass mesh= or plan=, not both")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
         self.model = model
-        self.plan = SingleDevicePlan(model)
+        if plan is None:
+            plan = (ShardedPlan.from_spec(model, mesh) if mesh is not None
+                    else SingleDevicePlan(model))
+        self.plan = plan
         self.params = self.plan.place_params(params)
         self.max_slots = max_slots
         self.max_len = max_len
@@ -1087,6 +1097,11 @@ class Engine:
         state, kmax = self._sampling_state(steps)
         next_np = self.kv.decode(self.params, self._last_token, state, kmax,
                                  write_slots=live)
+        # a mesh plan's weight gathers: bytes from its placement, seconds as
+        # each took (one device drains nothing)
+        n, cb, cs = self.plan.drain_collectives()
+        if n:
+            self.td.record_collective(cb, cs, steps=n)
         produced = 0
         for slot in live:
             if not self._active_mask[slot] or slot in self._paused:
@@ -1202,11 +1217,12 @@ class Engine:
         try:
             self.kv.restore(key, sealed, slot, prefix, req.kv_need)
             # a sealed-while-paused eviction carries its earlier tail blob
-            # under an older epoch prefix: graft it back on top of the
-            # remainder (acquire() above already reserved the full need)
-            for gprefix in tail_blob_names(sealed):
+            # under an older epoch prefix (and, under a mesh, shard
+            # suffix): graft it back on top of the remainder (acquire()
+            # above already reserved the full need)
+            for gprefix, gsuffix in tail_blob_names(sealed):
                 self.kv.restore_tail_pages(key, sealed, slot, gprefix,
-                                           reserve=False)
+                                           reserve=False, suffix=gsuffix)
         except Exception:
             self.kv.release(slot)   # a failed (e.g. tampered or
             raise                   # cross-tenant) restore must not leak

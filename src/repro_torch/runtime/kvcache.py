@@ -6,8 +6,10 @@ cache, one slot per in-flight sequence, and seals whole slots. The paged
 layout (:class:`~repro_torch.runtime.paged.PagedKVBackend`) keeps a page
 pool and a page table, seals per page, can evict a victim's tail pages
 only, and (``prefix_sharing=True``) maps equal prompt prefixes onto shared
-pages with copy-on-write and step-time page grants. The page store and the
-sharded wrapper arrive with ROADMAP.md queue A items 11 and 18.
+pages with copy-on-write and step-time page grants. On a mesh
+(:class:`~repro_torch.runtime.plan.ShardedPlan`) either layout is wrapped by
+:class:`ShardedKVBackend`, which tags every sealed name with the shard the
+slot's row belongs to (``/s{shard}``).
 
 Cache trees follow the model layout contract: top-level key "pos" is
 batch-major [b]; every other leaf is layer-stacked with batch at axis 1
@@ -397,7 +399,7 @@ class KVBackend:
         return []
 
     def discard_sealed(self, key: SealingKey, sealed: Dict[str, SealedTensor],
-                       prefix: str) -> None:
+                       prefix: str, suffix: str = "") -> None:
         """A sealed dict is spent (restored in full, or dropped unrestored
         by a deadline abort): release the references it holds (shared-page
         sealed refcounts on the sharing backend). Default: nothing."""
@@ -414,15 +416,18 @@ class KVBackend:
         raise NotImplementedError
 
     # -- sealing --------------------------------------------------------------
-    def seal(self, key: SealingKey, slot: int,
-             prefix: str) -> Dict[str, SealedTensor]:
+    def seal(self, key: SealingKey, slot: int, prefix: str,
+             suffix: str = "") -> Dict[str, SealedTensor]:
         """Encrypt slot ``slot``'s KV for eviction across the trust boundary.
         ``prefix`` must be unique per (stream, seal epoch) — it derives the
-        nonces. Does NOT release the slot."""
+        nonces; ``suffix`` lands after the leaf path in every name (the
+        sharded wrapper's per-shard ``/s{shard}`` tag). Does NOT release the
+        slot."""
         raise NotImplementedError
 
     def restore(self, key: SealingKey, sealed: Dict[str, SealedTensor],
-                slot: int, prefix: str, n_tokens: int) -> None:
+                slot: int, prefix: str, n_tokens: int,
+                suffix: str = "") -> None:
         """Inverse of :meth:`seal` into freshly-acquired slot ``slot``."""
         raise NotImplementedError
 
@@ -457,24 +462,91 @@ class SlotDenseBackend(KVBackend):
             state, kmax)
         return next_tokens.cpu().numpy()
 
-    def seal(self, key, slot, prefix) -> Dict[str, SealedTensor]:
-        return seal_tree(key, extract_slot(self.cache, slot), prefix=prefix)
+    def seal(self, key, slot, prefix, suffix="") -> Dict[str, SealedTensor]:
+        return seal_tree(key, extract_slot(self.cache, slot), prefix=prefix,
+                         suffix=suffix)
 
-    def restore(self, key, sealed, slot, prefix, n_tokens) -> None:
+    def restore(self, key, sealed, slot, prefix, n_tokens,
+                suffix="") -> None:
         single_like = self.model.abstract_cache(1, self.max_len)
         insert_slot(self.cache, unseal_tree(key, sealed, single_like,
-                                            prefix=prefix), slot)
+                                            prefix=prefix, suffix=suffix),
+                    slot)
 
 
-_PAGEMETA_RE = re.compile(r"^(?P<prefix>.*)/pagemeta$")
+# sealed-name anatomy for the shard tag and partial-eviction meta blobs
+_SUFFIX_RE = re.compile(r"/s(\d+)$")
+_PAGEMETA_RE = re.compile(r"^(?P<prefix>.*)/pagemeta(?P<suffix>/s\d+)?$")
 
 
-def tail_blob_names(sealed: Dict[str, SealedTensor]) -> List[str]:
-    """The prefix of every partial-eviction tail blob riding in a sealed
-    dict (a paused victim that was whole-sealed carries its earlier tail
-    under its own epoch prefix). The reference also returns a mesh shard
-    suffix; meshes are not ported (ROADMAP.md queue A item 18)."""
-    return [m.group("prefix") for m in map(_PAGEMETA_RE.match, sealed) if m]
+def tail_blob_names(sealed: Dict[str, SealedTensor]
+                    ) -> List[Tuple[str, str]]:
+    """(prefix, suffix) of every partial-eviction tail blob riding in a
+    sealed dict (a paused victim that was whole-sealed carries its earlier
+    tail under its own epoch prefix and, under a mesh, shard suffix)."""
+    return [(m.group("prefix"), m.group("suffix") or "")
+            for m in map(_PAGEMETA_RE.match, sealed) if m]
+
+
+class ShardedKVBackend:
+    """Mesh wrapper around either layout: compute and placement live in the
+    backend's :class:`~repro_torch.runtime.plan.ShardedPlan`; the wrapper
+    keeps *sealing* correct per shard. Every seal gains a ``/s{shard}`` name
+    suffix recording which data shard the slot's row belongs to (hosts
+    sealing under one prefix stay in disjoint nonce namespaces), and
+    restore recovers the tag from the sealed names themselves, so a
+    preemption round-trips bit for bit even when the sequence re-lands on
+    another shard. Everything else delegates to the wrapped backend."""
+
+    def __init__(self, inner: KVBackend):
+        self.inner = inner
+        if not inner.plan.is_sharded:
+            raise ValueError("ShardedKVBackend wants a backend built on a "
+                             "ShardedPlan")
+
+    def __getattr__(self, attr):
+        return getattr(self.inner, attr)
+
+    def _suffix_for(self, slot: int) -> str:
+        shard = self.inner.plan.shard_of_slot(slot, self.inner.max_slots)
+        return f"/s{shard}"
+
+    @staticmethod
+    def _detect_suffix(sealed: Dict[str, SealedTensor], prefix: str) -> str:
+        for name in sealed:
+            if name.startswith(prefix):
+                m = _SUFFIX_RE.search(name)
+                if m:
+                    return m.group(0)
+        return ""
+
+    def seal(self, key, slot, prefix, suffix=None, detach=False):
+        kw = {"detach": detach} if detach else {}
+        return self.inner.seal(key, slot, prefix,
+                               suffix=suffix or self._suffix_for(slot), **kw)
+
+    def restore(self, key, sealed, slot, prefix, n_tokens, suffix=None):
+        if suffix is None:
+            suffix = self._detect_suffix(sealed, prefix)
+        return self.inner.restore(key, sealed, slot, prefix, n_tokens,
+                                  suffix=suffix)
+
+    def seal_tail_pages(self, key, slot, prefix, n_pages, suffix=None):
+        return self.inner.seal_tail_pages(
+            key, slot, prefix, n_pages,
+            suffix=suffix or self._suffix_for(slot))
+
+    def restore_tail_pages(self, key, sealed, slot, prefix, reserve=True,
+                           suffix=None):
+        if suffix is None:
+            suffix = self._detect_suffix(sealed, prefix)
+        return self.inner.restore_tail_pages(key, sealed, slot, prefix,
+                                             reserve=reserve, suffix=suffix)
+
+    def discard_sealed(self, key, sealed, prefix, suffix=None):
+        if suffix is None:
+            suffix = self._detect_suffix(sealed, prefix)
+        return self.inner.discard_sealed(key, sealed, prefix, suffix=suffix)
 
 
 def make_backend(kind: str, model, *, max_slots: int, max_len: int,
@@ -485,7 +557,8 @@ def make_backend(kind: str, model, *, max_slots: int, max_len: int,
                  decode: str = "gather",
                  page_store: Any = None,
                  store_budget_pages: Optional[int] = None) -> KVBackend:
-    """Factory behind ``Engine(kv_backend=...)``. ``prefix_sharing``,
+    """Factory behind ``Engine(kv_backend=...)``. With a sharded ``plan``
+    the chosen layout is wrapped for per-shard sealing. ``prefix_sharing``,
     ``alloc``, ``decode`` and ``page_store`` are paged-only."""
     if kind == "slot":
         if (prefix_sharing or alloc is not None or decode != "gather"
@@ -494,13 +567,18 @@ def make_backend(kind: str, model, *, max_slots: int, max_len: int,
                              "page_store need kv_backend='paged' (the dense "
                              "slot layout has no pages to share, grant, "
                              "table-walk, or store)")
-        return SlotDenseBackend(model, max_slots, max_len, plan)
-    if kind == "paged":
+        kv: KVBackend = SlotDenseBackend(model, max_slots, max_len, plan)
+    elif kind == "paged":
         from repro_torch.runtime.paged import PagedKVBackend
-        return PagedKVBackend(model, max_slots, max_len,
-                              page_size=page_size, num_pages=num_pages,
-                              plan=plan, prefix_sharing=prefix_sharing,
-                              alloc=alloc, decode=decode,
-                              page_store=page_store,
-                              store_budget_pages=store_budget_pages)
-    raise ValueError(f"unknown kv backend {kind!r} (want 'slot' or 'paged')")
+        kv = PagedKVBackend(model, max_slots, max_len,
+                            page_size=page_size, num_pages=num_pages,
+                            plan=plan, prefix_sharing=prefix_sharing,
+                            alloc=alloc, decode=decode,
+                            page_store=page_store,
+                            store_budget_pages=store_budget_pages)
+    else:
+        raise ValueError(
+            f"unknown kv backend {kind!r} (want 'slot' or 'paged')")
+    if kv.plan.is_sharded:
+        return ShardedKVBackend(kv)   # type: ignore[return-value]
+    return kv

@@ -34,8 +34,9 @@ runs it, and writes the one appended position back into the pool in place.
 ``"kernel"`` runs the dense family's layer loop itself and attends through
 ``kernels/paged_attention.py`` (kernels B3 and B4 on the card), which walk
 the page table without a gather: write-then-attend, as the gather path. It
-takes one uniform attn + swiglu block (the dense and vlm families) and
-refuses any other model, as the reference does.
+takes one uniform attn + swiglu block (the dense and vlm families) on a
+single-device plan, and refuses any other model or a mesh, as the reference
+does.
 
 Sealing. Preemption seals per page: each private page of each paged leaf
 becomes its own ciphertext + MAC under ``{prefix}{leaf}/p{ordinal}``, with a
@@ -50,7 +51,9 @@ into the pool with a sidecar row (nonce + live flag); B4 decrypts it on
 every read. Any other reader of such a page (seal, partial eviction, an
 append) first materializes it: decrypts it in place through the ChaCha20
 kernel (B1). ``seal_tail_pages``/``restore_tail_pages`` evict and bring
-back a victim's (private) tail pages only.
+back a victim's (private) tail pages only. Under a mesh every sealed name
+ends in the slot's shard tag, ``/s{shard}`` (the ``suffix`` arguments,
+which :class:`~repro_torch.runtime.kvcache.ShardedKVBackend` fills in).
 
 Page store (``page_store=``). The persistent tier behind the content index
 (:mod:`repro_torch.runtime.pagestore`): parking's content-named ciphertext,
@@ -296,10 +299,15 @@ class PagedKVBackend(KVBackend):
 
     def _init_kernel_decode(self, model) -> None:
         """Kernel mode's gate, page geometry and fused-unseal eligibility:
-        the model must be one uniform attn + swiglu block (the reference's
-        gate, with its error), pages must cover whole ChaCha20 blocks and
-        be f32 or bf16, and every leaf must share one blocks-per-page (k
-        and v do)."""
+        the plan must be single-device and the model one uniform attn +
+        swiglu block (the reference's gates, with its errors), pages must
+        cover whole ChaCha20 blocks and be f32 or bf16, and every leaf must
+        share one blocks-per-page (k and v do)."""
+        if self.plan.is_sharded:
+            raise ValueError(
+                "decode='kernel' requires a single-device plan (the paged-"
+                "attention kernel reads the local pool; use decode='gather' "
+                "on meshes)")
         blocks_desc = getattr(model._impl, "blocks", None)
         if (not blocks_desc or len(blocks_desc) != 1
                 or blocks_desc[0][2] != [("attn", "swiglu")]):
@@ -792,14 +800,14 @@ class PagedKVBackend(KVBackend):
         return {kpath: pool[:, idx] for kpath, pool in self._pools.items()}
 
     def _seal_pages(self, key: SealingKey, prefix: str,
-                    ordinals: Sequence[int], phys: Sequence[int]
-                    ) -> Dict[str, SealedTensor]:
+                    ordinals: Sequence[int], phys: Sequence[int],
+                    suffix: str = "") -> Dict[str, SealedTensor]:
         sealed: Dict[str, SealedTensor] = {}
         if not ordinals:
             return sealed
         for kpath, arr in self._page_arrays(phys).items():
             for j, ordinal in enumerate(ordinals):
-                name = f"{prefix}{kpath}/p{ordinal}"
+                name = f"{prefix}{kpath}/p{ordinal}{suffix}"
                 sealed[name] = seal_tensor(key, name, arr[:, j])
         return sealed
 
@@ -810,7 +818,7 @@ class PagedKVBackend(KVBackend):
     def _unseal_meta(self, key: SealingKey, st: SealedTensor) -> np.ndarray:
         return unseal_tensor(key, st).cpu().numpy()
 
-    def seal(self, key, slot, prefix,
+    def seal(self, key, slot, prefix, suffix: str = "",
              detach: bool = False) -> Dict[str, SealedTensor]:
         self._seal_key_cache = key
         n_alloc = int(self._alloc[slot])
@@ -835,18 +843,18 @@ class PagedKVBackend(KVBackend):
             meta += [j, int(self._page_ref[p])]
             keys_cat += k
             self._sealed_refs[k] = self._sealed_refs.get(k, 0) + 1
-        meta_name = f"{prefix}/meta"
+        meta_name = f"{prefix}/meta{suffix}"
         sealed = {meta_name: self._seal_meta(key, meta_name, meta)}
         if shared:
-            keys_name = f"{prefix}/sharedkeys"
+            keys_name = f"{prefix}/sharedkeys{suffix}"
             sealed[keys_name] = seal_tensor(
                 key, keys_name, np.frombuffer(keys_cat, np.uint8),
                 device=self.device)
         sealed.update(self._seal_pages(
             key, prefix, private,
-            [int(self.table[slot, j]) for j in private]))
+            [int(self.table[slot, j]) for j in private], suffix))
         for kpath, leaf in self._dense.items():
-            name = f"{prefix}{kpath}"
+            name = f"{prefix}{kpath}{suffix}"
             sealed[name] = seal_tensor(key, name, leaf[:, slot:slot + 1])
         return sealed
 
@@ -856,16 +864,18 @@ class PagedKVBackend(KVBackend):
         return [cat[16 * i:16 * (i + 1)] for i in range(len(cat) // 16)]
 
     @torch.inference_mode()
-    def restore(self, key, sealed, slot, prefix, n_tokens) -> None:
+    def restore(self, key, sealed, slot, prefix, n_tokens,
+                suffix: str = "") -> None:
         # the reservation was re-made when the engine re-acquired the slot
         # (reserve mode); decrypt-then-commit: every MAC is verified before
         # any accounting state moves, so a tampered blob fails the restore
         # without leaking the slot, a page or a refcount.
         self._seal_key_cache = key
-        meta = self._unseal_meta(key, sealed[f"{prefix}/meta"])
+        meta = self._unseal_meta(key, sealed[f"{prefix}/meta{suffix}"])
         pos, n_alloc, n_shared = int(meta[0]), int(meta[1]), int(meta[2])
         shared_ords = [int(meta[3 + 2 * i]) for i in range(n_shared)]
-        keys = (self._shared_keys(key, sealed, f"{prefix}/sharedkeys")
+        keys = (self._shared_keys(key, sealed,
+                                  f"{prefix}/sharedkeys{suffix}")
                 if n_shared else [])
         shared_set = set(shared_ords)
         ords = [j for j in range(n_alloc) if j not in shared_set]
@@ -888,7 +898,7 @@ class PagedKVBackend(KVBackend):
         fused_blobs: Dict[int, Dict[str, SealedTensor]] = {}
         pages: Dict[int, Dict[str, torch.Tensor]] = {}
         for j in ords:
-            blobs = {kpath: sealed[f"{prefix}{kpath}/p{j}"]
+            blobs = {kpath: sealed[f"{prefix}{kpath}/p{j}{suffix}"]
                      for kpath in self._pools}
             if j in fused_set:
                 for st in blobs.values():
@@ -923,7 +933,8 @@ class PagedKVBackend(KVBackend):
                     f"shared page (ordinal {j}) is neither resident, "
                     f"parked, nor store-resident: sealed state references "
                     f"lost content")
-        dense_rows = {kpath: unseal_tensor(key, sealed[f"{prefix}{kpath}"])
+        dense_rows = {kpath: unseal_tensor(key,
+                                           sealed[f"{prefix}{kpath}{suffix}"])
                       for kpath in self._dense}
         # phase 2: commit: map, write, and account. Sealed references are
         # released by discard_sealed once the engine's whole restore
@@ -972,7 +983,7 @@ class PagedKVBackend(KVBackend):
             leaf[:, slot] = row[:, 0].to(leaf.device, leaf.dtype)
 
     def discard_sealed(self, key: SealingKey, sealed: Dict[str, SealedTensor],
-                       prefix: str) -> None:
+                       prefix: str, suffix: str = "") -> None:
         """Release a spent sealed dict's shared-content references (after a
         fully successful restore, or when a sealed-out request is dropped
         unrestored): parked ciphertext dies with its last reference, handed
@@ -980,7 +991,7 @@ class PagedKVBackend(KVBackend):
         ciphertext, and admission may already have discounted a waiting
         request against it; a membership no-op when the release path
         already published it)."""
-        name = f"{prefix}/sharedkeys"
+        name = f"{prefix}/sharedkeys{suffix}"
         if name not in sealed:
             return
         for k in self._shared_keys(key, sealed, name):
@@ -1021,7 +1032,8 @@ class PagedKVBackend(KVBackend):
         return max(0, min(trailing, n_alloc - 1))
 
     def seal_tail_pages(self, key: SealingKey, slot: int, prefix: str,
-                        n_pages: int) -> Dict[str, SealedTensor]:
+                        n_pages: int,
+                        suffix: str = "") -> Dict[str, SealedTensor]:
         """Seal and free the ``n_pages`` most recent pages of ``slot``: the
         pages and their reservation go back to the pool while the victim
         keeps its slot and head pages. It must not decode until
@@ -1039,10 +1051,10 @@ class PagedKVBackend(KVBackend):
                 f"trailing private pages)")
         ordinals = list(range(n_alloc - n_pages, n_alloc))
         phys = [int(p) for p in self.table[slot, ordinals]]
-        meta_name = f"{prefix}/pagemeta"
+        meta_name = f"{prefix}/pagemeta{suffix}"
         sealed = {meta_name: self._seal_meta(key, meta_name,
                                              [ordinals[0], n_pages])}
-        sealed.update(self._seal_pages(key, prefix, ordinals, phys))
+        sealed.update(self._seal_pages(key, prefix, ordinals, phys, suffix))
         self.table[slot, ordinals] = 0
         self._alloc[slot] = n_alloc - n_pages
         for p in phys:
@@ -1062,13 +1074,14 @@ class PagedKVBackend(KVBackend):
     @torch.inference_mode()
     def restore_tail_pages(self, key: SealingKey,
                            sealed: Dict[str, SealedTensor], slot: int,
-                           prefix: str, reserve: bool = True) -> int:
+                           prefix: str, reserve: bool = True,
+                           suffix: str = "") -> int:
         """Re-map and decrypt a partial eviction's pages into fresh physical
         pages; returns the page count. ``reserve=False`` skips re-reserving
         (the tail rides along a whole-slot restore whose ``acquire``
         already reserved the sequence's worst case)."""
         self._seal_key_cache = key
-        meta = self._unseal_meta(key, sealed[f"{prefix}/pagemeta"])
+        meta = self._unseal_meta(key, sealed[f"{prefix}/pagemeta{suffix}"])
         start, n_pages = int(meta[0]), int(meta[1])
         if reserve and not self.on_demand:
             assert self.can_restore_tail(n_pages), \
@@ -1078,7 +1091,7 @@ class PagedKVBackend(KVBackend):
         ordinals = list(range(start, start + n_pages))
         # decrypt first (MAC gate), then map and write
         pages = {j: {kpath: unseal_tensor(
-                        key, sealed[f"{prefix}{kpath}/p{j}"])
+                        key, sealed[f"{prefix}{kpath}/p{j}{suffix}"])
                      for kpath in self._pools}
                  for j in ordinals}
         writes = {}

@@ -1,25 +1,57 @@
-"""The engine's device-facing seam (port of ``repro.runtime.plan``, single
-device only).
+"""The engine's device-facing seam (port of ``repro.runtime.plan``).
 
 :class:`SingleDevicePlan` places the params on the model's device and hands
 back eager callables that run under ``torch.inference_mode()``; PyTorch has
 no ``jit`` step. :class:`PrefillOnlyPlan` is the prefill half of a
-disaggregated engine (``Engine(prefill_plan=...)``). ``ShardedPlan``
-(meshes) arrives with ROADMAP.md queue A item 18.
+disaggregated engine (``Engine(prefill_plan=...)``). :class:`ShardedPlan`
+spans a mesh of logical shards on one device (``Engine(mesh="dp=2")``):
+weights at rest in per-shard chunks, gathered at use, every gather counted
+into ``ChannelStats.collective_*``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import time
+from types import SimpleNamespace
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.sealing import tree_leaves_with_names, tree_map
 
 Params = Any
+Cache = Any
+
+
+def parse_mesh(spec: str) -> Tuple[int, int]:
+    """``"dp=2,tp=1"`` (or just ``"dp=2"``) -> ``(dp, tp)``."""
+    if not spec or not spec.strip():
+        raise ValueError(
+            "empty mesh spec: want 'dp=N' or 'dp=N,tp=M' (omit the mesh "
+            "argument entirely for single-device)")
+    dp, tp = 1, 1
+    try:
+        for part in spec.split(","):
+            if not part.strip():
+                continue
+            k, v = part.split("=")
+            k = k.strip()
+            if k == "dp":
+                dp = int(v)
+            elif k == "tp":
+                tp = int(v)
+            else:
+                raise ValueError(k)
+    except ValueError:
+        raise ValueError(
+            f"bad mesh spec {spec!r}: want 'dp=N' or 'dp=N,tp=M'")
+    if dp < 1 or tp < 1:
+        raise ValueError(f"mesh axes must be >= 1, got dp={dp}, tp={tp}")
+    return dp, tp
 
 
 class SingleDevicePlan:
+    is_sharded = False
     name = "single"
 
     def __init__(self, model):
@@ -31,6 +63,15 @@ class SingleDevicePlan:
         copied (``.to`` returns it), so plans on one device share one copy
         of the weights."""
         return tree_map(lambda t: t.to(self.device), params)
+
+    def drain_collectives(self) -> Tuple[int, int, float]:
+        """(steps, bytes, seconds) of collective cost accrued since the
+        last drain; the engine feeds it to ``TrustDomain.record_collective``.
+        One device moves nothing."""
+        return 0, 0, 0.0
+
+    def shard_of_slot(self, slot: int, max_slots: int) -> int:
+        return 0
 
     def compile_prefill(self):
         """(params, tokens [rows, s], cache) -> (logits [rows, vocab],
@@ -160,3 +201,206 @@ class PrefillOnlyPlan(SingleDevicePlan):
             "prefill stream of a disaggregated engine, and finished KV rows "
             "hand off to the decode plan through the sealed channel "
             "(Engine(prefill_plan=...))")
+
+
+class ShardedWeights:
+    """A :class:`ShardedPlan`'s weights: each leaf that ``param_specs``
+    shards over ``data`` at rest in ``dp`` separately allocated chunks
+    (``chunks[name]``, split along ``dims[name]``), every other leaf whole.
+    ``full`` is the whole tree, its sharded leaves being the gather buffers
+    (``buffers[name]``), allocated once and refilled by every gather."""
+
+    def __init__(self, full: Params, chunks: Dict[str, List[torch.Tensor]],
+                 dims: Dict[str, int], buffers: Dict[str, torch.Tensor]):
+        self.full = full
+        self.chunks = chunks
+        self.dims = dims
+        self.buffers = buffers
+
+    @property
+    def sharded_bytes(self) -> int:
+        """Bytes of the leaves sharded over ``data`` (what a gather
+        writes)."""
+        return sum(b.numel() * b.element_size() for b in self.buffers.values())
+
+
+class ShardedPlan(SingleDevicePlan):
+    """One engine over a ``("data", "model")`` mesh of logical shards on one
+    physical device (:func:`repro_torch.launch.mesh.make_host_mesh`):
+
+      - **batch** rows map to shards over ``data``: slot ``s`` belongs to
+        shard ``s // (max_slots / dp)`` (:meth:`shard_of_slot`), which names
+        its sealed KV (``/s{shard}``);
+      - **params** are placed per
+        :func:`repro_torch.distributed.sharding.param_specs` with FSDP forced
+        on: each leaf sharded over ``data`` sits at rest in ``dp`` chunks,
+        and before every decode step and prefill call the plan gathers the
+        chunks into full-size buffers (:meth:`gather`), so the weights are
+        copied every step;
+      - **compute** runs the backend's unchanged batched step on the
+        gathered weights, over the whole batch, in one call on the device:
+        every row's GEMM shapes, and with them its bits, are the
+        single-device engine's (cuBLAS picks its kernel by the row count),
+        and a MoE model's expert capacity is reckoned over the global batch
+        as the reference's SPMD program reckons it;
+      - the **KV cache** stays one copy on the device (the slot rows, the
+        page pool and the slot-dense recurrent leaves alike): the
+        reference's replicated pool, and its batch-sharded rows mapped to
+        shards by :meth:`shard_of_slot`.
+
+    Each decode step counts ``collective_bytes_per_step``, the bytes its
+    gather moves into one shard: ``(dp - 1) / dp`` of every sharded leaf.
+    The reference parses the bytes from its compiled HLO, where XLA does not
+    gather every sharded leaf, so the two counts differ (ROADMAP.md queue
+    C). Its seconds are the step's own gather, timed as it runs (CUDA events
+    on the card, the host clock on the CPU): on one device that gather is a
+    copy of every sharded leaf in device memory, not a transfer over a
+    link, where the reference times an all-gather probe on its mesh.
+    Prefill calls gather too and are not counted, as in the reference.
+    Tensor parallelism (``tp > 1``) and a mesh over several devices are
+    ROADMAP.md queue A item 21."""
+
+    is_sharded = True
+    name = "sharded"
+
+    def __init__(self, model, *, dp: int = 1, tp: int = 1):
+        super().__init__(model)
+        # deferred so a single-device engine never touches the mesh modules
+        from repro_torch.launch.mesh import make_host_mesh
+
+        if tp > 1:
+            raise NotImplementedError(
+                f"tensor-parallel compute (tp={tp}) is not ported yet "
+                f"(ROADMAP.md queue A item 21)")
+        self.mesh = make_host_mesh(data=dp, model=tp, device=self.device)
+        self.dp, self.tp = dp, tp
+        # param_specs with FSDP forced on: the spec table only reads
+        # cfg.parallel.{fsdp, dp_over_model}
+        self._spec_cfg = SimpleNamespace(parallel=SimpleNamespace(
+            fsdp=True, dp_over_model=model.cfg.parallel.dp_over_model,
+            zero1=False))
+        # one entry a decode step since the last drain: its gather's
+        # (start, end) CUDA events, or its seconds on the host clock
+        self._pending: List[Any] = []
+        self.collective_bytes_per_step = 0
+
+    @classmethod
+    def from_spec(cls, model, spec: str) -> "ShardedPlan":
+        dp, tp = parse_mesh(spec)
+        return cls(model, dp=dp, tp=tp)
+
+    def describe(self) -> str:
+        return (f"dp={self.dp},tp={self.tp} ({self.mesh.size} shards on 1 "
+                f"physical device, {self.device})")
+
+    # -- placement ----------------------------------------------------------
+    @torch.inference_mode()
+    def place_params(self, params: Params) -> ShardedWeights:
+        """Split every leaf ``param_specs`` shards over ``data`` into ``dp``
+        chunks of its own, count the bytes a gather moves into one shard,
+        then allocate the gather buffers."""
+        from repro_torch.distributed import sharding
+
+        params = super().place_params(params)
+        specs = sharding.param_specs(self._spec_cfg, params, self.mesh)
+        chunks: Dict[str, List[torch.Tensor]] = {}
+        dims: Dict[str, int] = {}
+        shapes: Dict[str, Tuple[int, ...]] = {}
+
+        def place(node, spec, path):
+            if isinstance(node, dict):
+                return {k: place(v, spec[k], f"{path}[{k!r}]")
+                        for k, v in node.items()}
+            if "data" not in spec:
+                return node
+            dims[path] = spec.index("data")
+            shapes[path] = tuple(node.shape)
+            chunks[path] = [c.clone() for c in
+                            node.chunk(self.dp, dim=dims[path])]
+            return path
+
+        skeleton = place(params, specs, "")
+        buffers = {p: torch.empty(shapes[p], dtype=cs[0].dtype,
+                                  device=self.device)
+                   for p, cs in chunks.items()}
+        weights = ShardedWeights(_fill(skeleton, buffers), chunks, dims,
+                                 buffers)
+        self.collective_bytes_per_step = (weights.sharded_bytes
+                                          * (self.dp - 1) // self.dp)
+        return weights
+
+    @torch.inference_mode()
+    def gather(self, weights: ShardedWeights) -> Params:
+        """Rebuild the full weights: every sharded leaf's chunks copied
+        into its buffer. Returns the whole tree."""
+        for path, cs in weights.chunks.items():
+            torch.cat(cs, dim=weights.dims[path], out=weights.buffers[path])
+        return weights.full
+
+    def _timed_gather(self, weights: ShardedWeights) -> Params:
+        """:meth:`gather`, its time queued for the next drain."""
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            full = self.gather(weights)
+            end.record()
+            self._pending.append((start, end))
+            return full
+        t0 = time.perf_counter()
+        full = self.gather(weights)
+        self._pending.append(time.perf_counter() - t0)
+        return full
+
+    # -- callables ------------------------------------------------------------
+    def compile_prefill(self):
+        prefill = super().compile_prefill()
+
+        def run(weights, tokens, cache):
+            return prefill(self.gather(weights), tokens, cache)
+
+        return run
+
+    def compile_decode(self, fn):
+        """The backend's batched decode step on the gathered weights; each
+        call counts one step of collective cost, its gather timed."""
+        step = super().compile_decode(fn)
+
+        def run(weights, *args):
+            return step(self._timed_gather(weights), *args)
+
+        return run
+
+    # -- collective accounting ------------------------------------------------
+    def drain_collectives(self) -> Tuple[int, int, float]:
+        """Steps, bytes and the gathers' measured seconds since the last
+        drain (on the card this waits for the last step's gather to end;
+        the engine drains after reading the step's tokens)."""
+        pending, self._pending = self._pending, []
+        return (len(pending), len(pending) * self.collective_bytes_per_step,
+                sum(map(_seconds, pending)))
+
+    def shard_of_slot(self, slot: int, max_slots: int) -> int:
+        """Which data shard holds this slot's cache row: the ``/s{shard}``
+        suffix per-shard sealing records."""
+        if max_slots % self.dp != 0:
+            return 0               # the rows do not split: replicated
+        return int(slot) // (max_slots // self.dp)
+
+
+def _seconds(mark) -> float:
+    """A queued gather's seconds: host-clock seconds as they are, a pair of
+    CUDA events read once the second has passed."""
+    if isinstance(mark, float):
+        return mark
+    start, end = mark
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3
+
+
+def _fill(skeleton: Params, buffers: Dict[str, torch.Tensor]) -> Params:
+    """The skeleton tree with each sharded leaf's name replaced by its
+    buffer."""
+    if isinstance(skeleton, dict):
+        return {k: _fill(v, buffers) for k, v in skeleton.items()}
+    return buffers[skeleton] if isinstance(skeleton, str) else skeleton

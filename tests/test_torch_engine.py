@@ -180,8 +180,10 @@ def test_out_of_slice_options_raise(models):
     _, _, tm, tp = models
     kw = dict(CANONICAL_ENGINE, device="cpu")
     paged = dict(kv_backend="paged", page_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(tm, tp, **kw, mesh="dp=2")
+    # a dp mesh is in the slice; tensor parallelism is not
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 21"):
+        TEngine(tm, tp, **kw, mesh="dp=2,tp=2")
+    assert TEngine(tm, tp, **kw, mesh="dp=2").plan.dp == 2
     # the store and two-phase serving are in the slice
     store = TEngine(tm, tp, **kw, **paged, prefix_sharing=True,
                     page_store=True).kv

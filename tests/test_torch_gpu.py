@@ -467,6 +467,50 @@ def test_paged_sharing_engine_on_card(card):
         assert req.output == solo.generate(gen(spec)).tokens
 
 
+def _serve_mesh(card, model, params, mesh, **kv):
+    """_serve's waves, sampled, on the card; returns (tokens, engine, the
+    sealed names of every whole-slot seal)."""
+    eng = Engine(model, params, trust_domain=TrustDomain("tdx", device=card),
+                 max_slots=2, max_len=64, prefill_buckets=(4, 8),
+                 device=card, mesh=mesh, **kv)
+    names = []
+    inner_seal = eng.kv.seal
+
+    def seal(*a, **k):
+        out = inner_seal(*a, **k)
+        names.extend(out)
+        return out
+    eng.kv.seal = seal
+    prompts = [np.arange(1, 5), np.arange(1, 9), np.full(8, 7)]
+    reqs = [eng.submit(_sampled((p, 6, 0, 100 + i)))
+            for i, p in enumerate(prompts)]
+    for _ in range(3):
+        eng.step()
+    reqs.append(eng.submit(_sampled((np.arange(1, 13), 4, 5, 110))))
+    assert eng.run(max_steps=10_000).preemptions > 0
+    return [list(r.output) for r in reqs], eng, names
+
+
+@pytest.mark.parametrize("kv", [dict(kv_backend="slot"),
+                                dict(kv_backend="paged", page_size=8)],
+                         ids=["slot", "paged"])
+def test_mesh_engine_on_card_equals_single_device(card, kv):
+    """A dp=2 mesh on the card serves the single-device engine's tokens;
+    every sealed name carries a shard tag, each decode step counts one
+    gather of half the sharded weights, and each gather is timed."""
+    model, params = _card_model(card)
+    single, _, _ = _serve_mesh(card, model, params, None, **kv)
+    got, eng, names = _serve_mesh(card, model, params, "dp=2", **kv)
+    assert got == single
+    assert names and all(n.endswith(("/s0", "/s1")) for n in names)
+    ch = eng.td.channel.stats
+    sharded = sum(b.numel() * b.element_size()
+                  for b in eng.params.buffers.values())
+    assert ch.collective_steps > 0
+    assert ch.collective_bytes == ch.collective_steps * (sharded // 2)
+    assert ch.collective_s > 0
+
+
 def _sampled(spec):
     from repro_torch.runtime import SamplingParams
     prompt, mnt, prio, seed = spec

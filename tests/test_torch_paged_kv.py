@@ -259,7 +259,7 @@ def _partial(port, models, scenario):
     else:
         eng.partial_preempt(0, 1)
         sealed, req = eng.seal_slot(0)
-        assert tail_blob_names(sealed) == [f"kvslot/{req.stream_id}/0"]
+        assert tail_blob_names(sealed) == [(f"kvslot/{req.stream_id}/0", "")]
         assert eng.kv.free_page_reserve == eng.kv.num_pages
         eng.restore_slot(sealed, req)
         assert eng.kv.allocated_pages(0) == 2
