@@ -102,7 +102,20 @@ Phases, each fatal on failure:
      Mamba state stays bit-equal through a step it sits out. Then
      whisper-small at full size: prefill over 1,500 frames and 16 decode
      steps, each within a stated tolerance of the cache-free forward;
-  7. int8 weight path: the same model's weights quantized on the card
+  7. training: Llama2-7B at full width, 2 of 32 layers, bf16, with the
+     reference's train variant (attention and loss chunks of 512, 8
+     microbatches, full remat, f32 moments) on packed 8 x 1024-token
+     batches: the chunked loss within a stated tolerance of the unchunked
+     one, the first step's loss at 8 microbatches within 5e-2 of one
+     microbatch's, a clean train_loop of 6 steps (every gradient finite,
+     the loss falling, CUDA events a step), one step under
+     FlopCounterMode beside the 6ND model FLOPs, then run_with_restarts
+     over the same data with sealed checkpoints every 3 steps (keep_n=1)
+     and a failure at step 4: one restart, two sealed saves and one sealed
+     restore through B1, its losses and final state (by fingerprint)
+     equal to the clean run's; last, the port's training launcher in a
+     subprocess (smoke deepseek-7b on the card, a failure drill);
+  8. int8 weight path: the same model's weights quantized on the card
      (quant.quantize_params), sealed, attested and unsealed bit for bit,
      then ops.qmm (B5) on layer 0's unsealed w_gate, w_up and w_down (and
      on w_gate at M = 1, a decode-shaped call in the small-M regime) and
@@ -110,10 +123,12 @@ Phases, each fatal on failure:
      every kernel count set to 0 just before; qmm bit-equal to its plain
      version and near the bf16 product with the original weights, flash
      near layers.sdpa;
-  8. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
+  9. report: tokens, wall time, sealed bytes, seal/unseal time, peak device
      memory (slot, paged, sharing, store, two-phase, fleet and int8 paths),
      each family's load, step times, latency and memory (printed with
-     phase 6), TTFT and next-token latency of every serving path (the fleet's with
+     phase 6), the training path's step time, tokens/s, model FLOPs and
+     their share of the peak, checkpoint seal and restore rates and peak
+     memory (printed with phase 7), TTFT and next-token latency of every serving path (the fleet's with
      and without the kill), the fleet's gateway and migration counters and
      its kill-to-resume time, the RAG path's retrieval and generation
      times, a bucket group's prefill
@@ -133,6 +148,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2419,6 +2435,33 @@ def print_family(r) -> None:
           f"its checks")
 
 
+def print_train(r, smi) -> None:
+    card = f"[{smi}]"
+    print(f"  losses {', '.join(f'{x:.4f}' for x in r['losses'])}; the "
+          f"chunked loss {r['chunked']:.6f} vs unchunked {r['plain']:.6f}; "
+          f"first step at 1 microbatch {r['loss_mb1']:.6f}")
+    print(f"  step (CUDA events, median of steps 2-{TRAIN_STEPS}) "
+          f"{r['med_ms']:.2f} ms ({', '.join(f'{x:.2f}' for x in r['step_ms'])}"
+          f" ms), {r['tokens'] / (r['med_ms'] / 1e3):.0f} tokens/s {card}")
+    print(f"  model FLOPs a step (6 N D, N = {r['n_params']}, D = "
+          f"{r['tokens']}): {r['model_flops']:.4e}; FlopCounterMode counted "
+          f"{r['counted_flops']:.4e} (remat's recompute included); the "
+          f"median step at {r['share'] * 100:.2f} % of PEAK_FLOPS "
+          f"(989 TFLOP/s bf16) {card}")
+    seal_gbs = r["sealed_bytes"] / min(r["saves"]) / 1e9
+    unseal_gbs = r["sealed_bytes"] / min(r["resumes"]) / 1e9
+    print(f"  sealed checkpoint: {r['sealed_bytes']} B; saves "
+          f"{', '.join(f'{x:.2f}' for x in r['saves'])} s (seal, MAC, "
+          f"write; {seal_gbs:.3f} GB/s), restore "
+          f"{', '.join(f'{x:.2f}' for x in r['resumes'])} s (read, MAC, "
+          f"unseal; {unseal_gbs:.3f} GB/s); B1 launches {r['b1']} {card}")
+    print(f"  clean run {r['clean_s']:.2f} s, restarted run "
+          f"{r['restart_s']:.2f} s, launcher subprocess {r['launch_s']:.2f} "
+          f"s ({'; '.join(r['launcher'])}); peak device memory of the clean "
+          f"run {r['peak']} B; the path {r['path_s']:.2f} s; launches "
+          f"{r['launches']} {card}")
+
+
 def print_whisper(r) -> None:
     print(f"  whisper-small (full, 12 + 12 layers): {r['weight_bytes']} B of "
           f"weights in {r['n_leaves']} leaves, seal {r['seal_s']:.2f}s + "
@@ -2429,6 +2472,251 @@ def print_whisper(r) -> None:
           f"within {r['worst']:.3g} x max |logit| of the cache-free forward "
           f"(limit {WHISPER_LOGIT_TOL}); peak device memory {r['peak']} B; "
           f"launches {r['launches']}; {r['path_s']:.1f}s with its checks")
+
+
+# the training path (the reference's `train` variant, launch/dryrun.py's
+# VARIANTS, on Llama2-7B at published width, depth cut to 2 of 32 layers:
+# the full depth's train state, bf16 params and grads plus an f32
+# accumulator and f32 moments, would not fit the card's 80 GB)
+TRAIN_LAYERS = 2
+TRAIN_PARALLEL = dict(attention_chunk=512, loss_chunk=512, microbatches=8,
+                      remat="full")
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_STEPS = 6
+# the launcher's schedule for 6 steps (warmup_steps = max(1, steps // 10))
+# at a tenth of its default lr: AdamW's first update moves every weight by
+# about lr in its gradient's sign, so a 4096-wide matrix's output moves by
+# about lr x 4096; at 3e-4 that is the signal's own scale, and on the card
+# the loss ended 6 steps above where it started (PERF.md §6), while at
+# 3e-5 it falls every step
+TRAIN_OPT = dict(lr=3e-5, warmup_steps=1, total_steps=TRAIN_STEPS)
+TRAIN_CKPT_EVERY = 3
+TRAIN_FAIL_AT = 4
+# first-step loss, 8 microbatches vs 1 (tests/test_train.py's bound)
+TRAIN_MB_TOL = 5e-2
+# loss with attention and loss chunks of 512 vs unchunked, on one batch:
+# the chunks only change f32 summation order (bf16 rounding can follow)
+TRAIN_CHUNK_TOL = 1e-2
+TRAIN_LAUNCHER = ["--arch", "deepseek-7b", "--smoke", "--steps", "4",
+                  "--tee", "tdx", "--fail-at", "2"]
+
+
+def train_config(**parallel):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("llama2-7b")
+    return dataclasses.replace(cfg, num_layers=TRAIN_LAYERS,
+                               parallel=dataclasses.replace(
+                                   cfg.parallel, **dict(TRAIN_PARALLEL,
+                                                        **parallel)))
+
+
+def phase_train(torch, np) -> dict:
+    """Llama2-7B (2 layers at full width, bf16) trained on the card: the
+    chunked loss against the unchunked one, the first step at 1 vs 8
+    microbatches, a clean train_loop of TRAIN_STEPS steps (CUDA events a
+    step, every gradient finite), one step under FlopCounterMode, then
+    run_with_restarts over the same data with sealed checkpoints
+    (keep_n=1) and an injected failure: its losses and final state equal
+    the clean run's. Last, the port's launcher in a subprocess (smoke
+    deepseek-7b on the card, a failure drill). Every kernel count is set
+    to 0 just before and read just after: B1 (the checkpoints' seals and
+    unseals) must be the only kernel launched."""
+    import shutil
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import TrustDomain
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.data.pipeline import PackedLMDataset
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.distributed.fault_tolerance import (FailureInjector,
+                                                         run_with_restarts)
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import PEAK_FLOPS, model_flops_for
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (init_train_state,
+                                              make_train_step, train_loop)
+
+    reset_counts(C, P, Q, FA)
+    t_path = time.perf_counter()
+    cfg = train_config()
+    model = build_model(cfg)            # the card
+    opt = AdamWConfig(**TRAIN_OPT, moment_dtype=cfg.parallel.optimizer_dtype)
+    state0 = init_train_state(model, opt, seed=0)
+    n_params = sum(leaf.numel() for _, leaf in
+                   tree_leaves_with_names(state0.params))
+
+    def data_factory(cursor):
+        it = iter(PackedLMDataset(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                  seed=0))
+        for _ in range(cursor):
+            next(it)
+        return it
+    batch = next(data_factory(0))
+    tbatch = {k: torch.as_tensor(v, device=model.device)
+              for k, v in batch.items()}
+
+    # chunked (512, 512) vs unchunked loss on one batch, no gradients
+    with torch.no_grad():
+        chunked = float(model.loss(state0.params, tbatch)[0])
+        plain = float(build_model(train_config(
+            attention_chunk=0, loss_chunk=0)).loss(state0.params, tbatch)[0])
+    check(np.isfinite(chunked) and abs(chunked - plain) <= TRAIN_CHUNK_TOL,
+          f"the chunked loss {chunked:.6f} is within {TRAIN_CHUNK_TOL} of "
+          f"the unchunked {plain:.6f}")
+
+    # the first step at one microbatch (its loss against the clean run's)
+    _, m1 = make_train_step(model, opt, microbatches=1)(state0, batch)
+    loss_mb1 = float(m1["loss"])
+    del m1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    finite = []
+
+    def grads_finite(grads):
+        finite.append(torch.stack([torch.isfinite(g).all() for _, g in
+                                   tree_leaves_with_names(grads)]).all())
+        return grads
+    step = make_train_step(model, opt,
+                           microbatches=cfg.parallel.microbatches,
+                           grad_transform=grads_finite)
+    events = []
+
+    def timed_step(state, b):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(state, b)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    clean, hist = train_loop(model, state0, timed_step, data_factory(0),
+                             num_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    med_ms = float(np.median(step_ms[1:]))
+    check(all(bool(f) for f in finite) and len(finite) == TRAIN_STEPS,
+          "every gradient of the clean run is finite")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the loss falls over {TRAIN_STEPS} steps ({losses[0]:.4f} -> "
+          f"{losses[-1]:.4f})")
+    check(abs(losses[0] - loss_mb1) <= TRAIN_MB_TOL,
+          f"the first step's loss at 8 microbatches ({losses[0]:.6f}) is "
+          f"within {TRAIN_MB_TOL} of one microbatch's ({loss_mb1:.6f})")
+    prints = {n: fingerprint(torch, leaf)
+              for n, leaf in tree_leaves_with_names(clean)}
+    del clean
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one step counted by FlopCounterMode (remat's recompute included)
+    with FlopCounterMode(display=False) as fc:
+        out = step(state0, batch)
+        float(out[1]["loss"])
+    counted = fc.get_total_flops()
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    mflops = model_flops_for(cfg, ShapeConfig(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+
+    # the same run through sealed checkpoints and a failure
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    times = {"save": [], "resume": []}
+
+    class TimedManager(CheckpointManager):
+        def save(self, s, tree):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = super().save(s, tree)
+            times["save"].append(time.perf_counter() - t)
+            return path
+
+        def resume(self, like, device=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = super().resume(like, device)
+            torch.cuda.synchronize()
+            times["resume"].append(time.perf_counter() - t)
+            return out
+
+    b1_before = C.launches
+    mgr = TimedManager(ckpt_dir, keep_n=1, trust_domain=TrustDomain("tdx"))
+    t0 = time.perf_counter()
+    final, rlosses, restarts = run_with_restarts(
+        state=state0, train_step=step, data_factory=data_factory,
+        num_steps=TRAIN_STEPS, manager=mgr,
+        checkpoint_every=TRAIN_CKPT_EVERY,
+        injector=FailureInjector({TRAIN_FAIL_AT}))
+    torch.cuda.synchronize()
+    restart_s = time.perf_counter() - t0
+    b1 = C.launches - b1_before
+    kept = sorted(p.name for p in ckpt_dir.glob("step_*"))
+    sealed_bytes = sum(e["n_bytes"] for e in json.loads(
+        (ckpt_dir / kept[-1] / "manifest.json").read_text())["leaves"].values())
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(restarts == 1 and len(times["save"]) == 2
+          and len(times["resume"]) == 1 and kept == [f"step_{TRAIN_STEPS}"],
+          f"one restart, two sealed saves, one sealed restore, keep_n=1 "
+          f"(restarts {restarts}, saves {len(times['save'])}, restores "
+          f"{len(times['resume'])}, kept {kept})")
+    check(rlosses == losses,
+          f"the resumed run's losses equal the clean run's ({rlosses} vs "
+          f"{losses})")
+    for n, leaf in tree_leaves_with_names(final):
+        check(fingerprint(torch, leaf) == prints[n],
+              f"the resumed run's final {n} equals the clean run's "
+              f"(fingerprint)")
+    check(b1 > 0, "the sealed checkpoints launched the ChaCha20 kernel")
+    del final, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the launcher in a subprocess, on the card
+    launch_dir = Path(__file__).resolve().parent / "build" / "train_launch"
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_LAUNCHER,
+         "--ckpt-dir", str(launch_dir)], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(
+            Path(__file__).resolve().parent / "src")))
+    launch_s = time.perf_counter() - t0
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    lines = proc.stdout.splitlines()
+    check(proc.returncode == 0 and "restarts: 1" in lines,
+          f"the launcher ran its failure drill on the card (rc "
+          f"{proc.returncode}): {proc.stdout[-400:]} {proc.stderr[-800:]}")
+    loss_line = [ln for ln in lines if ln.startswith("loss: ")]
+    first, last = map(float, loss_line[0].removeprefix("loss: ").split(" -> "))
+    check(np.isfinite(first) and last < first,
+          f"the launcher's loss falls ({loss_line[0]})")
+    launches = path_launches()
+    check(launches["chacha20_xor_blocked"] == b1 and sum(
+        launches.values()) == b1, f"B1 is the only kernel the training "
+        f"path launched, all of it in the checkpoints: {launches}")
+    return dict(launches=launches, losses=losses, step_ms=step_ms, med_ms=med_ms,
+                tokens=TRAIN_BATCH * TRAIN_SEQ, n_params=n_params,
+                model_flops=mflops, counted_flops=counted,
+                share=mflops / (med_ms / 1e3) / PEAK_FLOPS,
+                chunked=chunked, plain=plain, loss_mb1=loss_mb1,
+                peak=peak, clean_s=clean_s, restart_s=restart_s,
+                saves=times["save"], resumes=times["resume"],
+                sealed_bytes=sealed_bytes, b1=b1, launch_s=launch_s,
+                launcher=lines, path_s=time.perf_counter() - t_path)
 
 
 def phase_quant(torch, np) -> dict:
@@ -2598,7 +2886,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[1/8] device: {name} x{count}; torch {torch.__version__} "
+    print(f"[1/9] device: {name} x{count}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -2607,7 +2895,7 @@ def main() -> int:
                "flash_attention.cu")
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
         list(pool.map(lambda K: K._kernel_fn(), kernels))
-    print(f"[2/8] build: {', '.join(sources)} with nvcc for sm_90a in "
+    print(f"[2/9] build: {', '.join(sources)} with nvcc for sm_90a in "
           f"{time.perf_counter() - t0:.2f}s")
     for src in sources:
         log = build.BUILD_LOG[src]
@@ -2622,7 +2910,7 @@ def main() -> int:
 
     phase_t = {"device and build": time.perf_counter() - t_start}
     t_phase = time.perf_counter()
-    print("[3/8] kernel check: chacha20_xor_blocked vs plain, bit for bit; "
+    print("[3/9] kernel check: chacha20_xor_blocked vs plain, bit for bit; "
           "paged_attention (B3) and paged_attention_unseal (B4) vs plain; "
           "qmatmul (B5) vs plain, bit for bit; flash_attention (B2) vs plain")
     max_err = phase_kernel_check(C, ops, torch, np)
@@ -2634,7 +2922,7 @@ def main() -> int:
     phase_t["kernel check"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     tm = phase_kernel_timing(C, torch, np)
-    print(f"[4/8] kernel timing at N={W_GATE_BLOCKS} blocks "
+    print(f"[4/9] kernel timing at N={W_GATE_BLOCKS} blocks "
           f"({W_GATE_BLOCKS * 64} B): kernel {tm['ms']:.4f} ms, bound "
           f"{tm['bound_ms']:.4f} ms (bytes {tm['bytes_ms']:.4f} ms, integer "
           f"ops {tm['ops_ms']:.4f} ms -> {tm['bound_by']}), plain version "
@@ -2697,7 +2985,7 @@ def main() -> int:
 
     phase_t["kernel timing"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    print("[5/8] serve: llama2-7b (32 layers, d_model 4096, bf16) under tdx")
+    print("[5/9] serve: llama2-7b (32 layers, d_model 4096, bf16) under tdx")
     sp = phase_sampler(torch, np)
     print(f"  sampler on the card vs the CPU: keys, raw bits and uniforms "
           f"bit-equal over {sp['draws']} draws; Gumbel noise within "
@@ -2710,14 +2998,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_t["serve"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    print("[6/8] families: " + ", ".join(
+    print("[6/9] families: " + ", ".join(
         f"{n} {cut}" for n, cut, _ in FAMILIES)
         + " at published width, one at a time under tdx; whisper-small at "
           "full size")
     fam = phase_families(torch, np)
     phase_t["families"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    print(f"[7/8] int8 weight path: llama2-7b at full width, {QUANT_LAYERS} "
+    print(f"[7/9] training: llama2-7b at full width, {TRAIN_LAYERS} of 32 "
+          f"layers, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+          f"{TRAIN_PARALLEL}; sealed checkpoints under tdx")
+    tr = phase_train(torch, np)
+    phase_t["training"] = time.perf_counter() - t_phase
+    print_train(tr, smi)
+    t_phase = time.perf_counter()
+    print(f"[8/9] int8 weight path: llama2-7b at full width, {QUANT_LAYERS} "
           f"of 32 layers deep, quantized, sealed, unsealed; "
           "ops.qmm and ops.mha_flash on layer 0")
     qp = phase_quant(torch, np)
@@ -2725,7 +3020,7 @@ def main() -> int:
 
     st, ch = sv["stats"], sv["channel"]
     per_req = (sv["launches"] - sv["weight_launches"]) / sv["n_requests"]
-    print(f"[8/8] served {st.total_requests} requests / {st.total_tokens} "
+    print(f"[9/9] served {st.total_requests} requests / {st.total_tokens} "
           f"tokens in {sv['serve_s']:.2f}s wall; {st.preemptions} preemptions")
     print(f"  sealed KV: {ch.seal_events} seals / {ch.seal_bytes} B out, "
           f"{ch.restore_events} restores / {ch.restore_bytes} B back; egress "
@@ -2890,10 +3185,11 @@ def main() -> int:
     pl = {k: v + sum(x[k] for x in later)
           for k, v in sv["paged_launches"].items()}
     b1_launches = (sv["launches"] + pl["chacha20_xor_blocked"]
+                   + tr["launches"]["chacha20_xor_blocked"]
                    + qp["launches"]["chacha20_xor_blocked"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
           f"{b1_launches} (slot, paged, sharing, store, two-phase, fleet, "
-          f"RAG, mesh, families, int8), B3 {pl['paged_attention']} (paged, "
+          f"RAG, mesh, families, training, int8), B3 {pl['paged_attention']} (paged, "
           f"sharing, store, two-phase, fleet, RAG, chameleon) and B4 "
           f"{pl['paged_attention_unseal']} (paged, sharing, store, "
           f"two-phase, fleet, chameleon)")

@@ -26,7 +26,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.quant.quantize import QTensor
 
 Params = Any
 
@@ -173,34 +172,54 @@ def unseal_tensor(key: SealingKey, sealed: SealedTensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# trees: nested dicts with tensor or QTensor leaves, named like
-# jax.tree_util.keystr
+# trees: nested dicts and NamedTuples (QTensor, a train state) of tensor
+# leaves, named like jax.tree_util.keystr
 # ---------------------------------------------------------------------------
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
 
 def tree_leaves_with_names(tree: Params, path: str = ""
                            ) -> Iterator[Tuple[str, Any]]:
     """(keystr, leaf) over a nested dict in jax's flattening order (sorted
     keys); a name reads ``['a']['b']`` like ``jax.tree_util.keystr``. A
-    :class:`QTensor` flattens as jax flattens a NamedTuple: ``.values``
-    then ``.scale`` (``['w_gate'].values``)."""
+    NamedTuple flattens as jax flattens it, field by field in declaration
+    order: a :class:`QTensor` as ``['w_gate'].values`` then ``.scale``, a
+    train state as ``.params[...]``, ``.opt.m[...]``, ..., ``.opt.step``."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves_with_names(tree[k], f"{path}[{k!r}]")
-    elif isinstance(tree, QTensor):
-        for field in QTensor._fields:
+    elif _is_namedtuple(tree):
+        for field in tree._fields:
             yield from tree_leaves_with_names(getattr(tree, field),
                                               f"{path}.{field}")
     else:
         yield path, tree
 
 
-def tree_map(fn, tree: Params) -> Params:
-    """Apply ``fn`` to every leaf of a nested dict, through QTensors."""
+def tree_map_with_names(fn, tree: Params, *rest: Params,
+                        path: str = "") -> Params:
+    """``fn(keystr, leaf, *leaves of rest)`` over every leaf of ``tree``
+    (and the trees of the same structure in ``rest``), keeping the dict
+    and NamedTuple structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, QTensor):
-        return QTensor(*(tree_map(fn, c) for c in tree))
-    return fn(tree)
+        return {k: tree_map_with_names(fn, v, *(r[k] for r in rest),
+                                       path=f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(
+            tree_map_with_names(fn, getattr(tree, f),
+                                *(getattr(r, f) for r in rest),
+                                path=f"{path}.{f}")
+            for f in tree._fields))
+    return fn(path, tree, *rest)
+
+
+def tree_map(fn, tree: Params, *rest: Params) -> Params:
+    """Apply ``fn`` to every leaf (and the matching leaves of ``rest``)
+    through dicts and NamedTuples."""
+    return tree_map_with_names(lambda _, *leaves: fn(*leaves), tree, *rest)
 
 
 def seal_tree(key: SealingKey, tree: Params, prefix: str = "params",
@@ -213,16 +232,11 @@ def seal_tree(key: SealingKey, tree: Params, prefix: str = "params",
 def unseal_tree(key: SealingKey, sealed: Dict[str, SealedTensor],
                 treedef_like: Params, prefix: str = "params",
                 suffix: str = "") -> Params:
-    """Inverse of :func:`seal_tree` into the dict and QTensor structure of
-    ``treedef_like`` (its leaves are not read)."""
-    def walk(node, path):
-        if isinstance(node, dict):
-            return {k: walk(v, f"{path}[{k!r}]") for k, v in node.items()}
-        if isinstance(node, QTensor):
-            return QTensor(*(walk(getattr(node, f), f"{path}.{f}")
-                             for f in QTensor._fields))
-        return unseal_tensor(key, sealed[prefix + path + suffix])
-    return walk(treedef_like, "")
+    """Inverse of :func:`seal_tree` into the dict and NamedTuple structure
+    of ``treedef_like`` (its leaves are not read)."""
+    return tree_map_with_names(
+        lambda path, _: unseal_tensor(key, sealed[prefix + path + suffix]),
+        treedef_like)
 
 
 def sealed_nbytes(sealed: Dict[str, SealedTensor]) -> int:

@@ -17,13 +17,18 @@ against the reference, for the multi-card mesh of ROADMAP.md queue A item
 Rules are structural, matched by leaf name and enclosing module path, so
 one table covers every architecture. A dim that does not divide its mesh
 axes falls back to replication. Only ``mesh.shape`` and
-``mesh.axis_names`` are read. ``state_specs`` (the optimizer state) waits
-for training, ROADMAP.md queue A item 20.
+``mesh.axis_names`` are read. ``state_specs`` gives a train state's specs
+(the moments follow their params, or shard over ``data`` alone under
+``zero1``); ``to_named`` pairs a spec tree with its mesh, the placement a
+sharded trainer (ROADMAP.md queue A item 21) would read.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
+
+from repro_torch.core.sealing import tree_map
 
 Params = Any
 Spec = Tuple[Any, ...]
@@ -166,6 +171,29 @@ def param_specs(cfg, params: Params, mesh) -> Params:
     return _map_with_names(spec_for, params)
 
 
+def state_specs(cfg, abstract_state, mesh):
+    """TrainState(params, OptState(m, v, step)) -> the same structure of
+    specs: the moments follow their params, the step is replicated (``()``).
+
+    With ``zero1``: the params keep their layout, but a moment whose
+    leading dim divides the ``data`` axis shards that dim over ``data``
+    alone (ZeRO-1: reduce-scatter the grads, update a shard, all-gather the
+    params, without FSDP's gathers at every use)."""
+    p_specs = param_specs(cfg, abstract_state.params, mesh)
+    if cfg.parallel.zero1:
+        def m_spec(pspec, leaf):
+            if leaf.ndim and leaf.shape[0] % mesh.shape["data"] == 0:
+                return ("data",) + (None,) * (leaf.ndim - 1)
+            return pspec
+        m_specs = tree_map(m_spec, p_specs, abstract_state.opt.m)
+    else:
+        m_specs = p_specs
+    return type(abstract_state)(
+        params=p_specs,
+        opt=type(abstract_state.opt)(m=m_specs, v=m_specs, step=()),
+    )
+
+
 def _batch_axis_for(cfg, mesh, batch_dim: int):
     """Pick the widest dp axis combo that divides the batch. With
     dp_over_model the model axis joins DP (flat data parallelism)."""
@@ -228,3 +256,16 @@ def cache_specs(cfg, cache: Params, mesh) -> Params:
         return _fit(mesh, shape, (None,) * leaf.ndim)
 
     return _map_with_names(spec_for, cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``jax.sharding.NamedSharding``)."""
+    mesh: Any
+    spec: Spec
+
+
+def to_named(mesh, spec_tree: Params) -> Params:
+    """Every spec of a spec tree (dicts and NamedTuples of tuples) paired
+    with ``mesh``."""
+    return tree_map(lambda s: NamedSharding(mesh, s), spec_tree)

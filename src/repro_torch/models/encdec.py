@@ -9,17 +9,20 @@ reference's layout: ``enc_layers``/``dec_layers`` stacked on a leading
 layer axis, and a cache of ``self_k``/``self_v``
 ``[L, b, max_target_len, hk, hd]``, ``cross_k``/``cross_v``
 ``[L, b, enc_len, hk, hd]`` and ``pos`` ``[b]``, written in place.
+Any ``parallel.remat`` but "none" recomputes each encoder and decoder
+layer in the backward pass of a training pass, as the reference's
+``jax.checkpoint`` of its scan bodies does.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
-from repro_torch.models.transformer import _layer
+from repro_torch.models.transformer import _layer, generator, remat
 
 Params = Any
 
@@ -41,7 +44,7 @@ class EncDecLM:
         """Random weights from ``seed`` on ``device`` (torch generator
         bits, not the reference's)."""
         cfg = self.cfg
-        gen = torch.Generator(device=device).manual_seed(int(seed))
+        gen = generator(seed, device)
         kw = dict(dtype=cfg.torch_dtype, device=device)
         d, ff = cfg.d_model, cfg.d_ff
         le, ld = cfg.encoder_layers, cfg.decoder_layers
@@ -69,19 +72,28 @@ class EncDecLM:
             "dec_final_norm": layers.init_layernorm(d, **kw),
         }
 
+    def _remat(self, fn):
+        """``fn`` recomputed in the backward pass while gradients are
+        recorded, unless ``parallel.remat`` is "none"."""
+        on = self.cfg.parallel.remat != "none" and torch.is_grad_enabled()
+        return remat(fn, "full" if on else "none")
+
     # -- encoder -----------------------------------------------------------
     def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = frames.shape
         positions = torch.arange(s, device=frames.device)[None, :].expand(b, s)
-        x = frames
-        for j in range(cfg.encoder_layers):
-            lp = _layer(params["enc_layers"], j)
+
+        def body(x, lp):
             h = layers.layernorm(lp["pre_norm"], x, cfg.norm_eps)
             x = x + layers.attention_forward(lp["attn"], self.enc_cfg, h,
                                              positions)
             h = layers.layernorm(lp["post_norm"], x, cfg.norm_eps)
-            x = x + layers.gelu_mlp(lp["mlp"], h)
+            return x + layers.gelu_mlp(lp["mlp"], h)
+
+        x = frames
+        for j in range(cfg.encoder_layers):
+            x = self._remat(body)(x, _layer(params["enc_layers"], j))
         return layers.layernorm(params["enc_final_norm"], x, cfg.norm_eps)
 
     def _dec_tail(self, lp: Params, x: torch.Tensor, ek: torch.Tensor,
@@ -108,15 +120,30 @@ class EncDecLM:
         b, t = tokens.shape
         positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
         x = layers.embed(params["embedding"], tokens)
-        for j in range(cfg.decoder_layers):
-            lp = _layer(params["dec_layers"], j)
+
+        def body(x, lp):
             h = layers.layernorm(lp["norm1"], x, cfg.norm_eps)
             x = x + layers.attention_forward(lp["self_attn"], self.dec_cfg, h,
                                              positions)
             ek, ev = layers.encode_kv(lp["cross_attn"], enc_out)
-            x = self._dec_tail(lp, x, ek, ev)
+            return self._dec_tail(lp, x, ek, ev)
+
+        for j in range(cfg.decoder_layers):
+            x = self._remat(body)(x, _layer(params["dec_layers"], j))
         return (self._logits(params, x),
                 torch.zeros((), dtype=torch.float32, device=tokens.device))
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """Teacher-forced cross-entropy of ``batch["labels"]`` (labels < 0
+        masked out): (loss, {"ce_loss", "aux_loss"})."""
+        logits, aux = self.forward(params, batch["frames"], batch["tokens"])
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        safe = labels.long().clamp(min=0)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, enc_len: int, device) -> Params:

@@ -112,6 +112,7 @@ class AttentionConfig:
     rope_theta: float = 10000.0
     causal: bool = True
     use_rope: bool = True
+    chunk: int = 0           # >0: q-chunked attention (sdpa_chunked)
 
 
 def init_attention(gen: torch.Generator, cfg: AttentionConfig,
@@ -179,16 +180,40 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 chunk: int, causal: bool,
+                 q_positions: torch.Tensor) -> torch.Tensor:
+    """Q-chunked attention: peak score memory is [b, h, chunk, s] instead
+    of [b, h, s, s]; causal chunks only read keys up to their last
+    position."""
+    s = q.shape[1]
+    outs = []
+    for start in range(0, s, chunk):
+        end = min(start + chunk, s)
+        kv_end = end if causal else s
+        outs.append(sdpa(q[:, start:end], k[:, :kv_end], v[:, :kv_end],
+                         causal=causal, q_positions=q_positions[:, start:end]))
+    return torch.cat(outs, dim=1)
+
+
+def _attend_full(cfg: AttentionConfig, q, k, v, positions) -> torch.Tensor:
+    """Attention over a whole sequence: q-chunked when ``cfg.chunk`` is set
+    and the sequence is longer than a chunk."""
+    if cfg.chunk and q.shape[1] > cfg.chunk:
+        return sdpa_chunked(q, k, v, chunk=cfg.chunk, causal=cfg.causal,
+                            q_positions=positions)
+    return sdpa(q, k, v, causal=cfg.causal, q_positions=positions)
+
+
 def attention_forward(params: Params, cfg: AttentionConfig, x: torch.Tensor,
                       positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence attention without a cache (the encoder's trunk and a
-    teacher-forced pass). Chunked attention is not ported (the trunk
-    refuses ``parallel.attention_chunk``)."""
+    """Full-sequence attention without a cache (training, the encoder's
+    trunk and a teacher-forced pass)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k, v = _qkv(params, cfg, x, positions)
-    out = sdpa(q, k, v, causal=cfg.causal, q_positions=positions)
+    out = _attend_full(cfg, q, k, v, positions)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
@@ -208,7 +233,7 @@ def attention_prefill(params: Params, cfg: AttentionConfig, x: torch.Tensor,
     s = x.shape[1]
     cache["k"][:, :s] = k.to(cache["k"].dtype)
     cache["v"][:, :s] = v.to(cache["v"].dtype)
-    out = sdpa(q, k, v, causal=cfg.causal, q_positions=positions)
+    out = _attend_full(cfg, q, k, v, positions)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 

@@ -7,9 +7,9 @@ cache holds only the compressed KV latent and the decoupled RoPE key,
 attention absorbs ``W_uk`` into the query so the per-key work is rank-wide.
 Where the reference multiplied bf16 with ``preferred_element_type=f32``
 (the two score products and the probabilities against the latent), the
-port upcasts the operands and keeps the f32 result. Q-chunked attention
-(``chunk``) is not ported: the trunk refuses ``parallel.attention_chunk``
-(ROADMAP.md queue A item 19).
+port upcasts the operands and keeps the f32 result. With ``chunk`` set,
+full-sequence attention runs over q chunks, so the [b, h, s, s] logits
+are never materialized.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ class MLAConfig:
     nope_dim: int = 128      # per-head non-rope key/query dim
     v_head_dim: int = 128
     rope_theta: float = 10000.0
-    chunk: int = 0           # q-chunked attention (not ported)
+    chunk: int = 0           # >0: q-chunked full-sequence attention
 
 
 def init_mla(gen: torch.Generator, cfg: MLAConfig, dtype=torch.bfloat16,
@@ -107,12 +107,29 @@ def _attend(params: Params, cfg: MLAConfig, q_nope, q_rope, ckv, krope,
     return torch.einsum("bqhv,hvd->bqd", out, params["wo"])
 
 
+def _attend_maybe_chunked(params: Params, cfg: MLAConfig, q_nope, q_rope,
+                          ckv, krope, positions) -> torch.Tensor:
+    """Full-sequence attention; q-chunked when ``cfg.chunk`` is set, each
+    chunk reading the latents up to its last position."""
+    s = q_nope.shape[1]
+    if not cfg.chunk or s <= cfg.chunk:
+        return _attend(params, cfg, q_nope, q_rope, ckv, krope, positions)
+    outs = []
+    for start in range(0, s, cfg.chunk):
+        end = min(start + cfg.chunk, s)
+        outs.append(_attend(params, cfg, q_nope[:, start:end],
+                            q_rope[:, start:end], ckv[:, :end],
+                            krope[:, :end], positions[:, start:end]))
+    return torch.cat(outs, dim=1)
+
+
 def mla_forward(params: Params, cfg: MLAConfig, x: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     ckv, krope = _compress(params, cfg, x, positions)
     q_nope, q_rope = _queries(params, cfg, x, positions)
-    return _attend(params, cfg, q_nope, q_rope, ckv, krope, positions)
+    return _attend_maybe_chunked(params, cfg, q_nope, q_rope, ckv, krope,
+                                 positions)
 
 
 def init_mla_cache(batch: int, max_len: int, cfg: MLAConfig,
@@ -134,7 +151,8 @@ def mla_prefill(params: Params, cfg: MLAConfig, x: torch.Tensor,
     cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
     cache["krope"][:, :s] = krope.to(cache["krope"].dtype)
     q_nope, q_rope = _queries(params, cfg, x, positions)
-    return _attend(params, cfg, q_nope, q_rope, ckv, krope, positions)
+    return _attend_maybe_chunked(params, cfg, q_nope, q_rope, ckv, krope,
+                                 positions)
 
 
 def mla_decode(params: Params, cfg: MLAConfig, x: torch.Tensor,

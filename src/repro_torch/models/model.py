@@ -2,7 +2,11 @@
 
 ``build_model(cfg)`` returns a :class:`Model` whose serving entry points the
 engine calls: ``init_params``, ``init_cache``, ``prefill`` and
-``decode_step``; ``forward`` is the cache-free teacher-forced pass. The
+``decode_step``; ``forward`` is the cache-free teacher-forced pass and
+``loss`` the trainer's objective. ``abstract_params``, ``abstract_cache``
+and the ``*_specs`` methods give the same structures as meta-device
+tensors (shapes and dtypes, no memory) where the reference gives
+``jax.ShapeDtypeStruct``s. The
 decoder families (dense, moe, hybrid, ssm, vlm) run through
 :class:`~repro_torch.models.transformer.DecoderLM`, the encoder-decoder
 (whisper) through :class:`~repro_torch.models.encdec.EncDecLM`, whose
@@ -16,7 +20,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
@@ -43,6 +47,16 @@ class Model:
     def init_params(self, seed: int = 0) -> Params:
         """Random weights from ``seed``, made on the model's device."""
         return self._impl.init_params(seed, self.device)
+
+    def abstract_params(self) -> Params:
+        """The params' structure with meta-device leaves (no memory)."""
+        return self._impl.init_params(0, "meta")
+
+    # -- training ------------------------------------------------------------
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """(loss, {"ce_loss", "aux_loss"}) of a batch of ``tokens`` and
+        ``labels`` (and ``frames`` for the encoder-decoder)."""
+        return self._impl.loss(params, batch)
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Params:
@@ -71,6 +85,41 @@ class Model:
             return self._impl.forward(params, batch["frames"],
                                       batch["tokens"])
         return self._impl.forward(params, batch["tokens"])
+
+    # -- input specs (meta tensors) ------------------------------------------
+    def train_batch_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        if self.is_encdec:
+            t = cfg.max_target_len
+            return {"frames": _meta((b, s, cfg.d_model), cfg.torch_dtype),
+                    "tokens": _meta((b, t), torch.int32),
+                    "labels": _meta((b, t), torch.int32)}
+        if cfg.embedding_inputs:
+            return {"tokens": _meta((b, s, cfg.d_model), cfg.torch_dtype),
+                    "labels": _meta((b, s), torch.int32)}
+        return {"tokens": _meta((b, s), torch.int32),
+                "labels": _meta((b, s), torch.int32)}
+
+    def prefill_batch_specs(self, shape: ShapeConfig
+                            ) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        if self.is_encdec:
+            return {"frames": _meta((b, s, cfg.d_model), cfg.torch_dtype),
+                    "tokens": _meta((b, cfg.max_target_len), torch.int32)}
+        return {"tokens": _meta((b, s), torch.int32)}
+
+    def decode_token_specs(self, shape: ShapeConfig) -> torch.Tensor:
+        return _meta((shape.global_batch, 1), torch.int32)
+
+    def cache_specs(self, shape: ShapeConfig) -> Params:
+        """The cache sized for the cell (``seq_len`` entries)."""
+        return self.abstract_cache(shape.global_batch, shape.seq_len)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

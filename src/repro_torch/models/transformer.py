@@ -19,14 +19,21 @@ E.g. ``params["layers"]["slot_0"]["attn"]["wq"]`` is ``[L, d, h, hd]`` and
 also holds ``pos`` ``[b]``. A Python loop over the stacked layers takes the
 place of ``lax.scan``; prefill and decode write the cache in place and
 return it (the reference returned a rebuilt cache). ``forward`` is the
-cache-free full-sequence pass.
+cache-free full-sequence pass and ``loss`` the training objective over it.
+``parallel.attention_chunk`` q-chunks full-sequence attention,
+``parallel.loss_chunk`` the cross-entropy over the sequence, and
+``parallel.remat`` recomputes each layer in the backward pass (``"full"``)
+or all of it but its matmul outputs (``"dots_saveable"``), as
+``jax.checkpoint`` around the reference's scan body does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, mla, moe, ssm
@@ -46,7 +53,7 @@ def _attn_cfg(cfg: ModelConfig) -> layers.AttentionConfig:
         d_model=cfg.d_model, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-        use_rope=cfg.family != "hybrid")
+        use_rope=cfg.family != "hybrid", chunk=cfg.parallel.attention_chunk)
 
 
 def _mla_cfg(cfg: ModelConfig) -> mla.MLAConfig:
@@ -54,7 +61,8 @@ def _mla_cfg(cfg: ModelConfig) -> mla.MLAConfig:
     return mla.MLAConfig(d_model=cfg.d_model, num_heads=cfg.num_heads,
                          q_lora_rank=m.q_lora_rank, kv_lora_rank=m.kv_lora_rank,
                          rope_dim=m.rope_dim, nope_dim=m.nope_dim,
-                         v_head_dim=m.v_head_dim, rope_theta=cfg.rope_theta)
+                         v_head_dim=m.v_head_dim, rope_theta=cfg.rope_theta,
+                         chunk=cfg.parallel.attention_chunk)
 
 
 def _mamba_cfg(cfg: ModelConfig) -> ssm.MambaConfig:
@@ -100,6 +108,44 @@ def _blocks(cfg: ModelConfig):
             slots.append((mixer, ffn))
         return [("groups", cfg.num_layers // cfg.attn_period, slots)]
     raise ValueError(cfg.family)
+
+
+# the ops whose outputs "dots_saveable" keeps for the backward pass (the
+# matmuls an einsum lowers to), as jax.checkpoint_policies.checkpoint_dots
+# keeps every dot_general's
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str):
+    """``fn`` recomputed in the backward pass under ``parallel.remat``:
+    "none" leaves it as it is, "full" saves only its inputs, and
+    "dots_saveable" also its matmul outputs."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(torch_checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    if policy == "dots_saveable":
+        return functools.partial(
+            torch_checkpoint.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _save_dots))
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def generator(seed: int, device) -> Optional[torch.Generator]:
+    """The init's generator, or None on the meta device (no bits to
+    draw)."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def _layer(tree: Params, j: int) -> Params:
@@ -178,10 +224,6 @@ def _store(cache_sl: Params, new: Dict[str, torch.Tensor]) -> None:
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.parallel.attention_chunk:
-            raise NotImplementedError(
-                "chunked attention (parallel.attention_chunk) is not ported "
-                "(ROADMAP.md queue A item 19)")
         self.cfg = cfg
         self.blocks = _blocks(cfg)
         self.acfg = _attn_cfg(cfg)
@@ -193,7 +235,7 @@ class DecoderLM:
         the reference's tree instead, see ``models/convert.py``)."""
         cfg = self.cfg
         dtype = cfg.torch_dtype
-        gen = torch.Generator(device=device).manual_seed(int(seed))
+        gen = generator(seed, device)
         kw = dict(dtype=dtype, device=device)
         norm = (layers.init_layernorm if cfg.family == "ssm"
                 else layers.init_rmsnorm)
@@ -303,7 +345,11 @@ class DecoderLM:
     def _run(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
              cache: Optional[Params], mode: str):
         """Every block's layers in order: (x, summed aux, or None when no
-        layer has one)."""
+        layer has one). A training pass that records gradients recomputes
+        each repeat of a block (all its slots) under ``parallel.remat``,
+        the unit the reference's scan body checkpoints."""
+        policy = (self.cfg.parallel.remat
+                  if mode == "train" and torch.is_grad_enabled() else "none")
         aux = None
         for name, n, slots in self.blocks:
             bp = params[name]
@@ -311,13 +357,18 @@ class DecoderLM:
             for j in range(n):
                 lp = _layer(bp, j)
                 cl = _layer(bc, j) if bc is not None else None
-                for i, (m, f) in enumerate(slots):
-                    slot = f"slot_{i}"
-                    x, a = self._layer_fwd(m, f, lp[slot], x, positions, mode,
-                                           cl[slot] if cl is not None
-                                           else None)
-                    if a is not None:
-                        aux = a if aux is None else aux + a
+
+                def body(x, aux, lp=lp, cl=cl, slots=slots):
+                    for i, (m, f) in enumerate(slots):
+                        slot = f"slot_{i}"
+                        x, a = self._layer_fwd(m, f, lp[slot], x, positions,
+                                               mode, cl[slot] if cl is not None
+                                               else None)
+                        if a is not None:
+                            aux = a if aux is None else aux + a
+                    return x, aux
+
+                x, aux = remat(body, policy)(x, aux)
         return x, aux
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -350,6 +401,39 @@ class DecoderLM:
         aux)."""
         x, aux = self._trunk(params, tokens)
         return self._unembed(params, x), aux
+
+    def _ce_chunk(self, params: Params, x: torch.Tensor,
+                  labels: torch.Tensor):
+        """Summed masked NLL and token count over a hidden-state chunk
+        (labels < 0 are masked out)."""
+        logits = self._unembed(params, x)
+        mask = (labels >= 0).float()
+        safe = labels.long().clamp(min=0)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        return (nll * mask).sum(), mask.sum()
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """Next-token cross-entropy over ``batch["tokens"]`` and
+        ``batch["labels"]`` plus the MoE aux loss: (loss, {"ce_loss",
+        "aux_loss"}). With ``parallel.loss_chunk`` the [b, s, vocab]
+        logits are made a chunk of the sequence at a time."""
+        x, aux = self._trunk(params, batch["tokens"])
+        labels = batch["labels"]
+        chunk = self.cfg.parallel.loss_chunk
+        s = x.shape[1]
+        if chunk and s > chunk:
+            tot = torch.zeros((), dtype=torch.float32, device=x.device)
+            cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+            for start in range(0, s, chunk):
+                end = min(start + chunk, s)
+                t, c = self._ce_chunk(params, x[:, start:end],
+                                      labels[:, start:end])
+                tot, cnt = tot + t, cnt + c
+        else:
+            tot, cnt = self._ce_chunk(params, x, labels)
+        loss = tot / cnt.clamp(min=1.0)
+        return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Params):
         """tokens [b, s] (or [b, s, d] embeddings) -> (last-position logits

@@ -86,8 +86,8 @@ def quantize_params(params: Params, min_size: int = 1 << 12) -> Params:
     reference, the test is on the leaf's total size, so layer-stacked norms
     ``[L, d]`` and the embedding quantize too.
     """
-    # sealing imports QTensor from this module, so its tree walk is
-    # imported at call time
+    # sealing imports this module (through kernels.ops), so its tree walk
+    # is imported at call time
     from repro_torch.core.sealing import tree_map
 
     def q(leaf):

@@ -22,8 +22,9 @@ from repro_torch.runtime.kvcache import (KVBackend, ShardedKVBackend,
                                          SlotDenseBackend, SlotState,
                                          make_backend)
 from repro_torch.runtime.pagestore import SealedPageStore
-from repro_torch.runtime.plan import (PrefillOnlyPlan, ShardedPlan,
-                                      SingleDevicePlan, parse_mesh)
+from repro_torch.runtime.plan import (ComputePlan, PrefillOnlyPlan,
+                                      ShardedPlan, SingleDevicePlan,
+                                      parse_mesh)
 from repro_torch.runtime.scheduler import (Request, Scheduler, ServeStats,
                                            stats_from_requests)
 
@@ -33,7 +34,7 @@ __all__ = [
     "FramePolicy", "GenerationRequest", "RequestOutput", "SamplingParams",
     "Engine", "KVBackend", "ShardedKVBackend", "SlotDenseBackend",
     "SlotState", "make_backend",
-    "PrefillOnlyPlan", "SealedPageStore", "ShardedPlan", "SingleDevicePlan",
-    "parse_mesh",
+    "ComputePlan", "PrefillOnlyPlan", "SealedPageStore", "ShardedPlan",
+    "SingleDevicePlan", "parse_mesh",
     "Request", "Scheduler", "ServeStats", "stats_from_requests",
 ]

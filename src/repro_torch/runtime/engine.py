@@ -60,7 +60,7 @@ import dataclasses
 import time
 import heapq
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
-                    Tuple)
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -76,8 +76,8 @@ from repro_torch.runtime.api import (FINISH_ABORTED, GenerationRequest,
 from repro_torch.runtime.kvcache import (KVBackend, SlotState, host_upload,
                                          make_backend, next_pow2,
                                          tail_blob_names)
-from repro_torch.runtime.plan import (PrefillOnlyPlan, ShardedPlan,
-                                      SingleDevicePlan)
+from repro_torch.runtime.plan import (ComputePlan, PrefillOnlyPlan,
+                                      ShardedPlan, SingleDevicePlan)
 from repro_torch.runtime.scheduler import Request, Scheduler, ServeStats
 
 Params = Any
@@ -166,11 +166,11 @@ class Engine:
                  page_store: Any = None,
                  store_budget_pages: Optional[int] = None,
                  mesh: Optional[str] = None,
-                 plan: Optional[SingleDevicePlan] = None,
+                 plan: Optional[ComputePlan] = None,
                  admission_order: str = "slack",
                  continuous_batching: bool = False,
                  step_tokens: Optional[int] = None,
-                 prefill_plan: Optional[Any] = None,
+                 prefill_plan: Union[None, str, ComputePlan] = None,
                  handoff_batch: int = 1,
                  reject_infeasible: bool = False,
                  step_time_hint_s: Optional[float] = None,

@@ -28,9 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.sealing import (SealedTensor, SealingKey, seal_tree,
-                                      unseal_tree)
+                                      tree_leaves_with_names, unseal_tree)
 from repro_torch.runtime import sampling
-from repro_torch.runtime.plan import SingleDevicePlan
+from repro_torch.runtime.plan import ComputePlan, SingleDevicePlan
 
 Cache = Any
 Params = Any
@@ -276,6 +276,12 @@ def extract_slot(batched: Cache, slot: int) -> Cache:
     return {k: get(k, v) for k, v in batched.items()}
 
 
+def cache_bytes(cache: Cache) -> int:
+    """Bytes of every tensor in a cache tree."""
+    return sum(t.numel() * t.element_size()
+               for _, t in tree_leaves_with_names(cache))
+
+
 # ---------------------------------------------------------------------------
 # backend protocol
 # ---------------------------------------------------------------------------
@@ -300,7 +306,7 @@ class KVBackend:
     on_demand = False          # step-time page grants (vs admission reserve)
 
     def __init__(self, model, max_slots: int, max_len: int,
-                 plan: Optional[SingleDevicePlan] = None):
+                 plan: Optional[ComputePlan] = None):
         self.model = model
         self.max_slots = max_slots
         self.max_len = max_len
@@ -334,6 +340,12 @@ class KVBackend:
     def resident_pages(self, page_keys: Optional[Sequence[Any]]) -> int:
         """How many of these content keys are resident in the sharing
         index right now (0 without sharing)."""
+        return 0
+
+    def store_resident_pages(self, page_keys: Optional[Sequence[Any]]
+                             ) -> int:
+        """How many of these content keys the persistent page store could
+        serve beyond the live index (0 without a store)."""
         return 0
 
     @property
@@ -415,6 +427,9 @@ class KVBackend:
         sampled token per row."""
         raise NotImplementedError
 
+    def cache_nbytes(self) -> int:
+        raise NotImplementedError
+
     # -- sealing --------------------------------------------------------------
     def seal(self, key: SealingKey, slot: int, prefix: str,
              suffix: str = "") -> Dict[str, SealedTensor]:
@@ -440,7 +455,7 @@ class SlotDenseBackend(KVBackend):
     name = "slot"
 
     def __init__(self, model, max_slots: int, max_len: int,
-                 plan: Optional[SingleDevicePlan] = None):
+                 plan: Optional[ComputePlan] = None):
         super().__init__(model, max_slots, max_len, plan)
         self.cache = model.init_cache(max_slots, max_len)
 
@@ -461,6 +476,9 @@ class SlotDenseBackend(KVBackend):
             params, host_upload(tokens[:, None], self.device), self.cache,
             state, kmax)
         return next_tokens.cpu().numpy()
+
+    def cache_nbytes(self) -> int:
+        return cache_bytes(self.cache)
 
     def seal(self, key, slot, prefix, suffix="") -> Dict[str, SealedTensor]:
         return seal_tree(key, extract_slot(self.cache, slot), prefix=prefix,
@@ -551,7 +569,7 @@ class ShardedKVBackend:
 
 def make_backend(kind: str, model, *, max_slots: int, max_len: int,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 plan: Optional[SingleDevicePlan] = None,
+                 plan: Optional[ComputePlan] = None,
                  prefix_sharing: bool = False,
                  alloc: Optional[str] = None,
                  decode: str = "gather",

@@ -92,7 +92,7 @@ from repro_torch.models.transformer import BLOCK, SLOT, _layer
 from repro_torch.runtime import sampling
 from repro_torch.runtime.kvcache import KVBackend, host_upload
 from repro_torch.runtime.pagestore import SealedPageStore
-from repro_torch.runtime.plan import SingleDevicePlan
+from repro_torch.runtime.plan import ComputePlan
 
 Cache = Any
 Params = Any
@@ -133,7 +133,7 @@ class PagedKVBackend(KVBackend):
 
     def __init__(self, model, max_slots: int, max_len: int, *,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 plan: Optional[SingleDevicePlan] = None,
+                 plan: Optional[ComputePlan] = None,
                  prefix_sharing: bool = False, alloc: Optional[str] = None,
                  decode: str = "gather", page_store: Any = None,
                  store_budget_pages: Optional[int] = None):

@@ -50,7 +50,14 @@ def parse_mesh(spec: str) -> Tuple[int, int]:
     return dp, tp
 
 
-class SingleDevicePlan:
+class ComputePlan:
+    """The plan seam the engine and the KV backends compile through, and
+    the single-device contract: the model on one device, a prefill that
+    keeps every row's bits its own, a decode step under inference mode,
+    no collective cost. A plan that places or moves weights differently
+    (:class:`ShardedPlan`) overrides the placement, its step's wrappers and
+    the collective accounting."""
+
     is_sharded = False
     name = "single"
 
@@ -114,6 +121,10 @@ class SingleDevicePlan:
         return torch.inference_mode()(fn)
 
 
+class SingleDevicePlan(ComputePlan):
+    """One device, the engine's default plan."""
+
+
 def _row_view(cache: Params, i: int, j: Optional[int] = None) -> Params:
     """Rows ``i:j`` (row ``i`` alone by default) of a batched cache as a
     cache of views (``pos`` is ``[b]``, every other leaf ``[L, b, ...]``),
@@ -136,7 +147,7 @@ def _pad_rows(cache: Params, n: int) -> Params:
     return {k: pad(k, v) for k, v in cache.items()}
 
 
-class PrefillOnlyPlan(SingleDevicePlan):
+class PrefillOnlyPlan(ComputePlan):
     """The prefill half of a disaggregated engine: prompts prefill here
     while the decode plan keeps stepping, and the finished KV rows leave
     through the engine's sealed plan-to-plan handoff, so this plan has no
@@ -224,7 +235,7 @@ class ShardedWeights:
         return sum(b.numel() * b.element_size() for b in self.buffers.values())
 
 
-class ShardedPlan(SingleDevicePlan):
+class ShardedPlan(ComputePlan):
     """One engine over a ``("data", "model")`` mesh of logical shards on one
     physical device (:func:`repro_torch.launch.mesh.make_host_mesh`):
 

@@ -286,6 +286,36 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+@pytest.mark.parametrize("kind,kw,want", [
+    ("slot", {}, 65_544), ("paged", {"page_size": 8}, 69_632),
+    ("paged", {}, 73_728)], ids=["slot", "paged8", "paged16"])
+def test_cache_nbytes_matches_reference(models, kind, kw, want):
+    """``cache_nbytes`` of each backend, and the module's ``cache_bytes``
+    of the slot backend's cache, equal the reference's on smoke
+    deepseek-7b (2 slots x 64 positions)."""
+    from repro.runtime import kvcache as jkv
+    from repro_torch.runtime import kvcache as tkv
+    jm, _, tm, _ = models
+    jb = jkv.make_backend(kind, jm, max_slots=2, max_len=64, **kw)
+    tb = tkv.make_backend(kind, tm, max_slots=2, max_len=64, **kw)
+    assert tb.cache_nbytes() == jb.cache_nbytes() == want
+    if kind == "slot":
+        assert tkv.cache_bytes(tb.cache) == jkv.cache_bytes(jb.cache) == want
+
+
+def test_store_resident_pages_default_matches_reference(models):
+    """A backend without a page store serves no page from one: the base
+    class's default answers 0, as the reference's does."""
+    from repro.runtime import kvcache as jkv
+    from repro_torch.runtime import kvcache as tkv
+    jm, _, tm, _ = models
+    keys = [b"k0", b"k1"]
+    jb = jkv.make_backend("slot", jm, max_slots=2, max_len=64)
+    tb = tkv.make_backend("slot", tm, max_slots=2, max_len=64)
+    assert tb.store_resident_pages(keys) == jb.store_resident_pages(keys) == 0
+    assert tb.store_resident_pages(None) == 0
+
+
 def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")

@@ -828,3 +828,78 @@ def test_hybrid_pause_freezes_recurrent_state_on_card(card):
         eng.run()
         outs.append((list(low.output), list(mate.output)))
     assert outs[0] == outs[1]
+
+
+def _train_state(device, moment_dtype="float32"):
+    """Smoke deepseek-7b (f32) with q- and loss-chunks of 8, its initial
+    train state from seed 0 on ``device``, and 2 microbatches' step."""
+    import dataclasses
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+    cfg = smoke_config("deepseek-7b")
+    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, attention_chunk=8, loss_chunk=8))
+    model = build_model(cfg, device=device)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50,
+                      moment_dtype=moment_dtype)
+    return (init_train_state(model, opt, seed=0),
+            make_train_step(model, opt, microbatches=2))
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """Two train steps (2 microbatches, chunked attention and loss, full
+    remat) on the card from the CPU's initial state: losses and grad norms
+    within 1e-5, the params and moments within 1e-4 of each leaf's
+    largest entry (f32 products in another order; a gradient at rounding
+    noise can turn AdamW's step by up to lr)."""
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.data.pipeline import PackedLMDataset
+    cstate, cstep = _train_state("cpu")
+    _, gstep = _train_state(card)
+    gstate = tree_map(lambda t: t.to(card), cstate)
+    data = iter(PackedLMDataset(batch_size=4, seq_len=32, seed=0))
+    for _ in range(2):
+        batch = next(data)
+        cstate, cm = cstep(cstate, batch)
+        gstate, gm = gstep(gstate, batch)
+        for k in ("loss", "grad_norm", "lr"):
+            torch.testing.assert_close(gm[k].cpu(), cm[k], rtol=1e-5,
+                                       atol=1e-5)
+    for (n, g), (_, c) in zip(tree_leaves_with_names(gstate),
+                              tree_leaves_with_names(cstate)):
+        assert g.device.type == "cuda", n
+        scale = max(float(c.abs().max()), 1e-30) if c.is_floating_point() \
+            else 0.0
+        torch.testing.assert_close(g.cpu(), c, rtol=0, atol=1e-4 * scale,
+                                   msg=n)
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_sealed_checkpoint_on_card_restores_bit_equal(card, tmp_path,
+                                                      moments):
+    """A train state sealed on the card (B1) restores bit for bit on the
+    card and on the CPU, and its files equal the same state's sealed on
+    the CPU (the ciphertext does not depend on the device)."""
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    cstate, _ = _train_state("cpu", moments)
+    gstate = tree_map(lambda t: t.to(card), cstate)
+    key = SealingKey.generate(b"ckpt-card")
+    before = C.launches
+    save_checkpoint(tmp_path / "g", 3, gstate, trust_domain=TrustDomain(
+        "tdx", sealing_key=key, device=card))
+    assert C.launches > before
+    save_checkpoint(tmp_path / "c", 3, cstate, trust_domain=TrustDomain(
+        "tdx", sealing_key=key, device="cpu"))
+    for f in sorted((tmp_path / "g" / "step_3").iterdir()):
+        assert f.read_bytes() == (tmp_path / "c" / "step_3" / f.name
+                                  ).read_bytes(), f.name
+    for like, device in ((gstate, None), (cstate, "cpu")):
+        back = restore_checkpoint(tmp_path / "g", 3, like,
+                                  trust_domain=TrustDomain(
+                                      "tdx", sealing_key=key, device=card))
+        for (n, b), (_, c) in zip(tree_leaves_with_names(back),
+                                  tree_leaves_with_names(cstate)):
+            assert b.device.type == (device or "cuda"), n
+            assert b.dtype == c.dtype and torch.equal(b.cpu(), c), n

@@ -14,6 +14,7 @@ import torch
 from _torch_ref import REF_TRIES, reference_run
 from conftest import (CANONICAL_CONFIGS, CANONICAL_ENGINE, burst_requests,
                       check_pool_invariants)
+from repro_torch.runtime import ComputePlan, ShardedPlan, SingleDevicePlan
 from repro_torch.runtime.plan import PrefillOnlyPlan
 from test_torch_sampled_serving import (CHANNEL_FIELDS, STAT_FIELDS,  # noqa
                                         Side, _canonical, _spec_gen,
@@ -211,3 +212,38 @@ def test_prefill_plan_shares_weights_and_has_no_decode(models):
     ref_logits, _ = port.model.prefill(eng.params, {"tokens": tokens},
                                        port.model.init_cache(1, 64))
     assert torch.equal(logits, ref_logits)
+
+
+def test_compute_plan_subclasses_are_accepted(models):
+    """``repro_torch.runtime.ComputePlan`` is the base of every plan, as the
+    reference's is, and an engine takes any subclass as its plan and as its
+    dedicated prefill plan: served through two subclasses, a request gets
+    the default engine's tokens."""
+    from repro.runtime import ComputePlan as JComputePlan
+    from repro.runtime import PrefillOnlyPlan as JPrefillOnlyPlan
+    assert issubclass(JPrefillOnlyPlan, JComputePlan)
+    for cls in (SingleDevicePlan, PrefillOnlyPlan, ShardedPlan):
+        assert issubclass(cls, ComputePlan)
+
+    class CountingPlan(ComputePlan):
+        name = "counting"
+        decodes = 0
+
+        def compile_decode(self, fn):
+            step = super().compile_decode(fn)
+
+            def counted(*args):
+                CountingPlan.decodes += 1
+                return step(*args)
+            return counted
+
+    class OwnPrefillPlan(PrefillOnlyPlan):
+        name = "own-prefill"
+
+    port = Side(True, models)
+    want = port.engine().generate(port.gen(max_new_tokens=5))
+    eng = port.engine(plan=CountingPlan(port.model),
+                      prefill_plan=OwnPrefillPlan(port.model))
+    assert eng.prefill_plan.name == "own-prefill"
+    assert eng.generate(port.gen(max_new_tokens=5)).tokens == want.tokens
+    assert CountingPlan.decodes > 0
