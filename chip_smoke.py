@@ -77,7 +77,21 @@ Phases, each fatal on failure:
      tokens bit-equal to the single-device engine's and to each request's
      solo run on the mesh engine, every sealed name tagged /s0 or /s1, a
      victim restored onto the other shard, one counted gather of half the
-     non-norm weights a decode step, B1 the only kernel.
+     non-norm weights a decode step, B1 the only kernel. Then the TP path:
+     the same weights on a tp=2 mesh of logical shards (each shard's
+     heads and d_ff block as views, every layer's attention and FFN
+     partials all-reduced), the same waves on the slot backend and on
+     paged-gather: each request equal to its solo run on the tp=2 engine,
+     the collective bytes a step equal to tp_step_bytes' formula, one
+     decode step's logits within TP_LOGITS_REL_TOL of one device's, B1 the
+     only kernel. Then, the weights freed, the ranks path: two processes
+     on the card over gloo (file:// rendezvous under build/), each
+     building the seed-0 weights in turn, checking their fingerprints
+     against the parent's and keeping its tp=2 half; the slot waves on a
+     tp=2 engine spanning the ranks give the TP path's tokens, sealed
+     names and blob bytes bit for bit, every name sealed by one rank and
+     the frames sent by rank 0 alone; then dp=2 over the same ranks on
+     Llama2-7B cut to 2 layers gives a logical dp=2 run's tokens.
      Each path runs with every kernel count set to 0 just before it; every
      request's tokens must equal the same request served alone on a fresh
      engine of that path; the pool invariants hold after every sharing and
@@ -149,6 +163,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1801,6 +1816,339 @@ def phase_mesh(torch, np, model, params, specs, gen, slot_outputs) -> dict:
     return out
 
 
+# the TP path: the same weights on a tp=2 mesh of logical shards on the card
+# (ShardedPlan + the dense TensorParallel compute: each shard holds views of
+# its 16 query and 16 KV heads and its 5,504-wide d_ff block, and every
+# layer's attention and FFN partials are all-reduced -- an all-gather and a
+# sum in rank order), the slot path's waves on the slot backend and on the
+# paged backend with gather decode. Sealing keys from TP_KEY, so the ranks
+# path can hold its blobs to this run's.
+TP_MESH = "tp=2"
+TP_KEY = b"chip-smoke-tp"
+# one decode step's logits, tp=2 vs one device, bf16 Llama2-7B: each of the
+# 65 reductions rounds two bf16 partials and their bf16 sum where one device
+# rounds one product, so each residual add moves by up to about 2 x 2^-9 of
+# the residual's scale; over 64 adds a random walk gives about
+# sqrt(64) x 2 x 2^-9 = 3 % -- under the 5 % of max |logit| that the
+# paged-kernel check allows for the same kind of bf16 drift
+TP_LOGITS_REL_TOL = 0.05
+# the ranks path: 2 processes on the one card (gloo through host memory,
+# file:// rendezvous under build/), each holding its tp=2 half of the
+# weights; then dp=2 over the same 2 ranks on Llama2-7B cut to 2 of 32
+# layers (every rank gathers the other half of the 1.07 GB of sharded
+# leaves through the host each step), 4 slots so a data shard steps 2 rows
+RANKS = 2
+RANKS_DP_LAYERS = 2
+RANKS_DP_KW = dict(ENGINE_KW, max_slots=4)
+RANKS_TIMEOUT_S = 600
+
+
+def tp_step_bytes(cfg, rows: int, tp: int) -> int:
+    """What one tp decode step's collectives move into a shard, written
+    down before the run: 2 reductions a layer plus the embedding's, each an
+    all-gather of the [rows, 1, d_model] bf16 partials, and the f32 logits
+    gathered along the vocabulary."""
+    d, layers, vocab = cfg.d_model, cfg.num_layers, cfg.vocab_size
+    return ((2 * layers + 1) * (tp - 1) * rows * d * 2
+            + (tp - 1) * rows * (vocab // tp) * 4)
+
+
+def record_seals(eng) -> list:
+    """Wrap the engine's KV seal: each seal's {name: sha256 of its
+    ciphertext and MAC}, in order (the bit-for-bit blob check keeps
+    these)."""
+    import hashlib
+    seals, seal = [], eng.kv.seal
+
+    def recording(*a, **k):
+        out = seal(*a, **k)
+        seals.append({n: hashlib.sha256(st.ciphertext.cpu().numpy().tobytes()
+                                        + st.mac).hexdigest()
+                      for n, st in out.items()})
+        return out
+
+    eng.kv.seal = recording
+    return seals
+
+
+def tp_keys():
+    from repro_torch.core import SealingKey
+    return dict(sealing_key=SealingKey.generate(TP_KEY),
+                io_key=SealingKey.generate(TP_KEY + b"-io"))
+
+
+def step_logits(torch, Engine, model, params, mesh, prompts, toks):
+    """One decode step's logits through a 2-slot engine's plan, both rows
+    prefilled (comparison only)."""
+    eng = Engine(model, params, mesh=mesh, **ENGINE_KW)
+    cache = eng.kv.fresh_prefill_cache(prompts.shape[0])
+    with torch.inference_mode():
+        _, cache = eng.plan.compile_prefill()(eng.params, prompts, cache)
+        compute = eng.plan.gather(eng.params) if mesh else eng.params
+        logits, _ = eng.plan.decode_step(compute, toks, cache)
+    return logits
+
+
+def phase_tp(torch, np, model, params, specs, gen, mesh_out) -> dict:
+    """The TP path on each of MESH_BACKENDS, every kernel count set to 0
+    just before each engine is built. The warm single-device run on the
+    same backend is the mesh path's (just before it, in this call)."""
+    from repro_torch.core import TrustDomain
+    from repro_torch.core.overheads import measured_link_tax
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.runtime import Engine
+
+    cfg = model.cfg
+    expect_b = tp_step_bytes(cfg, ENGINE_KW["max_slots"], 2)
+    out = {}
+    for label, kw in MESH_BACKENDS.items():
+        single = mesh_out[label]["single"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # ---- the TP path on this backend: counts start at 0 here ---------
+        reset_counts(C, P, Q, FA)
+        td = TrustDomain("tdx", **tp_keys())
+        eng = Engine(model, params, trust_domain=td, mesh=TP_MESH, **kw)
+        seals = record_seals(eng)
+        t0 = time.perf_counter()
+        reqs, stats = serve_waves(eng, specs, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = path_launches()
+        peak = torch.cuda.max_memory_allocated()
+        # ---- end of the TP path ----------------------------------------------
+        outputs = [list(r.output) for r in reqs]
+        check(eng.plan.tensor_parallel is not None and eng.plan.tp == 2,
+              f"tp {label}: the engine spans a tp=2 plan")
+        check(all(r.finished for r in reqs) and stats.preemptions > 0,
+              f"tp {label}: every request finished, after a preemption")
+        check(launches["chacha20_xor_blocked"] > 0,
+              f"tp {label}: B1 ran under the seals and unseals")
+        check(sum(launches.values()) == launches["chacha20_xor_blocked"],
+              f"tp {label}: no kernel but B1 ran ({launches})")
+        names = [n for s_ in seals for n in s_]
+        check(names and all(n.endswith("/s0") for n in names),
+              f"tp {label}: every sealed name ends in /s0")
+        ch = td.channel.stats
+        steps = ch.collective_steps
+        per_step = ch.collective_bytes // max(steps, 1)
+        check(per_step == eng.plan.collective_bytes_per_step == expect_b
+              and ch.collective_bytes == steps * expect_b,
+              f"tp {label}: {per_step} collective B/step == the formula's "
+              f"{expect_b} B")
+        check(ch.collective_s > 0, f"tp {label}: collective_s measured")
+        coll_ms = ch.collective_s / max(steps, 1) * 1e3  # before the solos
+        _, _, link = measured_link_tax(
+            ch, "tdx", stats.mean_latency_s or 1e-3,
+            measures=eng.plan.collective_measures)
+        agree = sum(a == b for o, p in zip(outputs, single["outputs"])
+                    for a, b in zip(o, p))
+        for i, spec in enumerate(specs):
+            r = eng.submit(gen(spec))
+            eng.run(max_steps=10_000)
+            check(list(r.output) == outputs[i], f"tp {label}: request {i} "
+                  f"equals its solo run on the tp=2 engine")
+        out[label] = dict(stats=stats, wall_s=wall, launches=launches,
+                          peak=peak, steps=steps, per_step=per_step,
+                          expect_b=expect_b, outputs=outputs, seals=seals,
+                          coll_ms=coll_ms, link=link, agree=agree,
+                          tokens=sum(map(len, outputs)),
+                          describe=eng.plan.describe(), single=single)
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = torch.as_tensor(np.stack([specs[0][0][:20], specs[1][0][:20]]),
+                              device="cuda")
+    toks = torch.tensor([[5], [9]], dtype=torch.int32, device="cuda")
+    ref = step_logits(torch, Engine, model, params, None, prompts, toks)
+    got = step_logits(torch, Engine, model, params, TP_MESH, prompts, toks)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()), "tp logits finite")
+    check(err <= TP_LOGITS_REL_TOL * scale,
+          f"tp=2 logits within {TP_LOGITS_REL_TOL} x max |logit| of one "
+          f"device's ({err:.4g} vs max {scale:.4g})")
+    out["logits"] = dict(err=err, scale=scale, argmax=bool(torch.equal(
+        got.argmax(-1), ref.argmax(-1))))
+    out["fingerprints"] = {n: fingerprint(torch, t)
+                           for n, t in tree_leaves_with_names(params)}
+    return out
+
+
+def rank_worker(rank, world, init_file, device, cfg_name, smoke, specs,
+                fps, out_dir):
+    """One rank of the ranks path (spawned): join the gloo world; build the
+    weights from seed 0 in turn (rank 0, then rank 1: the card holds at
+    most one whole copy beside the halves), check their fingerprints
+    against the parent's and keep this rank's tp=2 half; serve the slot
+    path's waves on a tp=2 engine spanning the ranks; then a dp=2 engine
+    on the depth cut. Saves what it saw under ``out_dir``."""
+    import dataclasses
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=RANKS_TIMEOUT_S))
+    try:
+        from repro_torch.configs import get_config, smoke_config
+        from repro_torch.core import SealingKey, TrustDomain
+        from repro_torch.core.sealing import tree_leaves_with_names
+        from repro_torch.kernels import chacha20 as C
+        from repro_torch.models import build_model
+        from repro_torch.runtime import Engine, ShardedPlan, kvcache
+
+        cfg = (smoke_config if smoke else get_config)(cfg_name)
+        model = build_model(cfg, device=device)
+        plan = ShardedPlan(model, tp=world)
+        weights = None
+        for turn in range(world):
+            if turn == rank:
+                params = model.init_params(seed=0)
+                got = {n: fingerprint(torch, t)
+                       for n, t in tree_leaves_with_names(params)}
+                check(got == fps, f"rank {rank}: its seed-0 weights' "
+                      f"fingerprints equal the parent's")
+                weights = plan.place_params(params)
+                del params
+                gc.collect()
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        own = []
+        seal_tensor = kvcache.seal_tensor
+
+        def sealing(key, name, array, **kw):
+            own.append(name)
+            return seal_tensor(key, name, array, **kw)
+
+        kvcache.seal_tensor = sealing
+
+        def gen(spec):
+            from repro_torch.runtime import GenerationRequest
+            prompt, mnt, prio = spec
+            return GenerationRequest(prompt=prompt.copy(), max_new_tokens=mnt,
+                                     priority=prio)
+
+        def run(eng, td):
+            seals = record_seals(eng)
+            t0 = time.perf_counter()
+            reqs, stats = serve_waves(eng, specs, gen)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ch = td.channel.stats
+            return dict(tokens=[list(r.output) for r in reqs], seals=seals,
+                        wall_s=time.perf_counter() - t0,
+                        p50=stats.p50_latency_s, ttft=stats.p50_ttft_s,
+                        preemptions=stats.preemptions,
+                        frames=ch.messages_out, steps=ch.collective_steps,
+                        per_step=ch.collective_bytes // max(
+                            ch.collective_steps, 1),
+                        coll_ms=ch.collective_s / max(ch.collective_steps, 1)
+                        * 1e3, describe=eng.plan.describe(),
+                        measures=eng.plan.collective_measures)
+
+        C.reset_launches()
+        td = TrustDomain("tdx", device=device, **tp_keys())
+        eng = Engine(model, weights, plan=plan, trust_domain=td,
+                     device=device, **ENGINE_KW)
+        del weights
+        result = {"tp": run(eng, td)}
+        result["tp"].update(own=list(own), launches=C.launches,
+                            peak=(torch.cuda.max_memory_allocated()
+                                  if device == "cuda" else 0))
+        del eng, plan
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        cut = build_model(dataclasses.replace(cfg, num_layers=RANKS_DP_LAYERS),
+                          device=device)
+        td = TrustDomain("tdx", device=device, **tp_keys())
+        own.clear()
+        eng = Engine(cut, cut.init_params(seed=0), mesh=f"dp={world}",
+                     trust_domain=td, device=device, **RANKS_DP_KW)
+        result["dp"] = run(eng, td)
+        result["dp"]["own"] = list(own)
+        torch.save(result, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_reference(torch, Engine, cfg, specs, gen, device) -> list:
+    """The dp case's tokens on a logical dp=2 mesh of the same cut, in this
+    process (comparison only)."""
+    import dataclasses
+    from repro_torch.core import TrustDomain
+    from repro_torch.models import build_model
+    cut = build_model(dataclasses.replace(cfg, num_layers=RANKS_DP_LAYERS),
+                      device=device)
+    eng = Engine(cut, cut.init_params(seed=0), mesh=f"dp={RANKS}",
+                 trust_domain=TrustDomain("tdx", device=device, **tp_keys()),
+                 device=device, **RANKS_DP_KW)
+    reqs, _ = serve_waves(eng, specs, gen)
+    return [list(r.output) for r in reqs]
+
+
+def phase_ranks(torch, np, cfg_name, specs, tp_out, device="cuda",
+                smoke=False) -> dict:
+    """The ranks path: RANKS spawned processes on the one card, after the
+    parent has freed its weights. Tokens, sealed names and blob bytes of
+    the tp=2 run equal the TP path's logical-shard run (slot backend) bit
+    for bit, each name sealed by one rank, frames from rank 0 alone; the
+    dp=2 run's tokens equal the logical dp=2 run of the same cut."""
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.runtime import Engine, GenerationRequest
+
+    def gen(spec):
+        prompt, mnt, prio = spec
+        return GenerationRequest(prompt=prompt.copy(), max_new_tokens=mnt,
+                                 priority=prio)
+
+    cfg = (smoke_config if smoke else get_config)(cfg_name)
+    dp_want = dp_reference(torch, Engine, cfg, specs, gen, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    work = Path(__file__).resolve().parent / "build" / "ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    outs = [work / f"rank{r}.pt" for r in range(RANKS)]
+    t0 = time.perf_counter()
+    mp.spawn(rank_worker, nprocs=RANKS, join=True, args=(
+        RANKS, str(work / "init"), device, cfg_name, smoke, specs,
+        tp_out["fingerprints"], str(work)))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f, weights_only=False) for f in outs]
+    want = tp_out["slot"]
+    names = sorted(n for s_ in want["seals"] for n in s_)
+    for r, got in enumerate(ranks):
+        tp = got["tp"]
+        check(tp["tokens"] == want["outputs"], f"ranks tp=2: rank {r}'s "
+              f"tokens equal the logical tp=2 run's")
+        check(tp["seals"] == want["seals"], f"ranks tp=2: rank {r}'s sealed "
+              f"names and blob bytes equal the logical tp=2 run's")
+        check(tp["preemptions"] > 0, "ranks tp=2: a preemption")
+        check(got["dp"]["tokens"] == dp_want, f"ranks dp=2: rank {r}'s "
+              f"tokens equal the logical dp=2 run of the cut")
+    sealed_by = sorted(n for got in ranks for n in got["tp"]["own"])
+    check(sealed_by == names, "ranks tp=2: every name sealed by exactly one "
+          "rank")
+    check(not ranks[1]["tp"]["own"], "ranks tp=2: rank 1 sealed nothing")
+    check(ranks[0]["tp"]["frames"] > 0 and ranks[1]["tp"]["frames"] == 0,
+          "ranks: rank 0 alone sent egress frames")
+    launches = sum(got["tp"]["launches"] for got in ranks)
+    check(launches > 0, "ranks tp=2: B1 ran under the seals and unseals")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(ranks=ranks, wall_s=wall, launches=launches, seals=len(names))
+
+
 def reset_counts(*kernels) -> None:
     for K in kernels:
         K.reset_launches()
@@ -2006,6 +2354,23 @@ def phase_serve(torch, np) -> dict:
           + "; collective bytes a step equal the plan's half of the "
             "non-norm weights")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    tpo = phase_tp(torch, np, model, unsealed, specs, gen, ms)
+    path_s["tp"] = time.perf_counter() - t_path
+    print(f"  TP path: {len(specs)} requests on a {TP_MESH} mesh of logical "
+          f"shards per backend ({', '.join(MESH_BACKENDS)}); each request "
+          f"equals its solo run on the tp=2 engine; tokens equal to one "
+          f"device's (not required: the partials round in another order): "
+          + ", ".join(f"{label} {tpo[label]['agree']} of "
+                      f"{tpo[label]['tokens']}" for label in MESH_BACKENDS)
+          + f"; one decode step's logits vs one device's: max |diff| "
+            f"{tpo['logits']['err']:.4g}, max |logit| "
+            f"{tpo['logits']['scale']:.4g} (tol {TP_LOGITS_REL_TOL} x max), "
+            f"argmax equal: {tpo['logits']['argmax']}; collective bytes a "
+            f"step equal the formula's {tpo['slot']['expect_b']} B")
+
     # one decode step's logits: paged-kernel path vs slot path, same cache
     from repro_torch.runtime.kvcache import make_backend
     prompt = torch.as_tensor(specs[2][0][None, :], device="cuda")
@@ -2080,7 +2445,7 @@ def phase_serve(torch, np) -> dict:
                 logit_err=logit_err,
                 kv_decode_s=kv_decode_s, kv_positions=kv_positions,
                 share=sh, store=st, two_phase=tp, fleet=fl, rag=rg,
-                mesh=ms, path_s=path_s)
+                mesh=ms, tp=tpo, specs=specs, path_s=path_s)
 
 
 # the families path: one model of each family beyond dense, at its published
@@ -2998,6 +3363,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_t["serve"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
+    rk = phase_ranks(torch, np, "llama2-7b", sv["specs"], sv["tp"])
+    phase_t["ranks"] = time.perf_counter() - t_phase
+    print(f"  ranks path: {RANKS} processes on the one card over gloo, each "
+          f"holding its tp=2 half of the weights (built in turn, "
+          f"fingerprints equal to the parent's): tokens, {rk['seals']} "
+          f"sealed names and their blob bytes equal the TP path's logical "
+          f"run bit for bit, every name sealed by rank 0 alone, egress "
+          f"frames from rank 0 alone; dp={RANKS} over the same ranks on "
+          f"{RANKS_DP_LAYERS} of 32 layers: tokens equal the logical dp="
+          f"{RANKS} run of the cut ({rk['wall_s']:.1f}s with the spawn)")
+    t_phase = time.perf_counter()
     print("[6/9] families: " + ", ".join(
         f"{n} {cut}" for n, cut, _ in FAMILIES)
         + " at published width, one at a time under tdx; whisper-small at "
@@ -3158,6 +3534,38 @@ def main() -> int:
         print(f"    peak device memory {r['peak']} B (the caller's unsealed "
               f"weights, the chunks, the gather buffers); launches "
               f"{r['launches']} {card}")
+    for label in MESH_BACKENDS:
+        r = sv["tp"][label]
+        ts, one = r["stats"], r["single"]["stats"]
+        print(f"  TP path, {label} ({r['describe']}): {ts.total_requests} "
+              f"requests / {ts.total_tokens} tokens in {r['wall_s']:.2f}s "
+              f"wall (one device {r['single']['wall_s']:.2f}s); next-token "
+              f"p50 {ts.p50_latency_s * 1e3:.2f} ms (one device "
+              f"{one.p50_latency_s * 1e3:.2f} ms); TTFT p50 "
+              f"{ts.p50_ttft_s * 1e3:.2f} ms (one device "
+              f"{one.p50_ttft_s * 1e3:.2f} ms); {r['steps']} decode steps, "
+              f"{ts.preemptions} preemptions {card}")
+        print(f"    collectives: {r['per_step']} B/step (formula "
+              f"{r['expect_b']} B: 65 bf16 reductions of [2, 1, 4096] and "
+              f"the f32 logits' vocabulary gather), {r['coll_ms']:.4f} ms a "
+              f"step (CUDA events on every reduction and gather: sums and "
+              f"copies in device memory, one card, no link); peak device "
+              f"memory {r['peak']} B; launches {r['launches']} {card}")
+        print(f"    link-tax [{TP_MESH}, tdx]: {r['link']} {card}")
+    for case in ("tp", "dp"):
+        r0 = rk["ranks"][0][case]
+        print(f"  ranks path, {case}=2 ({r0['describe']}): "
+              f"{sum(map(len, r0['tokens']))} tokens in {r0['wall_s']:.2f}s "
+              f"wall; next-token p50 {r0['p50'] * 1e3:.2f} ms, TTFT p50 "
+              f"{r0['ttft'] * 1e3:.2f} ms; {r0['steps']} decode steps; "
+              f"collectives {r0['per_step']} B/step, "
+              + ", ".join(f"rank {i} {got[case]['coll_ms']:.3f} ms"
+                          for i, got in enumerate(rk["ranks"]))
+              + f" a step (host clock: gloo through host memory on one "
+                f"card, not NVLink) {card}")
+    print(f"    ranks path, tp=2: peak device memory of rank 0 "
+          f"{rk['ranks'][0]['tp']['peak']} B (its whole seed-0 copy while it "
+          f"built its half); B1 launches {rk['launches']} {card}")
     print(f"  sampler vs the decode step: sample() {sp['ms']:.4f} ms device "
           f"/ {sp['host_ms']:.4f} ms with host issue, beside a 2-row "
           f"decode_step of {sv['decode_s'] * 1e3:.2f} ms (host clock)")
@@ -3181,15 +3589,17 @@ def main() -> int:
     later = [sh["launches"], st_["launches"], fl["launches"],
              rg["launches"], fam_launches] + [
         r["launches"] for r in sv["mesh"].values()] + [
+        sv["tp"][label]["launches"] for label in MESH_BACKENDS] + [
         r["launches"] for r in sv["two_phase"]["modes"].values()]
     pl = {k: v + sum(x[k] for x in later)
           for k, v in sv["paged_launches"].items()}
     b1_launches = (sv["launches"] + pl["chacha20_xor_blocked"]
                    + tr["launches"]["chacha20_xor_blocked"]
-                   + qp["launches"]["chacha20_xor_blocked"])
+                   + qp["launches"]["chacha20_xor_blocked"]
+                   + rk["launches"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
           f"{b1_launches} (slot, paged, sharing, store, two-phase, fleet, "
-          f"RAG, mesh, families, training, int8), B3 {pl['paged_attention']} (paged, "
+          f"RAG, mesh, TP, ranks, families, training, int8), B3 {pl['paged_attention']} (paged, "
           f"sharing, store, two-phase, fleet, RAG, chameleon) and B4 "
           f"{pl['paged_attention_unseal']} (paged, sharing, store, "
           f"two-phase, fleet, chameleon)")

@@ -181,7 +181,8 @@ STEP_COMPUTE_FRACTION = 0.3
 STEP_MEMORY_FRACTION = 0.65
 
 
-def measured_link_tax(channel_stats, profile: str, step_s: float
+def measured_link_tax(channel_stats, profile: str, step_s: float,
+                      measures: Optional[str] = None
                       ) -> "tuple[OverheadBreakdown, OverheadBreakdown, str]":
     """Measured-vs-modeled link-tax comparison for a mesh engine.
 
@@ -192,7 +193,11 @@ def measured_link_tax(channel_stats, profile: str, step_s: float
     per-step collective time (``collective_s_per_step``, the plan's timed
     gathers). ``step_s`` is the observed decode-step latency the
     compute/memory terms are apportioned from (the launcher's standing
-    0.3/0.65 split). Returns (modeled, measured, report line)."""
+    0.3/0.65 split). ``measures`` says what the collective time measured
+    (a mesh plan's ``collective_measures``: on logical shards a copy or sum
+    in device memory, over ranks sharing one card gloo through host memory,
+    over NCCL the link); the line ends with it. Returns (modeled,
+    measured, report line)."""
     steps = max(channel_stats.collective_steps, 1)
     per_step_b = channel_stats.collective_bytes // steps
     modeled_s = per_step_b / LINK_BYTES_PER_S
@@ -208,6 +213,8 @@ def measured_link_tax(channel_stats, profile: str, step_s: float
             f"-> TEE overhead {modeled.overhead * 100:.2f}% vs "
             f"{measured.overhead * 100:.2f}% "
             f"(delta {(measured.overhead - modeled.overhead) * 100:+.2f} pts)")
+    if measures is not None:
+        line += f" [measured: {measures}]"
     return modeled, measured, line
 
 

@@ -104,6 +104,11 @@ class SealedTensor:
         return f"{self.name}|{self.shape}|{self.dtype}|{self.n_bytes}".encode()
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype in the header's numpy spelling."""
+    return _DTYPE_NAMES[dtype]
+
+
 def _mac(key: SealingKey, sealed_header: bytes, ciphertext: torch.Tensor) -> bytes:
     h = hmac.new(key.mac_key, sealed_header, hashlib.sha256)
     flat = ciphertext.reshape(-1)

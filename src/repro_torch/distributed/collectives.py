@@ -1,0 +1,308 @@
+"""Collectives over a mesh axis (the port's counterpart of what
+``repro.distributed.compat`` gives ``overlap.py`` and ``plan.py``:
+``shard_map``, ``axis_size``, ``axis_index``, ``ppermute``, ``all_gather``).
+
+Two groups share one interface. A collective takes the list of per-shard
+tensors this process holds, in the order of ``group.local`` (the shard
+indices it computes), and returns what every one of them receives:
+
+  * :class:`LocalGroup` -- ``n`` logical shards in one process, on one
+    device: ``local`` is every shard, and a collective is a sum or a
+    concatenation in device memory;
+  * :class:`RankGroup` -- one shard per process of a ``torch.distributed``
+    group: ``local`` is this rank's index in the group. The backend is
+    NCCL when each rank has a card of its own and gloo otherwise (the CPU,
+    or ranks sharing one card: NCCL refuses two ranks on one device);
+    gloo's traffic is staged through host memory explicitly. A failed
+    collective raises; nothing falls back.
+
+The all-reduce of both groups is an all-gather followed by a sum in rank
+order, so a result has the same bits whichever group computed it and
+every rank holds identical values. Each group counts the bytes it moves
+into one shard and times every collective (CUDA events on the card, the
+host clock on the CPU and around gloo's host staging); :meth:`Group.take`
+hands the records over and clears them.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+Parts = List[torch.Tensor]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def rank_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...``, left to right (the all-reduce's fixed
+    order)."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+class Group:
+    """One mesh axis's collectives; see the module docstring."""
+
+    kind = "?"
+    size = 1
+    local: List[int] = [0]
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        # (bytes into one shard, a mark: host seconds or a CUDA event pair)
+        self._records: List[Tuple[int, Any]] = []
+        # False while a process runs a second data shard's copy of the same
+        # collectives (logical shards): timed, its bytes not counted again
+        self.counting = True
+
+    # -- accounting ---------------------------------------------------------
+    def _record(self, nbytes: int, mark) -> None:
+        self._records.append((nbytes if self.counting else 0, mark))
+
+    def _timed(self, nbytes: int, fn: Callable[[], Any], events: bool):
+        if events and self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            self._record(nbytes, (start, end))
+            return out
+        t0 = time.perf_counter()
+        out = fn()
+        self._record(nbytes, time.perf_counter() - t0)
+        return out
+
+    def take(self) -> Tuple[int, List[Any]]:
+        """(bytes moved into one shard, time marks) since the last take."""
+        records, self._records = self._records, []
+        return sum(b for b, _ in records), [m for _, m in records]
+
+    # -- the interface --------------------------------------------------------
+    def all_gather_list(self, parts: Parts) -> Parts:
+        """Every shard's tensor, in rank order."""
+        raise NotImplementedError
+
+    def all_gather(self, parts: Parts, dim: int) -> torch.Tensor:
+        """Every shard's tensor concatenated along ``dim``, in rank order."""
+        raise NotImplementedError
+
+    def all_reduce(self, parts: Parts) -> torch.Tensor:
+        """The sum of every shard's tensor, in rank order."""
+        raise NotImplementedError
+
+    def ppermute(self, parts: Parts,
+                 perm: Sequence[Tuple[int, int]]) -> Parts:
+        """Shard ``dst`` receives shard ``src``'s tensor for each ``(src,
+        dst)`` of ``perm``; returns what the local shards receive."""
+        raise NotImplementedError
+
+    def broadcast(self, t: Optional[torch.Tensor], src: int, shape,
+                  dtype) -> torch.Tensor:
+        """Shard ``src``'s tensor (``t`` where this process holds ``src``;
+        ``shape``/``dtype`` describe it everywhere)."""
+        raise NotImplementedError
+
+    @property
+    def measures(self) -> str:
+        """What a collective's measured time is on this group."""
+        raise NotImplementedError
+
+
+class LocalGroup(Group):
+    """``n`` logical shards in one process on one device."""
+
+    kind = "local"
+
+    def __init__(self, n: int, device):
+        super().__init__(device)
+        self.size = int(n)
+        self.local = list(range(self.size))
+
+    def all_gather_list(self, parts: Parts) -> Parts:
+        self._record((self.size - 1) * _nbytes(parts[0]), 0.0)
+        return list(parts)
+
+    def all_gather(self, parts: Parts, dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return parts[0]
+        return self._timed((self.size - 1) * _nbytes(parts[0]),
+                           lambda: torch.cat(parts, dim=dim), events=True)
+
+    def all_reduce(self, parts: Parts) -> torch.Tensor:
+        if self.size == 1:
+            return parts[0]
+        return self._timed((self.size - 1) * _nbytes(parts[0]),
+                           lambda: rank_sum(parts), events=True)
+
+    def ppermute(self, parts: Parts, perm) -> Parts:
+        out: List[Optional[torch.Tensor]] = [None] * self.size
+        for src, dst in perm:
+            out[dst] = parts[src]
+        self._record(_nbytes(parts[0]), 0.0)
+        return [o if o is not None else torch.zeros_like(parts[i])
+                for i, o in enumerate(out)]
+
+    @property
+    def measures(self) -> str:
+        return ("the weight gather's copy and the reductions' sums in device "
+                "memory, one device, no link")
+
+
+def choose_backend(device: torch.device, devices: Sequence[str]) -> str:
+    """The process-group backend of a mesh over ranks: NCCL when the ranks
+    are on the card, one card each; gloo on the CPU or when ranks share a
+    card (NCCL refuses two ranks on one device). ``devices`` lists every
+    rank's device."""
+    if device.type == "cuda" and len(set(devices)) == len(devices):
+        return "nccl"
+    return "gloo"
+
+
+class RankGroup(Group):
+    """One shard per process: ``ranks`` (global ranks, in group order) of
+    an initialized ``torch.distributed`` world, ``pg`` their process
+    group."""
+
+    def __init__(self, pg, ranks: Sequence[int], backend: str, device):
+        super().__init__(device)
+        import torch.distributed as dist
+
+        self.pg = pg
+        self.ranks = list(ranks)
+        self.size = len(self.ranks)
+        self.kind = backend
+        self.local = [self.ranks.index(dist.get_rank())]
+        # gloo moves host tensors: a card's tensors are staged through host
+        # memory by the group itself
+        self._stage = backend == "gloo" and self.device.type == "cuda"
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        return t.cpu() if self._stage else t.to(self.device)
+
+    def _in(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device) if self._stage else t
+
+    def _gather(self, part: torch.Tensor) -> Parts:
+        import torch.distributed as dist
+
+        src = self._out(part.contiguous())
+        got = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(got, src, group=self.pg)
+        return [self._in(g) for g in got]
+
+    def all_gather_list(self, parts: Parts) -> Parts:
+        (part,) = parts
+        if self.size == 1:
+            return [part]
+        return self._timed((self.size - 1) * _nbytes(part),
+                           lambda: self._gather(part),
+                           events=self.kind == "nccl")
+
+    def all_gather(self, parts: Parts, dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return parts[0]
+        return torch.cat(self.all_gather_list(parts), dim=dim)
+
+    def all_reduce(self, parts: Parts) -> torch.Tensor:
+        if self.size == 1:
+            return parts[0]
+        return rank_sum(self.all_gather_list(parts))
+
+    def ppermute(self, parts: Parts, perm) -> Parts:
+        import torch.distributed as dist
+
+        (part,) = parts
+        me = self.local[0]
+        send_to = [dst for src, dst in perm if src == me]
+        recv_from = [src for src, dst in perm if dst == me]
+
+        def run():
+            src_t = self._out(part.contiguous())
+            got = torch.zeros_like(src_t)
+            ops = [dist.P2POp(dist.isend, src_t, self.ranks[d], self.pg)
+                   for d in send_to]
+            ops += [dist.P2POp(dist.irecv, got, self.ranks[s], self.pg)
+                    for s in recv_from]
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            return [self._in(got)]
+
+        return self._timed(_nbytes(part) * len(recv_from), run,
+                           events=self.kind == "nccl")
+
+    def broadcast(self, t, src, shape, dtype):
+        import torch.distributed as dist
+
+        if self.local[0] == src:
+            buf = self._out(t.contiguous())
+        else:
+            buf = torch.empty(shape, dtype=dtype,
+                              device="cpu" if self._stage else self.device)
+
+        def run():
+            dist.broadcast(buf, self.ranks[src], group=self.pg)
+            return self._in(buf)
+
+        return self._timed(_nbytes(buf), run, events=self.kind == "nccl")
+
+    @property
+    def measures(self) -> str:
+        if self.kind == "nccl":
+            return "NCCL over the link between the cards"
+        if self._stage:
+            return "gloo through host memory, ranks sharing one card, no link"
+        return "gloo between processes on the host"
+
+
+# ---------------------------------------------------------------------------
+# the reference's shard_map vocabulary over a group
+# ---------------------------------------------------------------------------
+
+def axis_size(group: Group) -> int:
+    return group.size
+
+
+def axis_index(group: Group) -> List[int]:
+    """The shard index of each local shard (one for a rank)."""
+    return list(group.local)
+
+
+def ppermute(parts: Parts, group: Group, perm) -> Parts:
+    return group.ppermute(parts, perm)
+
+
+def all_gather(parts: Parts, group: Group, dim: int = 0) -> torch.Tensor:
+    return group.all_gather(parts, dim)
+
+
+def split(x: torch.Tensor, group: Group, dim: Optional[int]) -> Parts:
+    """The local shards' blocks of ``x`` along ``dim`` (``x`` itself for
+    each when ``dim`` is None: replicated)."""
+    if dim is None:
+        return [x for _ in group.local]
+    n = x.shape[dim] // group.size
+    return [x.narrow(dim, i * n, n) for i in group.local]
+
+
+def shard_map(f, group: Group, in_dims: Sequence[Optional[int]],
+              out_dim: Optional[int]):
+    """``f(*per-shard lists) -> per-shard list`` over ``group``: each input
+    split along its entry of ``in_dims`` (None: replicated), the outputs
+    concatenated along ``out_dim`` into the global array (every rank gets
+    it whole), or the first shard's output when ``out_dim`` is None
+    (replicated)."""
+    def run(*arrays):
+        outs = f(*[split(a, group, d) for a, d in zip(arrays, in_dims)])
+        if out_dim is None:
+            return outs[0]
+        return all_gather(outs, group, out_dim)
+    return run

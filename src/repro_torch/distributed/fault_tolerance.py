@@ -7,7 +7,7 @@
     failure restore the latest checkpoint and the data cursor and go on.
     It gives the same loss curve as an uninterrupted run, loss for loss;
   * :func:`reshard_state` (placing a state on another mesh's shards) is
-    ROADMAP.md queue A item 21.
+    ROADMAP.md queue A item 21 part 2.
 """
 
 from __future__ import annotations
@@ -82,4 +82,4 @@ def reshard_state(state: Params, shardings: Params) -> Params:
     """Elastic rescale onto another mesh's shards."""
     raise NotImplementedError(
         "placing a train state onto another mesh's shards is not ported yet "
-        "(ROADMAP.md queue A item 21)")
+        "(ROADMAP.md queue A item 21 part 2)")

@@ -3,10 +3,10 @@ and cache leaf to a spec.
 
 A spec is a plain tuple with one entry per dim: an axis name, a tuple of
 axis names, or None (where the reference has a ``PartitionSpec``). The rules
-are the reference's, table and all (the port's one-device mesh reads only
-``param_specs``; ``batch_specs`` and ``cache_specs`` are kept, tested
-against the reference, for the multi-card mesh of ROADMAP.md queue A item
-21):
+are the reference's, table and all (the mesh plan places weights by
+``param_specs`` and a rank's KV cache by ``cache_specs``; ``batch_specs``
+is kept, tested against the reference, for the sharded trainer of
+ROADMAP.md queue A item 21 part 2):
   * TP over ``model``: attention heads, MLP hidden, MoE experts, vocab;
   * FSDP over ``data`` for the replicated remainder when
     ``cfg.parallel.fsdp`` (the embed/d_model dims);
@@ -20,7 +20,7 @@ axes falls back to replication. Only ``mesh.shape`` and
 ``mesh.axis_names`` are read. ``state_specs`` gives a train state's specs
 (the moments follow their params, or shard over ``data`` alone under
 ``zero1``); ``to_named`` pairs a spec tree with its mesh, the placement a
-sharded trainer (ROADMAP.md queue A item 21) would read.
+sharded trainer (ROADMAP.md queue A item 21 part 2) would read.
 """
 
 from __future__ import annotations

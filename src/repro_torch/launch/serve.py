@@ -31,23 +31,34 @@ busiest worker mid-serve; its sealed KV migrates to a survivor under the
 per-tenant key domains and every in-flight request still finishes with the
 same tokens. The workers share one copy of the weights on the device.
 
-``--mesh dp=N`` spans the engine over N logical data shards on the one
-device (``ShardedPlan``): the weights sit at rest in per-shard chunks and
-are gathered every decode step, and the report adds the measured-vs-modeled
-``link-tax`` line. On one device the measured term is that gather's copy in
-device memory, not a transfer over a link. ``tp=M`` with M > 1 is not ported (ROADMAP.md queue A
-item 21).
+``--mesh dp=N,tp=M`` spans the engine over an N x M mesh (``ShardedPlan``):
+the weights sit at rest in per-shard chunks over ``data`` and are gathered
+every decode step, ``tp=M`` splits the dense family's heads and ``d_ff``
+over ``model``, and the report adds the measured-vs-modeled ``link-tax``
+line, which says what its measured term timed. In one process the mesh is
+logical shards on the one device (the measured term is copies and sums in
+device memory, not a link). Under torchrun it spans the ranks::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.serve --arch deepseek-7b --smoke --mesh tp=2
+
+(torchrun's standalone rendezvous is a loopback store). Each rank takes
+card ``LOCAL_RANK`` (modulo the cards present; ``--device cpu`` for CPU
+ranks), every rank serves the same requests under rank 0's key material,
+and only rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
 
 from repro_torch.configs import get_config, list_configs, smoke_config
-from repro_torch.core import RooflineTerms, TrustDomain
+from repro_torch.core import RooflineTerms, SealingKey, TrustDomain
 from repro_torch.core.overheads import (STEP_COMPUTE_FRACTION,
                                         STEP_MEMORY_FRACTION,
                                         fused_unseal_savings,
@@ -104,6 +115,40 @@ def engine_kwargs(args, device):
                 reject_infeasible=args.reject_infeasible,
                 step_time_hint_s=(None if args.step_time_hint_ms is None
                                   else args.step_time_hint_ms * 1e-3))
+
+
+def join_ranks(args):
+    """Under torchrun with ``--mesh``: join the world (gloo for the default
+    group; the mesh's own groups pick NCCL or gloo), take this rank's
+    device, and silence every rank but 0. Returns the rank, or None outside
+    torchrun."""
+    if args.mesh is None or int(os.environ.get("WORLD_SIZE", "1")) < 2:
+        return None
+    if args.workers:
+        return None     # refused below, as in one process
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    if args.device is None:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        args.device = f"cuda:{local % max(torch.cuda.device_count(), 1)}"
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    return rank
+
+
+def shared_keys():
+    """Rank 0's sealing and channel key material, broadcast to every rank
+    (inside the trust boundary): the ranks' trust domains seal and unseal
+    each other's rows."""
+    import torch.distributed as dist
+
+    seeds = [os.urandom(32), os.urandom(32)]
+    dist.broadcast_object_list(seeds, src=0)
+    return dict(sealing_key=SealingKey.generate(seeds[0]),
+                io_key=SealingKey.generate(seeds[1]))
 
 
 def build_requests(args, cfg, tenants: int = 0):
@@ -270,9 +315,10 @@ def main(argv=None):
                     metavar="K",
                     help="give every generated prompt the same K-token head")
     ap.add_argument("--mesh", default=None, metavar="dp=N[,tp=M]",
-                    help="span the engine over N logical data shards on the "
-                         "device (weights gathered every step) and report "
-                         "the measured link tax")
+                    help="span the engine over N data x M tensor-parallel "
+                         "shards (logical shards on the device, or the "
+                         "ranks under torchrun; weights gathered every "
+                         "step) and report the measured link tax")
     ap.add_argument("--continuous-batching", action="store_true",
                     help="step-level continuous batching: prefill admissions "
                          "interleave into decode steps under a per-step "
@@ -319,6 +365,7 @@ def main(argv=None):
     if args.workers and args.mesh is not None:
         raise SystemExit("--workers (fleet mode) and --mesh are mutually "
                          "exclusive: a mesh spans one engine")
+    rank = join_ranks(args)
     if args.mesh is not None:
         dp, _ = parse_mesh(args.mesh)
         padded = args.slots + (-args.slots) % dp
@@ -340,7 +387,8 @@ def main(argv=None):
         serve_fleet(args, cfg, model, params, device)
         return
 
-    td = TrustDomain(args.tee, device=device)
+    td = (TrustDomain(args.tee, device=device) if rank is None
+          else TrustDomain(args.tee, device=device, **shared_keys()))
     if td.confidential:
         sealed = td.seal_params(params)
         params = td.load_sealed(sealed, params)
@@ -433,11 +481,10 @@ def main(argv=None):
         # (bytes / the card's link rate) and once from the plan's timed
         # gathers, which on one device copy the weights in device memory
         profile = args.tee if td.confidential else "cgpu"
-        _, _, line = measured_link_tax(ch, profile,
-                                       stats.mean_latency_s or 1e-3)
-        print(f"link-tax [{args.mesh}, {profile}]: {line} [measured: the "
-              f"weight gather's copy in device memory, one device, no "
-              f"link]")
+        _, _, line = measured_link_tax(
+            ch, profile, stats.mean_latency_s or 1e-3,
+            measures=engine.plan.collective_measures)
+        print(f"link-tax [{args.mesh}, {profile}]: {line}")
     if td.confidential:
         print(f"boundary: {ch}")
         print(f"frame coalescing: {ch.messages_out} egress frames / "
@@ -449,6 +496,9 @@ def main(argv=None):
                               memory_s=STEP_MEMORY_FRACTION * step,
                               collective_s=0.05 * step)
         print("modeled platform overhead:", td.predict_overhead(terms).as_row())
+    if rank is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

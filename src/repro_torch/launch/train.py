@@ -9,7 +9,7 @@ checkpoints every ``--ckpt-every`` steps (sealed under a confidential
 ``--tee``), resumes from the latest checkpoint after a failure, and
 ``--fail-at`` injects failures as a drill. It prints the reference
 launcher's report lines. ``--data-mesh``/``--model-mesh`` above 1 (a
-sharded train state) are not ported (ROADMAP.md queue A item 21).
+sharded train state) are not ported (ROADMAP.md queue A item 21 part 2).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def main(argv=None):
     if args.data_mesh * args.model_mesh > 1:
         raise NotImplementedError(
             "a sharded train state (--data-mesh/--model-mesh above 1) is not "
-            "ported yet (ROADMAP.md queue A item 21)")
+            "ported yet (ROADMAP.md queue A item 21 part 2)")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family == "encdec":
         raise SystemExit("use a decoder-family arch for the LM trainer")

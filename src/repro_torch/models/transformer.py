@@ -272,38 +272,45 @@ class DecoderLM:
         Returns (x, aux): aux is the MoE router's load-balance loss, None
         for any other FFN (no tensor, so a dense step launches nothing
         for it)."""
-        cfg = self.cfg
-        aux = None
         norm = layers.layernorm if mixer == "rwkv" else layers.rmsnorm
-        h = norm(lp["pre_norm"], x, cfg.norm_eps)
+        h = norm(lp["pre_norm"], x, self.cfg.norm_eps)
+        x = x + self.mixer(mixer, lp, h, positions, mode, cache_sl)
+        h = norm(lp["post_norm"], x, self.cfg.norm_eps)
+        out, aux = self.ffn(ffn, lp, h, mode, cache_sl)
+        return x + out, aux
 
+    def mixer(self, mixer: str, lp: Params, h: torch.Tensor,
+              positions: torch.Tensor, mode: str, cache_sl: Optional[Params],
+              acfg: Optional[layers.AttentionConfig] = None) -> torch.Tensor:
+        """A layer's mixer half on the normed input ``h``: what its
+        residual adds (the attention's output projection for "attn"). Given
+        a tensor-parallel shard's weights, cache and head counts
+        (``acfg``), attention returns that shard's partial product."""
+        cfg = self.cfg
         if mixer == "attn":
+            acfg = acfg or self.acfg
             if mode == "train":
-                mix = layers.attention_forward(lp["attn"], self.acfg, h,
-                                               positions)
-            else:
-                attend = (layers.attention_prefill if mode == "prefill"
-                          else layers.attention_decode)
-                mix = attend(lp["attn"], self.acfg, h, cache_sl, positions)
-        elif mixer == "mla":
+                return layers.attention_forward(lp["attn"], acfg, h, positions)
+            attend = (layers.attention_prefill if mode == "prefill"
+                      else layers.attention_decode)
+            return attend(lp["attn"], acfg, h, cache_sl, positions)
+        if mixer == "mla":
             mcfg = _mla_cfg(cfg)
             if mode == "train":
-                mix = mla.mla_forward(lp["mla"], mcfg, h)
-            else:
-                attend = (mla.mla_prefill if mode == "prefill"
-                          else mla.mla_decode)
-                mix = attend(lp["mla"], mcfg, h, cache_sl, positions)
-        elif mixer == "mamba":
+                return mla.mla_forward(lp["mla"], mcfg, h)
+            attend = mla.mla_prefill if mode == "prefill" else mla.mla_decode
+            return attend(lp["mla"], mcfg, h, cache_sl, positions)
+        if mixer == "mamba":
             scfg = _mamba_cfg(cfg)
             if mode == "train":
-                mix = ssm.mamba_forward(lp["mamba"], scfg, h)
-            elif mode == "prefill":
+                return ssm.mamba_forward(lp["mamba"], scfg, h)
+            if mode == "prefill":
                 mix, st = ssm.mamba_prefill(lp["mamba"], scfg, h)
-                _store(cache_sl, st)
             else:
                 mix, st = ssm.mamba_step(lp["mamba"], scfg, h, cache_sl)
-                _store(cache_sl, st)
-        elif mixer == "rwkv":
+            _store(cache_sl, st)
+            return mix
+        if mixer == "rwkv":
             rcfg = _rwkv_cfg(cfg)
             if mode == "train":
                 b = h.shape[0]
@@ -314,33 +321,36 @@ class DecoderLM:
                                     device=h.device)
                 mix, _, _ = ssm.rwkv6_time_mix(lp["tmix"], rcfg, h, x_last,
                                                state)
-            else:  # prefill and decode continue the cached segment
-                mix, x_last, state = ssm.rwkv6_time_mix(
-                    lp["tmix"], rcfg, h, cache_sl["tmix_x"], cache_sl["wkv"])
-                _store(cache_sl, {"tmix_x": x_last, "wkv": state})
-        else:
-            raise ValueError(mixer)
+                return mix
+            # prefill and decode continue the cached segment
+            mix, x_last, state = ssm.rwkv6_time_mix(
+                lp["tmix"], rcfg, h, cache_sl["tmix_x"], cache_sl["wkv"])
+            _store(cache_sl, {"tmix_x": x_last, "wkv": state})
+            return mix
+        raise ValueError(mixer)
 
-        x = x + mix
-        h = norm(lp["post_norm"], x, cfg.norm_eps)
-
+    def ffn(self, ffn: str, lp: Params, h: torch.Tensor, mode: str,
+            cache_sl: Optional[Params]):
+        """A layer's FFN half on the normed input ``h``: (what its residual
+        adds, aux). Given a tensor-parallel shard's ``d_ff`` block of the
+        SwiGLU weights it returns that shard's partial product."""
+        cfg = self.cfg
         if ffn == "swiglu":
-            out = layers.swiglu(lp["ffn"], h)
-        elif ffn == "moe":
-            out, aux = moe.moe_forward(lp["moe"], _moe_cfg(cfg), h)
-        elif ffn == "cmix":
+            return layers.swiglu(lp["ffn"], h), None
+        if ffn == "moe":
+            return moe.moe_forward(lp["moe"], _moe_cfg(cfg), h)
+        if ffn == "cmix":
             rcfg = _rwkv_cfg(cfg)
             if mode == "train":
                 x_last = torch.zeros((h.shape[0], cfg.d_model),
                                      dtype=h.dtype, device=h.device)
                 out, _ = ssm.rwkv6_channel_mix(lp["cmix"], rcfg, h, x_last)
-            else:
-                out, x_last = ssm.rwkv6_channel_mix(lp["cmix"], rcfg, h,
-                                                    cache_sl["cmix_x"])
-                _store(cache_sl, {"cmix_x": x_last})
-        else:
-            raise ValueError(ffn)
-        return x + out, aux
+                return out, None
+            out, x_last = ssm.rwkv6_channel_mix(lp["cmix"], rcfg, h,
+                                                cache_sl["cmix_x"])
+            _store(cache_sl, {"cmix_x": x_last})
+            return out, None
+        raise ValueError(ffn)
 
     def _run(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
              cache: Optional[Params], mode: str):

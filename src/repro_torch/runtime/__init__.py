@@ -1,5 +1,6 @@
 """Serving runtime (port of ``repro.runtime``): request-object API, engine,
-compute plans (one device, or a mesh of data shards on it), slot and
+compute plans (one device, or a mesh of data and tensor-parallel shards,
+logical on one device or ranks of a process group), slot and
 paged KV backends with the per-shard sealing wrapper, the sealed-page
 store, scheduler, seeded sampling.
 
@@ -23,8 +24,8 @@ from repro_torch.runtime.kvcache import (KVBackend, ShardedKVBackend,
                                          make_backend)
 from repro_torch.runtime.pagestore import SealedPageStore
 from repro_torch.runtime.plan import (ComputePlan, PrefillOnlyPlan,
-                                      ShardedPlan, SingleDevicePlan,
-                                      parse_mesh)
+                                      ShardedPlan, ShardedWeights,
+                                      SingleDevicePlan, parse_mesh)
 from repro_torch.runtime.scheduler import (Request, Scheduler, ServeStats,
                                            stats_from_requests)
 
@@ -35,6 +36,6 @@ __all__ = [
     "Engine", "KVBackend", "ShardedKVBackend", "SlotDenseBackend",
     "SlotState", "make_backend",
     "ComputePlan", "PrefillOnlyPlan", "SealedPageStore", "ShardedPlan",
-    "SingleDevicePlan", "parse_mesh",
+    "ShardedWeights", "SingleDevicePlan", "parse_mesh",
     "Request", "Scheduler", "ServeStats", "stats_from_requests",
 ]

@@ -45,20 +45,35 @@ caller-chosen key (a fleet tenant's key domain) in a caller-named nonce
 namespace, and :meth:`Engine.import_sealed_state` adopts another engine's
 export.
 
-Meshes: ``Engine(mesh="dp=N")`` (or a ready plan, ``plan=``) runs on a
-:class:`~repro_torch.runtime.plan.ShardedPlan`, N logical data shards on the
-engine's device: the weights sit at rest in per-shard chunks and are
-gathered every step, each step's gather is counted into
-``ChannelStats.collective_*``, and the KV backend is wrapped by
-:class:`~repro_torch.runtime.kvcache.ShardedKVBackend`, so sealed names carry
-the row's ``/s{shard}`` tag. Tokens are the single-device engine's.
+Meshes: ``Engine(mesh="dp=N,tp=M")`` (or a ready plan, ``plan=``) runs on a
+:class:`~repro_torch.runtime.plan.ShardedPlan`: the weights sit at rest in
+per-shard chunks over ``data`` and are gathered every step, ``tp > 1``
+splits the dense family's heads and ``d_ff`` over ``model`` (numerically
+close to one device, not bitwise), each step's gather and collectives are
+counted into ``ChannelStats.collective_*``, and the KV backend is wrapped
+by :class:`~repro_torch.runtime.kvcache.ShardedKVBackend`, so sealed names
+carry the row's ``/s{shard}`` tag. A dp-only mesh's tokens are the
+single-device engine's.
+
+On an initialized ``torch.distributed`` world of ``N * M`` ranks the mesh
+spans the ranks and every rank runs this same engine loop on the same
+requests: its plan computes its data shard's rows and its model shard's
+heads, and the rows' logits are gathered over ``data``, so every rank
+samples the same tokens and its scheduler stays in step (host decisions
+are deterministic given identical logits and seeded sampling; decisions
+that read the host clock -- rate budgets, deadlines, deadline feasibility
+-- and the dedicated prefill plan are refused over ranks). Only global rank
+0 sends egress frames. Each rank holds its own ``TrustDomain`` under the
+same measurement and sealing key; only the rank at model coordinate 0 of a
+row's data shard seals that row.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 import heapq
+import os
+import time
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple, Union)
 
@@ -199,10 +214,11 @@ class Engine:
         ``handoff_batch``) are the two-phase modes of the module docstring;
         they exclude each other. ``reject_infeasible`` refuses at ingest a
         request whose ``deadline_s`` is provably unmeetable at the fastest
-        observed (or ``step_time_hint_s``) step time. ``mesh`` (``"dp=N"``)
-        spans the engine over N logical data shards on its device (see the
-        module docstring); ``"tp=M"`` with M > 1 raises
-        ``NotImplementedError``. Equivalently pass a ready plan as
+        observed (or ``step_time_hint_s``) step time. ``mesh``
+        (``"dp=N,tp=M"``) spans the engine over a mesh of logical shards on
+        its device, or over the ranks of an initialized process group (see
+        the module docstring); ``tp > 1`` on a family other than dense
+        raises ``NotImplementedError``. Equivalently pass a ready plan as
         ``plan``."""
         if plan is not None and mesh is not None:
             raise ValueError("pass mesh= or plan=, not both")
@@ -215,6 +231,13 @@ class Engine:
             plan = (ShardedPlan.from_spec(model, mesh) if mesh is not None
                     else SingleDevicePlan(model))
         self.plan = plan
+        self._ranks = getattr(plan, "ranks", False)
+        if self._ranks and (rate_budgets or reject_infeasible
+                            or prefill_plan is not None):
+            raise ValueError(
+                "rate_budgets, reject_infeasible and prefill_plan are refused "
+                "on a mesh over ranks: each rank decides on its own host "
+                "clock (or plan), and the ranks' schedulers must stay in step")
         self.params = self.plan.place_params(params)
         self.max_slots = max_slots
         self.max_len = max_len
@@ -232,6 +255,14 @@ class Engine:
         if self.td.device != self.device:
             raise ValueError(f"trust domain seals on {self.td.device}, "
                              f"engine runs on {self.device}")
+        if self._ranks:
+            key_id = torch.tensor(list(bytes.fromhex(
+                self.td.sealing_key.key_id())), dtype=torch.uint8)
+            if any(not torch.equal(k.cpu(), key_id) for k in
+                   plan.mesh.world.all_gather_list([key_id])):
+                raise ValueError(
+                    "a mesh over ranks needs one sealing key on every rank: "
+                    "their trust domains seal and unseal each other's rows")
         self.scheduler = Scheduler(order=admission_order)
         self.kv: KVBackend = make_backend(kv_backend, model,
                                           max_slots=max_slots, max_len=max_len,
@@ -251,7 +282,12 @@ class Engine:
         self._paused: Dict[int, PausedSlot] = {}
         self._buckets: Dict[int, _RateBucket] = {
             prio: _RateBucket(rate) for prio, rate in (rate_budgets or {}).items()}
-        self._seed_rng = np.random.default_rng()
+        # over ranks every scheduler draws the same unseeded requests' seeds
+        self._seed_rng = np.random.default_rng(
+            int(plan.mesh.world.broadcast(
+                torch.tensor([int.from_bytes(os.urandom(7), "little")]), 0,
+                (1,), torch.int64)[0])
+            if self._ranks else None)
         self._prefill_fn = self.plan.compile_prefill()
         self._vocab = model.cfg.vocab_size
         # device mirror of slots.hist while some slot penalizes: bulk host
@@ -333,6 +369,9 @@ class Engine:
                 "called); route new work to another worker")
         gen = request
         gen.validate(self._vocab)
+        if self._ranks and gen.deadline_s is not None:
+            raise ValueError("deadlines are refused on a mesh over ranks: "
+                             "each rank would expire them on its own clock")
         # worst-case KV positions: the padded prefill bucket (or the full
         # prompt when chunked past it) plus one per decode *input* — the
         # final sampled token is emitted but never fed back, so it writes no
@@ -556,7 +595,7 @@ class Engine:
         if not req.egress_buf:
             return
         toks, req.egress_buf = req.egress_buf, []
-        if self.td.confidential:
+        if self.td.confidential and self.plan.egresses:
             out = self.td.egress_tokens(req.stream_id, toks)
             req.egress_frames += 1
             req.egress_tokens += len(out)

@@ -27,8 +27,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.sealing import (SealedTensor, SealingKey, seal_tree,
-                                      tree_leaves_with_names, unseal_tree)
+from repro_torch.core.sealing import (IntegrityError, SealedTensor,
+                                      SealingKey, dtype_name, seal_tensor,
+                                      seal_tree, tree_leaves_with_names,
+                                      tree_map_with_names, unseal_tree)
+from repro_torch.kernels.ops import TILE_BYTES
 from repro_torch.runtime import sampling
 from repro_torch.runtime.plan import ComputePlan, SingleDevicePlan
 
@@ -393,8 +396,10 @@ class KVBackend:
 
     # -- device compute -------------------------------------------------------
     def fresh_prefill_cache(self, rows: int) -> Cache:
-        """A zeroed ``rows``-sequence dense cache for one prefill call."""
-        return self.model.init_cache(rows, self.max_len)
+        """A zeroed ``rows``-sequence dense cache for one prefill call, as
+        the plan holds it."""
+        return self.plan.place_dense_cache(
+            self.model.init_cache(rows, self.max_len))
 
     def insert_prefill(self, prefilled: Cache, slots: List[int],
                        written_len: int,
@@ -457,10 +462,12 @@ class SlotDenseBackend(KVBackend):
     def __init__(self, model, max_slots: int, max_len: int,
                  plan: Optional[ComputePlan] = None):
         super().__init__(model, max_slots, max_len, plan)
-        self.cache = model.init_cache(max_slots, max_len)
+        self.cache = self.plan.place_dense_cache(
+            model.init_cache(max_slots, max_len))
+        decode_step = self.plan.decode_step
 
         def _decode(params, tokens, cache, state, kmax):
-            logits, cache = model.decode_step(params, tokens, cache)
+            logits, cache = decode_step(params, tokens, cache)
             return sampling.pick(logits, state, kmax)
 
         self._decode_fn = self.plan.compile_decode(_decode)
@@ -514,13 +521,26 @@ class ShardedKVBackend:
     sealing under one prefix stay in disjoint nonce namespaces), and
     restore recovers the tag from the sealed names themselves, so a
     preemption round-trips bit for bit even when the sequence re-lands on
-    another shard. Everything else delegates to the wrapped backend."""
+    another shard. Everything else delegates to the wrapped backend.
+
+    On logical shards the one cache holds every head, so a row seals as on
+    one device. Over ranks (the slot layout) a seal gathers the row's
+    **whole** KV -- every model shard's heads or position blocks, from the
+    ranks of the row's data shard -- and the rank at model coordinate 0 of
+    that data shard seals it alone, under the ``/s{shard}`` name: the blob's
+    bytes are a single-device engine's, and no name and key ever seal two
+    plaintexts (two ranks sealing their own head slices under one name
+    would reuse a ChaCha20 keystream). The ciphertext is then broadcast, so
+    every rank's engine holds the same sealed dict. A restore unseals on the
+    rank at model coordinate 0 of the target row's data shard, which
+    broadcasts the row; each rank keeps its own block."""
 
     def __init__(self, inner: KVBackend):
         self.inner = inner
         if not inner.plan.is_sharded:
             raise ValueError("ShardedKVBackend wants a backend built on a "
                              "ShardedPlan")
+        self._ranks = inner.plan.ranks
 
     def __getattr__(self, attr):
         return getattr(self.inner, attr)
@@ -539,13 +559,17 @@ class ShardedKVBackend:
         return ""
 
     def seal(self, key, slot, prefix, suffix=None, detach=False):
+        suffix = suffix or self._suffix_for(slot)
+        if self._ranks:
+            return self._seal_over_ranks(key, slot, prefix, suffix)
         kw = {"detach": detach} if detach else {}
-        return self.inner.seal(key, slot, prefix,
-                               suffix=suffix or self._suffix_for(slot), **kw)
+        return self.inner.seal(key, slot, prefix, suffix=suffix, **kw)
 
     def restore(self, key, sealed, slot, prefix, n_tokens, suffix=None):
         if suffix is None:
             suffix = self._detect_suffix(sealed, prefix)
+        if self._ranks:
+            return self._restore_over_ranks(key, sealed, slot, prefix, suffix)
         return self.inner.restore(key, sealed, slot, prefix, n_tokens,
                                   suffix=suffix)
 
@@ -565,6 +589,84 @@ class ShardedKVBackend:
         if suffix is None:
             suffix = self._detect_suffix(sealed, prefix)
         return self.inner.discard_sealed(key, sealed, prefix, suffix=suffix)
+
+    # -- sealing over ranks -----------------------------------------------------
+    def _row_specs(self):
+        from repro_torch.distributed import sharding
+        from repro_torch.distributed.tensor_parallel import model_dim
+
+        plan = self.inner.plan
+        like = self.inner.model.abstract_cache(1, self.inner.max_len)
+        specs = sharding.cache_specs(plan._spec_cfg, like, plan.mesh)
+        return like, {p: model_dim(s)
+                      for p, s in tree_leaves_with_names(specs)}
+
+    def _owner(self, slot: int) -> int:
+        """The world rank at model coordinate 0 of the slot's data shard."""
+        plan = self.inner.plan
+        return plan.mesh.rank_of(
+            plan.shard_of_slot(slot, self.inner.max_slots), 0)
+
+    def _seal_over_ranks(self, key, slot, prefix, suffix):
+        plan = self.inner.plan
+        mesh, world = plan.mesh, plan.mesh.world
+        owner = self._owner(slot)
+        data = owner // plan.tp
+        like, dims = self._row_specs()
+        row = dict(tree_leaves_with_names(extract_slot(self.inner.cache,
+                                                       slot)))
+        sealer = world.local[0] == owner
+        out: Dict[str, SealedTensor] = {}
+        for path, leaf in tree_leaves_with_names(like):
+            got = world.all_gather_list([row[path]])
+            dim = dims[path]
+            full = (got[owner] if dim < 0 else torch.cat(
+                [got[mesh.rank_of(data, m)] for m in range(plan.tp)], dim=dim))
+            name = prefix + path + suffix
+            st = seal_tensor(key, name, full) if sealer else None
+            n_bytes = full.numel() * full.element_size()
+            words = (n_bytes + (-n_bytes) % TILE_BYTES) // 4
+            ct = world.broadcast(st.ciphertext if sealer else None, owner,
+                                 (16, words // 16), torch.int32)
+            mac = world.broadcast(
+                torch.frombuffer(bytearray(st.mac), dtype=torch.uint8)
+                if sealer else None, owner, (32,), torch.uint8)
+            out[name] = st if sealer else SealedTensor(
+                name=name, ciphertext=ct, mac=bytes(mac.cpu().numpy()),
+                shape=tuple(full.shape), dtype=dtype_name(full.dtype),
+                n_bytes=n_bytes)
+        return out
+
+    def _restore_over_ranks(self, key, sealed, slot, prefix, suffix):
+        plan = self.inner.plan
+        world = plan.mesh.world
+        owner = self._owner(slot)
+        like, dims = self._row_specs()
+        full, err = None, None
+        if world.local[0] == owner:
+            try:
+                full = dict(tree_leaves_with_names(unseal_tree(
+                    key, sealed, like, prefix=prefix, suffix=suffix)))
+            except Exception as e:      # every rank must learn of it
+                err = e
+        ok = world.broadcast(torch.tensor([err is None], dtype=torch.uint8),
+                             owner, (1,), torch.uint8)
+        if err is not None:
+            raise err
+        if not bool(ok[0]):
+            raise IntegrityError(f"the restore of {prefix!r} failed on rank "
+                                 f"{owner}")
+        mine = {}
+        for path, leaf in tree_leaves_with_names(like):
+            t = world.broadcast(full[path] if full else None, owner,
+                                tuple(leaf.shape), leaf.dtype)
+            dim = dims[path]
+            if dim >= 0:
+                n = t.shape[dim] // plan.tp
+                t = t.narrow(dim, plan.mesh.coords[1] * n, n)
+            mine[path] = t
+        insert_slot(self.inner.cache,
+                    tree_map_with_names(lambda p, _: mine[p], like), slot)
 
 
 def make_backend(kind: str, model, *, max_slots: int, max_len: int,

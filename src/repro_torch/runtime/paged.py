@@ -213,7 +213,8 @@ class PagedKVBackend(KVBackend):
                 f"model {model.cfg.name} has no sequence-length KV leaves to "
                 f"page; use kv_backend='slot' for pure-state families")
         leaves = {**self._pools, **self._dense}
-        self.blocks = _with_leaves(template, lambda p, _: leaves[p])
+        self.blocks = self.plan.place_paged_cache(
+            _with_leaves(template, lambda p, _: leaves[p]), tuple(self._pools))
 
         # host-side sequence state
         self.pos = np.zeros(max_slots, np.int32)           # live KV positions
@@ -286,7 +287,7 @@ class PagedKVBackend(KVBackend):
         view.update({p: leaf.clone() for p, leaf in self._dense.items()})
         cache = _with_leaves(self.blocks, lambda p, _: view[p])
         cache["pos"] = pos.clone()
-        logits, _ = self.model.decode_step(params, tokens, cache)
+        logits, _ = self.plan.decode_step(params, tokens, cache)
         rows = torch.arange(b, device=pos.device)
         at = pos.long().clamp(max=self.max_len - 1)
         for p, pool in self._pools.items():

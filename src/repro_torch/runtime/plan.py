@@ -4,9 +4,10 @@
 back eager callables that run under ``torch.inference_mode()``; PyTorch has
 no ``jit`` step. :class:`PrefillOnlyPlan` is the prefill half of a
 disaggregated engine (``Engine(prefill_plan=...)``). :class:`ShardedPlan`
-spans a mesh of logical shards on one device (``Engine(mesh="dp=2")``):
-weights at rest in per-shard chunks, gathered at use, every gather counted
-into ``ChannelStats.collective_*``.
+spans a mesh (``Engine(mesh="dp=2,tp=2")``) of logical shards on one device
+or of ranks, one device each: weights at rest in per-shard chunks over
+``data``, gathered at use, tensor-parallel compute over ``model``, every
+step's gather and collectives counted into ``ChannelStats.collective_*``.
 """
 
 from __future__ import annotations
@@ -71,6 +72,31 @@ class ComputePlan:
         of the weights."""
         return tree_map(lambda t: t.to(self.device), params)
 
+    def place_dense_cache(self, cache: Cache) -> Cache:
+        """A fresh dense cache (``model.init_cache``'s layout) as the plan
+        holds it."""
+        return cache
+
+    def place_paged_cache(self, blocks: Cache, paged_paths) -> Cache:
+        """The paged backend's pool and slot-dense leaves as the plan holds
+        them."""
+        return blocks
+
+    @property
+    def egresses(self) -> bool:
+        """Does this process send the engine's egress frames?"""
+        return True
+
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    cache: Cache):
+        """The model's decode step on what :meth:`compile_decode` hands the
+        backend's step as its params."""
+        return self.model.decode_step(params, tokens, cache)
+
+    def prefill_step(self, params: Params, tokens: torch.Tensor,
+                     cache: Cache):
+        return self.model.prefill(params, {"tokens": tokens}, cache)
+
     def drain_collectives(self) -> Tuple[int, int, float]:
         """(steps, bytes, seconds) of collective cost accrued since the
         last drain; the engine feeds it to ``TrustDomain.record_collective``.
@@ -93,7 +119,7 @@ class ComputePlan:
         one call, padded with zero rows to a power of two as the
         reference's group is, since the pad rows' tokens take capacity
         too; the pad rows are cut from what it returns."""
-        model = self.model
+        model, prefill = self.model, self.prefill_step
 
         @torch.inference_mode()
         def _prefill(params, tokens, cache):
@@ -104,13 +130,11 @@ class ComputePlan:
                     tokens = torch.cat([tokens, tokens.new_zeros(
                         (pad,) + tokens.shape[1:])])
                     cache = _pad_rows(cache, pad)
-                logits, cache = model.prefill(params, {"tokens": tokens},
-                                              cache)
+                logits, cache = prefill(params, tokens, cache)
                 return logits[:b], _row_view(cache, 0, b)
             if tokens.shape[0] == 1:
-                return model.prefill(params, {"tokens": tokens}, cache)
-            logits = [model.prefill(params, {"tokens": tokens[i:i + 1]},
-                                    _row_view(cache, i))[0]
+                return prefill(params, tokens, cache)
+            logits = [prefill(params, tokens[i:i + 1], _row_view(cache, i))[0]
                       for i in range(tokens.shape[0])]
             return torch.cat(logits), cache
 
@@ -216,10 +240,14 @@ class PrefillOnlyPlan(ComputePlan):
 
 class ShardedWeights:
     """A :class:`ShardedPlan`'s weights: each leaf that ``param_specs``
-    shards over ``data`` at rest in ``dp`` separately allocated chunks
-    (``chunks[name]``, split along ``dims[name]``), every other leaf whole.
-    ``full`` is the whole tree, its sharded leaves being the gather buffers
-    (``buffers[name]``), allocated once and refilled by every gather."""
+    shards over ``data`` at rest in separately allocated chunks
+    (``chunks[name]``, split along ``dims[name]``: every shard's on logical
+    shards, the rank's own on a rank), every other leaf whole. ``full`` is
+    the whole tree (on a rank: its ``model`` slice of every leaf), its
+    sharded leaves being the gather buffers (``buffers[name]``), allocated
+    once and refilled by every gather. ``compute`` is what the step reads:
+    ``full``, or under tensor parallelism the per-shard layer views
+    (:meth:`TensorParallel.layer_params`)."""
 
     def __init__(self, full: Params, chunks: Dict[str, List[torch.Tensor]],
                  dims: Dict[str, int], buffers: Dict[str, torch.Tensor]):
@@ -227,6 +255,7 @@ class ShardedWeights:
         self.chunks = chunks
         self.dims = dims
         self.buffers = buffers
+        self.compute: Any = full
 
     @property
     def sharded_bytes(self) -> int:
@@ -236,40 +265,48 @@ class ShardedWeights:
 
 
 class ShardedPlan(ComputePlan):
-    """One engine over a ``("data", "model")`` mesh of logical shards on one
-    physical device (:func:`repro_torch.launch.mesh.make_host_mesh`):
+    """One engine over a ``("data", "model")`` mesh
+    (:func:`repro_torch.launch.mesh.make_host_mesh`): logical shards on one
+    physical device, or ranks of an initialized ``torch.distributed`` world,
+    one device each.
 
       - **batch** rows map to shards over ``data``: slot ``s`` belongs to
         shard ``s // (max_slots / dp)`` (:meth:`shard_of_slot`), which names
         its sealed KV (``/s{shard}``);
       - **params** are placed per
         :func:`repro_torch.distributed.sharding.param_specs` with FSDP forced
-        on: each leaf sharded over ``data`` sits at rest in ``dp`` chunks,
-        and before every decode step and prefill call the plan gathers the
-        chunks into full-size buffers (:meth:`gather`), so the weights are
-        copied every step;
-      - **compute** runs the backend's unchanged batched step on the
-        gathered weights, over the whole batch, in one call on the device:
-        every row's GEMM shapes, and with them its bits, are the
-        single-device engine's (cuBLAS picks its kernel by the row count),
-        and a MoE model's expert capacity is reckoned over the global batch
-        as the reference's SPMD program reckons it;
-      - the **KV cache** stays one copy on the device (the slot rows, the
-        page pool and the slot-dense recurrent leaves alike): the
-        reference's replicated pool, and its batch-sharded rows mapped to
-        shards by :meth:`shard_of_slot`.
+        on: each leaf sharded over ``data`` sits at rest in chunks, and
+        before every decode step and prefill call the plan gathers them
+        into full-size buffers (:meth:`gather`: a copy in device memory on
+        logical shards, the ``data`` group's all-gather on ranks). A rank
+        keeps only its ``model`` slice of every leaf;
+      - **compute**: with ``tp == 1`` on logical shards the backend's
+        unchanged batched step runs on the gathered weights, over the whole
+        batch, in one call: every row's GEMM shapes, and with them its bits,
+        are the single-device engine's (cuBLAS picks its kernel by the row
+        count), and a MoE model's expert capacity is reckoned over the
+        global batch as the reference's SPMD program reckons it. With
+        ``tp > 1``, or over ranks, the dense family's
+        :class:`~repro_torch.distributed.tensor_parallel.TensorParallel`
+        compute runs instead: each data shard steps its rows, each model
+        shard its heads and ``d_ff`` block, reduced over ``model``;
+      - the **KV cache** follows ``cache_specs`` (:meth:`place_dense_cache`):
+        one copy on logical shards, whose model shards take views of their
+        heads (or position blocks); on a rank its own heads (or block) of
+        every row. The reference's replicated page pool stays one copy on
+        logical shards.
 
-    Each decode step counts ``collective_bytes_per_step``, the bytes its
-    gather moves into one shard: ``(dp - 1) / dp`` of every sharded leaf.
-    The reference parses the bytes from its compiled HLO, where XLA does not
-    gather every sharded leaf, so the two counts differ (ROADMAP.md queue
-    C). Its seconds are the step's own gather, timed as it runs (CUDA events
-    on the card, the host clock on the CPU): on one device that gather is a
-    copy of every sharded leaf in device memory, not a transfer over a
-    link, where the reference times an all-gather probe on its mesh.
-    Prefill calls gather too and are not counted, as in the reference.
-    Tensor parallelism (``tp > 1``) and a mesh over several devices are
-    ROADMAP.md queue A item 21."""
+    Each decode step counts ``collective_bytes_per_step``, the bytes moved
+    into one shard: ``(dp - 1) / dp`` of the shard's part of every leaf
+    sharded over ``data`` (the gather), plus what the tensor-parallel
+    collectives move (the reductions over ``model``, the logits gathered
+    over the vocabulary and over ``data``). The reference parses the bytes from its
+    compiled HLO, so the two counts differ (ROADMAP.md queue C). Its seconds
+    are the step's own gather and collectives, timed as they run (CUDA
+    events on the card, the host clock on the CPU and around gloo): on
+    logical shards copies and sums in device memory, not a link
+    (:attr:`collective_measures`). Prefill calls gather and reduce too and
+    are not counted, as in the reference."""
 
     is_sharded = True
     name = "sharded"
@@ -277,22 +314,24 @@ class ShardedPlan(ComputePlan):
     def __init__(self, model, *, dp: int = 1, tp: int = 1):
         super().__init__(model)
         # deferred so a single-device engine never touches the mesh modules
+        from repro_torch.distributed.tensor_parallel import TensorParallel
         from repro_torch.launch.mesh import make_host_mesh
 
-        if tp > 1:
-            raise NotImplementedError(
-                f"tensor-parallel compute (tp={tp}) is not ported yet "
-                f"(ROADMAP.md queue A item 21)")
         self.mesh = make_host_mesh(data=dp, model=tp, device=self.device)
         self.dp, self.tp = dp, tp
+        self.ranks = self.mesh.spans_ranks
+        self.tensor_parallel: Optional[TensorParallel] = (
+            TensorParallel(model, self.mesh, local_cache=self.ranks)
+            if tp > 1 or self.ranks else None)
         # param_specs with FSDP forced on: the spec table only reads
         # cfg.parallel.{fsdp, dp_over_model}
         self._spec_cfg = SimpleNamespace(parallel=SimpleNamespace(
             fsdp=True, dp_over_model=model.cfg.parallel.dp_over_model,
             zero1=False))
-        # one entry a decode step since the last drain: its gather's
-        # (start, end) CUDA events, or its seconds on the host clock
-        self._pending: List[Any] = []
+        # one entry a decode step since the last drain: (the bytes its
+        # collectives moved, the time marks of its gather and collectives)
+        self._pending: List[Tuple[int, List[Any]]] = []
+        self._gather_bytes = 0
         self.collective_bytes_per_step = 0
 
     @classmethod
@@ -301,33 +340,83 @@ class ShardedPlan(ComputePlan):
         return cls(model, dp=dp, tp=tp)
 
     def describe(self) -> str:
-        return (f"dp={self.dp},tp={self.tp} ({self.mesh.size} shards on 1 "
-                f"physical device, {self.device})")
+        if not self.ranks:
+            return (f"dp={self.dp},tp={self.tp} ({self.mesh.size} shards on "
+                    f"1 physical device, {self.device})")
+        return f"dp={self.dp},tp={self.tp} ({self.mesh.describe()})"
+
+    @property
+    def collective_measures(self) -> str:
+        """What the measured collective time is on this mesh."""
+        return (self.mesh.world or self.mesh.groups["model"]).measures
+
+    @property
+    def egresses(self) -> bool:
+        """Over ranks only global rank 0 sends egress frames."""
+        return not self.ranks or self.mesh.rank_of(*self.mesh.coords) == 0
+
+    def _groups(self):
+        yield self.mesh.groups["data"]
+        yield self.mesh.groups["model"]
+        if self.mesh.world is not None:
+            yield self.mesh.world
+
+    def _take(self) -> Tuple[int, List[Any]]:
+        nbytes, marks = 0, []
+        for g in self._groups():
+            b, m = g.take()
+            nbytes += b
+            marks += m
+        return nbytes, marks
 
     # -- placement ----------------------------------------------------------
+    def _rank_slice(self, leaf: torch.Tensor, spec) -> torch.Tensor:
+        """A rank's own block of ``leaf`` over ``model`` (a copy)."""
+        from repro_torch.distributed.tensor_parallel import model_dim
+
+        dim = model_dim(spec)
+        if dim < 0 or self.tp == 1:
+            return leaf
+        n = leaf.shape[dim] // self.tp
+        return leaf.narrow(dim, self.mesh.coords[1] * n, n).clone()
+
     @torch.inference_mode()
     def place_params(self, params: Params) -> ShardedWeights:
-        """Split every leaf ``param_specs`` shards over ``data`` into ``dp``
-        chunks of its own, count the bytes a gather moves into one shard,
-        then allocate the gather buffers."""
+        """Split every leaf ``param_specs`` shards over ``data`` into
+        chunks of its own (a rank keeps its ``model`` slice and its own
+        chunk), count the bytes a gather moves into one shard, allocate the
+        gather buffers, and take the tensor-parallel views. Weights this
+        plan placed already are returned as they are (a rank may place its
+        slice in turn before the engine is built on them)."""
         from repro_torch.distributed import sharding
+        from repro_torch.distributed.tensor_parallel import (model_dim,
+                                                             shard_views)
 
+        if isinstance(params, ShardedWeights):
+            return params
         params = super().place_params(params)
         specs = sharding.param_specs(self._spec_cfg, params, self.mesh)
         chunks: Dict[str, List[torch.Tensor]] = {}
         dims: Dict[str, int] = {}
         shapes: Dict[str, Tuple[int, ...]] = {}
+        split: Dict[str, int] = {}
 
         def place(node, spec, path):
             if isinstance(node, dict):
                 return {k: place(v, spec[k], f"{path}[{k!r}]")
                         for k, v in node.items()}
-            if "data" not in spec:
+            if self.ranks:
+                node = self._rank_slice(node, spec)
+            if self.dp == 1 or "data" not in spec:
                 return node
             dims[path] = spec.index("data")
             shapes[path] = tuple(node.shape)
-            chunks[path] = [c.clone() for c in
-                            node.chunk(self.dp, dim=dims[path])]
+            # a logical shard's gather moves its own model slice
+            split[path] = (self.tp if not self.ranks and model_dim(spec) >= 0
+                           else 1)
+            parts = node.chunk(self.dp, dim=dims[path])
+            chunks[path] = ([parts[self.mesh.coords[0]].clone()]
+                            if self.ranks else [c.clone() for c in parts])
             return path
 
         skeleton = place(params, specs, "")
@@ -336,34 +425,83 @@ class ShardedPlan(ComputePlan):
                    for p, cs in chunks.items()}
         weights = ShardedWeights(_fill(skeleton, buffers), chunks, dims,
                                  buffers)
-        self.collective_bytes_per_step = (weights.sharded_bytes
-                                          * (self.dp - 1) // self.dp)
+        shard_b = sum(b.numel() * b.element_size() // split[p]
+                      for p, b in buffers.items())
+        self._gather_bytes = shard_b * (self.dp - 1) // self.dp
+        self.collective_bytes_per_step = self._gather_bytes
+        tpd = self.tensor_parallel
+        if tpd is not None:
+            shards = ([weights.full] if self.ranks else
+                      [shard_views(weights.full, specs, self.tp, m)
+                       for m in self.mesh.groups["model"].local])
+            weights.compute = tpd.layer_params(shards)
         return weights
 
-    @torch.inference_mode()
-    def gather(self, weights: ShardedWeights) -> Params:
-        """Rebuild the full weights: every sharded leaf's chunks copied
-        into its buffer. Returns the whole tree."""
-        for path, cs in weights.chunks.items():
-            torch.cat(cs, dim=weights.dims[path], out=weights.buffers[path])
-        return weights.full
+    def place_dense_cache(self, cache: Cache) -> Cache:
+        """Logical shards keep the one cache (each model shard takes views
+        of its heads or position block); a rank keeps its own block of
+        every leaf ``cache_specs`` shards over ``model``. A rank keeps every
+        row: it writes only its data shard's rows in a decode step."""
+        tpd = self.tensor_parallel
+        if tpd is not None and tpd.sp:
+            max_len = next(t for _, t in tree_leaves_with_names(cache)
+                           if t.dim() == 5).shape[2]
+            if max_len % self.tp:
+                raise ValueError(
+                    f"sequence-parallel KV needs max_len ({max_len}) to "
+                    f"divide by tp={self.tp}")
+        if not self.ranks:
+            return cache
+        from repro_torch.distributed import sharding
 
-    def _timed_gather(self, weights: ShardedWeights) -> Params:
-        """:meth:`gather`, its time queued for the next drain."""
+        specs = sharding.cache_specs(self._spec_cfg, cache, self.mesh)
+        return tree_map(self._rank_slice, cache, specs)
+
+    def place_paged_cache(self, blocks: Cache, paged_paths) -> Cache:
+        if self.ranks:
+            raise NotImplementedError(
+                "the paged KV backend over ranks is not ported yet "
+                "(ROADMAP.md queue A item 21 part 3); use kv_backend='slot'")
+        return blocks
+
+    @torch.inference_mode()
+    def gather(self, weights: ShardedWeights) -> Any:
+        """Rebuild the full weights: every sharded leaf's chunks copied
+        into its buffer (over ranks, gathered over ``data``). Returns what
+        the step computes on (``weights.compute``)."""
+        data = self.mesh.groups["data"]
+        for path, cs in weights.chunks.items():
+            if self.ranks:
+                cs = data.all_gather_list(cs)
+            torch.cat(cs, dim=weights.dims[path], out=weights.buffers[path])
+        if self.ranks:
+            data.take()      # counted once, as the gather's bytes
+        return weights.compute
+
+    def _timed_gather(self, weights: ShardedWeights) -> Tuple[Any, Any]:
+        """:meth:`gather` and its time mark."""
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             full = self.gather(weights)
             end.record()
-            self._pending.append((start, end))
-            return full
+            return full, (start, end)
         t0 = time.perf_counter()
         full = self.gather(weights)
-        self._pending.append(time.perf_counter() - t0)
-        return full
+        return full, time.perf_counter() - t0
 
     # -- callables ------------------------------------------------------------
+    def decode_step(self, params, tokens, cache):
+        if self.tensor_parallel is None:
+            return super().decode_step(params, tokens, cache)
+        return self.tensor_parallel.decode_step(params, tokens, cache)
+
+    def prefill_step(self, params, tokens, cache):
+        if self.tensor_parallel is None:
+            return super().prefill_step(params, tokens, cache)
+        return self.tensor_parallel.prefill(params, tokens, cache)
+
     def compile_prefill(self):
         prefill = super().compile_prefill()
 
@@ -374,22 +512,34 @@ class ShardedPlan(ComputePlan):
 
     def compile_decode(self, fn):
         """The backend's batched decode step on the gathered weights; each
-        call counts one step of collective cost, its gather timed."""
+        call counts one step of collective cost: its gather and its
+        collectives, timed (what ran since the last step -- prefill calls,
+        seals -- is not counted)."""
         step = super().compile_decode(fn)
 
         def run(weights, *args):
-            return step(self._timed_gather(weights), *args)
+            self._take()
+            compute, mark = self._timed_gather(weights)
+            out = step(compute, *args)
+            nbytes, marks = self._take()
+            self._pending.append((nbytes, [mark] + marks))
+            return out
 
         return run
 
     # -- collective accounting ------------------------------------------------
     def drain_collectives(self) -> Tuple[int, int, float]:
-        """Steps, bytes and the gathers' measured seconds since the last
-        drain (on the card this waits for the last step's gather to end;
-        the engine drains after reading the step's tokens)."""
+        """Steps, bytes and the measured seconds of their gathers and
+        collectives since the last drain (on the card this waits for the
+        last step's events; the engine drains after reading the step's
+        tokens)."""
         pending, self._pending = self._pending, []
-        return (len(pending), len(pending) * self.collective_bytes_per_step,
-                sum(map(_seconds, pending)))
+        if pending:
+            self.collective_bytes_per_step = (self._gather_bytes
+                                              + pending[-1][0])
+        return (len(pending),
+                sum(self._gather_bytes + b for b, _ in pending),
+                sum(_seconds(m) for _, marks in pending for m in marks))
 
     def shard_of_slot(self, slot: int, max_slots: int) -> int:
         """Which data shard holds this slot's cache row: the ``/s{shard}``

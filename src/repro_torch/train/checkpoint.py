@@ -18,7 +18,7 @@ stores it: raw 2-byte records under a ``<V2`` header with dtype
 ``"bfloat16"`` in the manifest (the port reads and writes the bits without
 ``ml_dtypes``). Leaves are stored whole, so a restore onto another layout
 needs no conversion; placing them onto another mesh's shards is ROADMAP.md
-queue A item 21.
+queue A item 21 part 2.
 """
 
 from __future__ import annotations

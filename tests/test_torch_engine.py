@@ -180,9 +180,13 @@ def test_out_of_slice_options_raise(models):
     _, _, tm, tp = models
     kw = dict(CANONICAL_ENGINE, device="cpu")
     paged = dict(kv_backend="paged", page_size=8)
-    # a dp mesh is in the slice; tensor parallelism is not
+    # dp and tp meshes are in the slice for the dense family; tensor
+    # parallelism for the other families is not
+    assert TEngine(tm, tp, **kw,
+                   mesh="dp=2,tp=2").plan.tensor_parallel.tp == 2
+    moe = tbuild(tsmoke("dbrx-132b"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 21"):
-        TEngine(tm, tp, **kw, mesh="dp=2,tp=2")
+        TEngine(moe, None, **kw, mesh="dp=2,tp=2")
     assert TEngine(tm, tp, **kw, mesh="dp=2").plan.dp == 2
     # the store and two-phase serving are in the slice
     store = TEngine(tm, tp, **kw, **paged, prefix_sharing=True,

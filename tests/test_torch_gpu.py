@@ -903,3 +903,35 @@ def test_sealed_checkpoint_on_card_restores_bit_equal(card, tmp_path,
                                   tree_leaves_with_names(cstate)):
             assert b.device.type == (device or "cuda"), n
             assert b.dtype == c.dtype and torch.equal(b.cpu(), c), n
+
+
+def test_tp_engine_on_card_equals_cpu(card):
+    """A smoke f32 tp=2 engine (two logical shards) on the card serves the
+    CPU tp=2 engine's tokens through the sampled waves and a preemption;
+    every sealed name carries the one data shard's tag."""
+    model, params = _card_model(card)
+    got, eng, names = _serve_mesh(card, model, params, "tp=2")
+    cpu = build_model(smoke_config("deepseek-7b"), device="cpu")
+    want, _, _ = _serve_mesh(torch.device("cpu"), cpu,
+                             cpu.init_params(seed=3), "tp=2")
+    assert got == want
+    assert names and all(n.endswith("/s0") for n in names)
+    assert eng.td.channel.stats.collective_s > 0
+
+
+def test_tp_ranks_on_card_equal_logical_blobs(card, tmp_path):
+    """Two ranks sharing the card (gloo through host memory) give a
+    logical tp=2 run's tokens and blob bytes on the card, each name sealed
+    by rank 0 alone."""
+    import _torch_ranks_worker as W
+
+    want = W.serve("tp=2", "cuda")
+    ranks = W.spawn("tp=2", 2, tmp_path, device="cuda")
+    assert want["seals"]
+    for got in ranks:
+        assert got["tokens"] == want["tokens"]
+        assert got["seals"] == want["seals"]
+        assert "over gloo" in got["describe"]
+    assert sorted(ranks[0]["own"]) == sorted(n for s in want["seals"]
+                                             for n in s)
+    assert not ranks[1]["own"]

@@ -248,9 +248,11 @@ def test_mesh_blobs_cross_packages(deepseek):
 
 def test_refusals_match_reference(deepseek, monkeypatch):
     """Kernel decode on a mesh, ``mesh=`` with ``plan=`` and ``--mesh`` with
-    ``--workers`` fail as the reference fails, with its messages; the port
-    alone refuses tensor parallelism and a mesh over several devices,
-    naming ROADMAP.md queue A item 21."""
+    ``--workers`` fail as the reference fails, with its messages. A
+    dp=2,tp=2 mesh serves the dense smoke model (tensor parallelism over
+    logical shards) with the single-device engine's tokens, and a list of
+    devices is refused with a ValueError: a mesh spans ranks, one device
+    each."""
     tside, jside = Side(True, deepseek), Side(False, deepseek)
     for case in ("kernel", "plan"):
         msgs = []
@@ -271,9 +273,12 @@ def test_refusals_match_reference(deepseek, monkeypatch):
             _report(main, argv + extra, monkeypatch)
         msgs.append(str(e.value))
     assert msgs[0] == msgs[1] and "mutually exclusive" in msgs[0]
-    with pytest.raises(NotImplementedError, match="queue A item 21"):
-        tside.engine(mesh="dp=2,tp=2")
-    with pytest.raises(NotImplementedError, match="queue A item 21"):
+    eng = tside.engine(mesh="dp=2,tp=2")
+    assert eng.plan.tensor_parallel.tp == 2
+    gen = dict(prompt=np.arange(1, 9), max_new_tokens=6)
+    assert eng.generate(tside.gen(**gen)).tokens == \
+        tside.engine().generate(tside.gen(**gen)).tokens
+    with pytest.raises(ValueError, match="spans ranks, one device each"):
         make_host_mesh(2, 1, device=["cpu", "meta"])
 
 
