@@ -128,7 +128,21 @@ Phases, each fatal on failure:
      and a failure at step 4: one restart, two sealed saves and one sealed
      restore through B1, its losses and final state (by fingerprint)
      equal to the clean run's; last, the port's training launcher in a
-     subprocess (smoke deepseek-7b on the card, a failure drill);
+     subprocess (smoke deepseek-7b on the card, a failure drill). Then the
+     sharded training path: the same cut with FSDP on a dp=2 mesh of
+     logical shards (make_sharded_train_step; 16 x 1,024 tokens a step,
+     one row a shard of each microbatch): the first step's loss within a
+     stated tolerance of one device's on the same global batch, the
+     collective bytes a step equal to train_step_bytes' formula, each
+     shard's state bytes; the same run through a sealed checkpoint (B1)
+     and a FailureInjector kill, restored onto data=1, model=2 by
+     restore_checkpoint(shardings=) with every leaf bit-equal to the saved
+     one, its next loss within the tolerance of the uninterrupted run's;
+     two gloo ranks on the card training a 1-layer cut, every block and
+     loss equal to a logical dp=2 run's (deterministic algorithms on);
+     GPipe over a LocalGroup(4), one Llama2-7B block a stage, output and
+     gradient against the sequential stages; the launcher with
+     --data-mesh 2 --model-mesh 2 in a subprocess;
   8. int8 weight path: the same model's weights quantized on the card
      (quant.quantize_params), sealed, attested and unsealed bit for bit,
      then ops.qmm (B5) on layer 0's unsealed w_gate, w_up and w_down (and
@@ -3084,6 +3098,512 @@ def phase_train(torch, np) -> dict:
                 launcher=lines, path_s=time.perf_counter() - t_path)
 
 
+# the sharded training path: the training path's Llama2-7B cut (2 of 32
+# layers at full width, TRAIN_PARALLEL) with FSDP over data, as Llama2-70B's
+# config sets it, on a dp=2 mesh of logical shards on the card; 16 x 1,024
+# tokens a step in 8 microbatches of 2 rows, one row a shard
+SHARD_MESH = (2, 1)
+SHARD_BATCH, SHARD_SEQ = 16, 1024
+SHARD_STEPS = 3
+# a sealed checkpoint after step 2, and the run killed as step 2 starts;
+# restored onto data=1, model=2 and resumed at step 2
+SHARD_CKPT_AT = 2
+ELASTIC_MESH = (1, 2)
+# the mesh against one device on the same global batches, every step, and
+# the resumed run against the uninterrupted one: the same rows in GEMMs of
+# other row counts (1 row a shard against 2 a call), so bf16 rounding
+# moves. Limits from the gaps measured on the H100 (PERF.md §6): a loss on
+# the same state (the first step's, the resumed one) 9.5e-7 apart (one f32
+# ulp at 11.76), limit 100x; a later step's loss, after updates whose bf16
+# rounding differs, 6.9e-4 apart, limit 10x; each leaf's update over the
+# run (params after the last step minus before the first) as |sharded -
+# one device| / |one device's update| (Frobenius norms) at most 0.026,
+# limit 10x. A step that drops the gradient all-reduce moves that gap to
+# 0.85 and one that trains on half the batch the later losses by 1e-2
+# (smoke llama2-7b in bf16 on the CPU)
+SHARD_LOSS_TOL = 1e-4
+SHARD_STEP_TOL = 7e-3
+SHARD_UPDATE_TOL = 0.25
+# two gloo ranks on the card: 1 of 32 layers at full width, 4 x 1,024
+# tokens in 2 microbatches (one row a shard), 2 steps
+RANKS_TRAIN_LAYERS = 1
+RANKS_TRAIN_BATCH = 4
+RANKS_TRAIN_MICRO = 2
+RANKS_TRAIN_STEPS = 2
+# GPipe over a LocalGroup(4): one Llama2-7B block at full width a stage,
+# f32, 6 microbatches of [1, 256] positions; output and gradient against
+# the sequential stages run microbatch by microbatch, within the reference
+# test's 1e-4 and 1e-3 (tests/test_distributed.py), relative to the
+# largest entry here (widths of 4096, not 16)
+GPIPE_STAGES, GPIPE_MICRO, GPIPE_SEQ = 4, 6, 256
+GPIPE_TOL = (1e-4, 1e-3)
+SHARD_LAUNCHER = ["--arch", "deepseek-7b", "--smoke", "--steps", "4",
+                  "--tee", "tdx", "--fail-at", "2", "--ckpt-every", "2",
+                  "--data-mesh", "2", "--model-mesh", "2"]
+
+
+def train_step_bytes(cfg, dp: int) -> int:
+    """What one sharded step's collectives move into a shard on a dp x 1
+    FSDP mesh, written down before the run: the gather of every weight
+    matrix sharded over data (the tied embedding table and each layer's 4
+    attention and 3 FFN matrices; the norms stay whole), (dp - 1) / dp of
+    its bytes (bf16 here); the all-reduce of the f32 gradients of every param,
+    (dp - 1) x 4 B each; and the loss with its two metrics, (dp - 1) x 12
+    B."""
+    d, layers, vocab, ff = cfg.d_model, cfg.num_layers, cfg.vocab_size, \
+        cfg.d_ff
+    attn = 2 * d * cfg.head_dim_ * (cfg.num_heads + cfg.num_kv_heads)
+    matrices = vocab * d + layers * (attn + 3 * d * ff)
+    n_params = matrices + layers * 2 * d + d
+    width = {"bfloat16": 2, "float32": 4}[cfg.dtype]
+    return (matrices * width * (dp - 1) // dp + (dp - 1) * 4 * n_params
+            + (dp - 1) * 12)
+
+
+def shard_data(cursor, batch, seq):
+    """The packed batches from ``cursor`` on."""
+    from repro_torch.data.pipeline import PackedLMDataset
+    it = iter(PackedLMDataset(batch_size=batch, seq_len=seq, seed=0))
+    for _ in range(cursor):
+        next(it)
+    return it
+
+
+def block_prints(torch, tree, coords) -> dict:
+    """{name: fingerprint} of the blocks the shard at ``coords`` holds."""
+    from repro_torch.core.sealing import tree_leaves_with_names
+    return {n: fingerprint(torch, leaf.shard(coords))
+            for n, leaf in tree_leaves_with_names(tree)}
+
+
+def ranks_train_config():
+    import dataclasses
+    return dataclasses.replace(train_config(
+        fsdp=True, microbatches=RANKS_TRAIN_MICRO),
+        num_layers=RANKS_TRAIN_LAYERS)
+
+
+def ranks_train(torch, mesh, device):
+    """RANKS_TRAIN_STEPS sharded steps of the ranks' cut over ``mesh``
+    (logical shards, or the ranks of the world) under deterministic
+    algorithms; (losses, gloo or device seconds a step, bytes a step,
+    {coords: block fingerprints})."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (abstract_train_state,
+                                              init_train_state,
+                                              make_sharded_train_step)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = ranks_train_config()
+        model = build_model(cfg, device=device)
+        opt = AdamWConfig(**TRAIN_OPT,
+                          moment_dtype=cfg.parallel.optimizer_dtype)
+        sspecs = sharding.state_specs(cfg, abstract_train_state(model, opt),
+                                      mesh)
+        state = sharding.place(init_train_state(model, opt, seed=0),
+                               sharding.to_named(mesh, sspecs))
+        data = shard_data(0, RANKS_TRAIN_BATCH, TRAIN_SEQ)
+        batch = next(data)
+        step = make_sharded_train_step(
+            model, opt, mesh, sspecs, sharding.batch_specs(cfg, batch, mesh),
+            microbatches=cfg.parallel.microbatches)
+        losses, secs, nbytes = [], [], []
+        for i in range(RANKS_TRAIN_STEPS):
+            state, m = step(state, batch if i == 0 else next(data))
+            losses.append(float(m["loss"]))
+            secs.append(m["collective_s"])
+            nbytes.append(m["collective_bytes"])
+        prints = {c: block_prints(torch, state, c)
+                  for c in sharding.local_coords(mesh)}
+        return losses, secs, nbytes, prints
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def train_rank_worker(rank, world, init_file, out_dir):
+    """One rank of the sharded training ranks path (spawned): join the
+    gloo world, train the ranks' cut over a dp=world mesh spanning the
+    ranks, and save the losses, gloo's seconds a step and the
+    fingerprints of this rank's blocks."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=RANKS_TIMEOUT_S))
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(world, 1, device="cuda")
+        losses, secs, nbytes, prints = ranks_train(torch, mesh, "cuda")
+        torch.save(dict(losses=losses, secs=secs, bytes=nbytes,
+                        prints=prints, describe=mesh.describe(),
+                        peak=torch.cuda.max_memory_allocated()),
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def gpipe_stage(torch, model):
+    """One Llama2-7B block's training forward, (layer params, x) -> x."""
+    impl = model._impl
+
+    def stage(lp, x):
+        pos = torch.arange(x.shape[1], device=x.device)[None, :].expand(
+            x.shape[0], x.shape[1])
+        y, _ = impl._layer_fwd("attn", "swiglu", lp["slot_0"], x, pos,
+                               "train", None)
+        return y
+
+    return stage
+
+
+def phase_gpipe(torch, np) -> dict:
+    """make_gpipe over a LocalGroup(GPIPE_STAGES) on the card, one
+    Llama2-7B block at full width a stage (f32), against the same stages
+    run one after another on each microbatch alone: output and the
+    gradient of mean(out ** 2) over every stage's params."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sealing import tree_leaves_with_names, tree_map
+    from repro_torch.distributed.collectives import LocalGroup
+    from repro_torch.distributed.pipeline import make_gpipe
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              num_layers=GPIPE_STAGES, dtype="float32")
+    model = build_model(cfg)
+    stacked = tree_map(lambda t: t.requires_grad_(),
+                       model.init_params(seed=1)["layers"])
+    leaves = [t for _, t in tree_leaves_with_names(stacked)]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mb = torch.randn(GPIPE_MICRO, 1, GPIPE_SEQ, cfg.d_model, device="cuda",
+                     generator=gen)
+    stage = gpipe_stage(torch, model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = make_gpipe(LocalGroup(GPIPE_STAGES, "cuda"), stage)(stacked, mb)
+    got = torch.autograd.grad((out ** 2).mean(), leaves)
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    refs = []
+    for j in range(GPIPE_MICRO):
+        x = mb[j]
+        for i in range(GPIPE_STAGES):
+            x = stage(tree_map(lambda t, i=i: t[i], stacked), x)
+        refs.append(x)
+    ref = torch.stack(refs)
+    want = torch.autograd.grad((ref ** 2).mean(), leaves)
+    out, ref = out.detach(), ref.detach()
+    out_err = float((out - ref).abs().max()) / float(ref.abs().max())
+    grad_err = max(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                    1e-30)
+                   for g, w in zip(got, want))
+    check(bool(torch.isfinite(out).all()) and out_err <= GPIPE_TOL[0],
+          f"GPipe's output within {GPIPE_TOL[0]} of the sequential stages' "
+          f"(relative to the largest, {out_err:.3g})")
+    check(grad_err <= GPIPE_TOL[1], f"GPipe's gradient within "
+          f"{GPIPE_TOL[1]} of the sequential stages' ({grad_err:.3g})")
+    return dict(out_err=out_err, grad_err=grad_err, pipe_s=pipe_s,
+                bitwise=bool(torch.equal(out, ref)))
+
+
+def phase_sharded_train(torch, np) -> dict:
+    """The sharded training path, every kernel count set to 0 just before
+    and read just after: Llama2-7B's training cut with FSDP on a dp=2 mesh
+    of logical shards (every step's loss and each leaf's update against
+    one device's on the same global batches, CUDA events a step, the collective bytes a step
+    against train_step_bytes, each shard's state bytes); the same run
+    through a sealed checkpoint and a FailureInjector kill, restored onto
+    data=1, model=2 (each leaf bit-equal to the saved one) and resumed; two
+    gloo ranks on the card against a logical dp=2 run of a 1-layer cut,
+    block for block; GPipe over a LocalGroup(4); the launcher with a
+    2 x 2 mesh in a subprocess."""
+    import torch.multiprocessing as mp
+    from repro_torch.core import TrustDomain
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.fault_tolerance import (FailureInjector,
+                                                         SimulatedFailure,
+                                                         run_with_restarts)
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (abstract_train_state,
+                                              init_train_state,
+                                              make_sharded_train_step,
+                                              make_train_step)
+
+    reset_counts(C, P, Q, FA)
+    t_path = time.perf_counter()
+    cfg = train_config(fsdp=True)
+    model = build_model(cfg)            # the card
+    opt = AdamWConfig(**TRAIN_OPT, moment_dtype=cfg.parallel.optimizer_dtype)
+    mb = cfg.parallel.microbatches
+    batch = next(shard_data(0, SHARD_BATCH, SHARD_SEQ))
+
+    # one device on the same global batches (comparison only): each step's
+    # loss, and its params after the last step
+    state0 = init_train_state(model, opt, seed=0)
+    one_step = make_train_step(model, opt, microbatches=mb)
+    one, losses_one = state0, []
+    data = shard_data(0, SHARD_BATCH, SHARD_SEQ)
+    for _ in range(SHARD_STEPS):
+        one, m1 = one_step(one, next(data))
+        losses_one.append(float(m1["loss"]))
+    params0, params_one = state0.params, one.params
+    del one, m1, one_step
+
+    def build(shape):
+        mesh = make_host_mesh(*shape)
+        sspecs = sharding.state_specs(cfg, abstract_train_state(model, opt),
+                                      mesh)
+        step = make_sharded_train_step(
+            model, opt, mesh, sspecs, sharding.batch_specs(cfg, batch, mesh),
+            microbatches=mb)
+        return mesh, sspecs, sharding.to_named(mesh, sspecs), step
+
+    mesh_a, _, named_a, step_a = build(SHARD_MESH)
+    placed0 = sharding.place(state0, named_a)
+    del state0
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_bytes = [sharding.shard_nbytes(placed0, (d, 0))
+                   for d in range(SHARD_MESH[0])]
+    expect_b = train_step_bytes(cfg, SHARD_MESH[0])
+
+    # the uninterrupted run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses, nbytes, coll_s = [], [], [], []
+    state, data = placed0, shard_data(0, SHARD_BATCH, SHARD_SEQ)
+    for _ in range(SHARD_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step_a(state, next(data))
+        e1.record()
+        events.append((e0, e1))
+        losses.append(float(m["loss"]))
+        nbytes.append(m["collective_bytes"])
+        coll_s.append(m["collective_s"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    gaps = {}
+    for (n, got), (_, want), (_, before) in zip(
+            tree_leaves_with_names(sharding.gather(state.params)),
+            tree_leaves_with_names(params_one),
+            tree_leaves_with_names(params0)):
+        moved = want.float() - before.float()
+        gaps[n] = float((got.float() - want.float()).norm()
+                        / moved.norm().clamp_min(1e-30))
+    worst = max(gaps, key=gaps.get)
+    del state, params0, params_one, got, want, before, moved
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_gaps = [abs(a - b) for a, b in zip(losses, losses_one)]
+    check(all(np.isfinite(losses)), f"the sharded losses are finite "
+          f"({losses})")
+    check(loss_gaps[0] <= SHARD_LOSS_TOL
+          and max(loss_gaps[1:]) <= SHARD_STEP_TOL,
+          f"the dp=2 losses {losses} are within {SHARD_LOSS_TOL} of one "
+          f"device's {losses_one} at the first step and {SHARD_STEP_TOL} "
+          f"after it")
+    check(gaps[worst] <= SHARD_UPDATE_TOL,
+          f"every leaf's update over {SHARD_STEPS} steps is within "
+          f"{SHARD_UPDATE_TOL} of one device's, relative to its norm "
+          f"(worst {worst}: {gaps[worst]:.3g})")
+    check(all(b == expect_b for b in nbytes),
+          f"{nbytes} collective B a step == train_step_bytes' {expect_b}")
+
+    # the same run through a sealed checkpoint and a kill, resumed on
+    # data=1, model=2
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "shard_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    saved, times = {}, {"save": [], "resume": []}
+
+    class TimedManager(CheckpointManager):
+        def save(self, s, tree):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = super().save(s, tree)
+            times["save"].append(time.perf_counter() - t)
+            saved.update({n: fingerprint(torch, sharding.gather_leaf(x))
+                          for n, x in tree_leaves_with_names(tree)})
+            return path
+
+    mgr = TimedManager(ckpt_dir, keep_n=1, trust_domain=TrustDomain("tdx"))
+    b1_before = C.launches
+    killed = False
+    try:
+        run_with_restarts(state=placed0, train_step=step_a,
+                          data_factory=lambda c: shard_data(
+                              c, SHARD_BATCH, SHARD_SEQ),
+                          num_steps=SHARD_STEPS, manager=mgr,
+                          checkpoint_every=SHARD_CKPT_AT,
+                          injector=FailureInjector({SHARD_CKPT_AT}),
+                          max_restarts=0)
+    except SimulatedFailure:
+        killed = True
+    check(killed and len(times["save"]) == 1,
+          "the run was killed at step 2 after one sealed save")
+    del placed0
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_b, _, named_b, step_b = build(ELASTIC_MESH)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    at, restored = mgr.resume(abstract_train_state(model, opt),
+                              shardings=named_b)
+    torch.cuda.synchronize()
+    times["resume"].append(time.perf_counter() - t)
+    b1 = C.launches - b1_before
+    sealed_bytes = sum(e["n_bytes"] for e in json.loads(
+        (ckpt_dir / f"step_{at}" / "manifest.json").read_text()
+    )["leaves"].values())
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(at == SHARD_CKPT_AT and sharding.placement(restored) == named_b,
+          f"restored step {at} onto the data=1, model=2 shards")
+    for n, x in tree_leaves_with_names(restored):
+        check(fingerprint(torch, sharding.gather_leaf(x)) == saved[n],
+              f"the restored {n} equals the saved one (fingerprint)")
+    _, m = step_b(restored, next(shard_data(at, SHARD_BATCH, SHARD_SEQ)))
+    resumed_loss = float(m["loss"])
+    check(abs(resumed_loss - losses[at]) <= SHARD_LOSS_TOL,
+          f"the resumed loss at step {at} on data=1, model=2 "
+          f"({resumed_loss:.6f}) is within {SHARD_LOSS_TOL} of the "
+          f"uninterrupted run's ({losses[at]:.6f})")
+    check(b1 > 0, "the sealed save and restore launched the ChaCha20 kernel")
+    del restored, m, step_a, step_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = path_launches()
+
+    # two gloo ranks on the card against logical shards
+    t0 = time.perf_counter()
+    want = ranks_train(torch, make_host_mesh(RANKS, 1), "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = Path(__file__).resolve().parent / "build" / "train_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    mp.spawn(train_rank_worker, nprocs=RANKS, join=True,
+             args=(RANKS, str(work / "init"), str(work)))
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        check(got["losses"] == want[0], f"rank {r}'s losses equal the "
+              f"logical dp=2 run's ({got['losses']} vs {want[0]})")
+        check(got["prints"][(r, 0)] == want[3][(r, 0)],
+              f"rank {r}'s updated state blocks equal the logical run's")
+        check(got["bytes"] == want[2], f"rank {r}'s collective bytes equal "
+              f"the logical run's")
+
+    gp = phase_gpipe(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_after = path_launches()
+    check(launches_after == launches,
+          f"no kernel ran on the ranks and GPipe (in this process): "
+          f"{launches_after}")
+
+    # the launcher on a 2 x 2 mesh of logical shards, on the card
+    launch_dir = Path(__file__).resolve().parent / "build" / "shard_launch"
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *SHARD_LAUNCHER,
+         "--ckpt-dir", str(launch_dir)], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(
+            Path(__file__).resolve().parent / "src")))
+    launch_s = time.perf_counter() - t0
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    lines = proc.stdout.splitlines()
+    check(proc.returncode == 0 and lines[:1] == [
+        "mesh: {'data': 2, 'model': 2}"] and "restarts: 1" in lines,
+        f"the launcher ran its failure drill on a 2 x 2 mesh (rc "
+        f"{proc.returncode}): {proc.stdout[-400:]} {proc.stderr[-800:]}")
+    check(launches["chacha20_xor_blocked"] == b1 and sum(
+        launches.values()) == b1, f"B1 is the only kernel the sharded "
+        f"training path launched, all of it in the checkpoint: {launches}")
+    med_ms = float(np.median(step_ms[1:]))
+    return dict(launches=launches, losses=losses, losses_one=losses_one,
+                loss_gaps=loss_gaps, update_gap=gaps[worst],
+                update_worst=worst,
+                step_ms=step_ms, med_ms=med_ms,
+                tokens=SHARD_BATCH * SHARD_SEQ, nbytes=nbytes,
+                expect_b=expect_b, coll_ms=[s * 1e3 for s in coll_s],
+                state_bytes=state_bytes, peak=peak, save_s=times["save"],
+                resume_s=times["resume"], sealed_bytes=sealed_bytes, b1=b1,
+                resumed_loss=resumed_loss, at=at, ranks=ranks,
+                ranks_want=want, ranks_s=ranks_s, gpipe=gp,
+                launch_s=launch_s, launcher=lines,
+                path_s=time.perf_counter() - t_path)
+
+
+def print_sharded(r, smi) -> None:
+    card = f"[{smi}]"
+    print(f"  sharded path, dp={SHARD_MESH[0]} logical shards (FSDP): "
+          f"losses {', '.join(f'{x:.6f}' for x in r['losses'])} vs one "
+          f"device's {', '.join(f'{x:.6f}' for x in r['losses_one'])} "
+          f"(gaps {', '.join(f'{x:.3g}' for x in r['loss_gaps'])}, limits "
+          f"{SHARD_LOSS_TOL} at the first step, {SHARD_STEP_TOL} after); "
+          f"each leaf's update over {SHARD_STEPS} steps "
+          f"within {r['update_gap']:.3g} of one device's, relative to its "
+          f"norm (worst {r['update_worst']}, limit {SHARD_UPDATE_TOL})")
+    print(f"    step (CUDA events, median of steps 2-{SHARD_STEPS}) "
+          f"{r['med_ms']:.2f} ms ({', '.join(f'{x:.2f}' for x in r['step_ms'])}"
+          f" ms), {r['tokens'] / (r['med_ms'] / 1e3):.0f} tokens/s; "
+          f"collectives {r['nbytes'][-1]} B a step (train_step_bytes "
+          f"{r['expect_b']} B), "
+          + ", ".join(f"{x:.2f}" for x in r["coll_ms"])
+          + f" ms a step (CUDA events: copies and sums in HBM, one card, no "
+            f"link); state bytes a shard {r['state_bytes']}; peak device "
+            f"memory {r['peak']} B {card}")
+    print(f"    elastic resume: sealed checkpoint {r['sealed_bytes']} B "
+          f"saved on data=2, model=1 in "
+          f"{', '.join(f'{x:.2f}' for x in r['save_s'])} s, killed at step "
+          f"{r['at']}, restored onto data=1, model=2 in "
+          f"{', '.join(f'{x:.2f}' for x in r['resume_s'])} s (every leaf "
+          f"bit-equal); B1 launches {r['b1']}; the resumed loss "
+          f"{r['resumed_loss']:.6f} vs the uninterrupted "
+          f"{r['losses'][r['at']]:.6f} {card}")
+    g0 = r["ranks"][0]
+    print(f"    ranks: {RANKS} gloo processes on the card "
+          f"({g0['describe']}), {RANKS_TRAIN_LAYERS} layer at full width, "
+          f"{RANKS_TRAIN_BATCH} x {TRAIN_SEQ} tokens, {RANKS_TRAIN_STEPS} "
+          f"steps: losses {r['ranks_want'][0]} and every block equal to "
+          f"the logical dp={RANKS} run's; {g0['bytes'][-1]} collective B a "
+          f"step; gloo seconds a step (host clock, through host memory) "
+          + "; ".join(f"rank {i} " + ", ".join(f"{x:.3f}" for x in
+                                                got["secs"])
+                      for i, got in enumerate(r["ranks"]))
+          + f"; logical run's device seconds "
+          + ", ".join(f"{x:.3f}" for x in r["ranks_want"][1])
+          + f"; {r['ranks_s']:.1f} s with the spawn {card}")
+    gp = r["gpipe"]
+    print(f"    GPipe over a LocalGroup({GPIPE_STAGES}), one Llama2-7B block "
+          f"a stage (f32), {GPIPE_MICRO} microbatches of [1, {GPIPE_SEQ}]: "
+          f"output within {gp['out_err']:.3g} (bit-equal: {gp['bitwise']}), "
+          f"gradient within {gp['grad_err']:.3g} of the sequential stages "
+          f"(relative to the largest); forward and backward "
+          f"{gp['pipe_s']:.2f} s {card}")
+    print(f"    launcher subprocess {r['launch_s']:.2f} s "
+          f"({'; '.join(r['launcher'])}); the path {r['path_s']:.2f} s; "
+          f"launches {r['launches']} {card}")
+
+
 def phase_quant(torch, np) -> dict:
     """The int8 weight path at full width, QUANT_LAYERS deep: quantize
     Llama2-7B's weights on the card, seal, attest, unseal (bit-exact), then
@@ -3388,6 +3908,16 @@ def main() -> int:
     phase_t["training"] = time.perf_counter() - t_phase
     print_train(tr, smi)
     t_phase = time.perf_counter()
+    print(f"  sharded training: llama2-7b at full width, {TRAIN_LAYERS} of 32 "
+          f"layers, FSDP on dp={SHARD_MESH[0]} logical shards, "
+          f"{SHARD_BATCH} x {SHARD_SEQ} tokens a step; an elastic resume "
+          f"onto data={ELASTIC_MESH[0]}, model={ELASTIC_MESH[1]}; {RANKS} "
+          f"gloo ranks; GPipe over {GPIPE_STAGES} stages; the launcher on a "
+          f"2 x 2 mesh")
+    sh_tr = phase_sharded_train(torch, np)
+    phase_t["sharded training"] = time.perf_counter() - t_phase
+    print_sharded(sh_tr, smi)
+    t_phase = time.perf_counter()
     print(f"[8/9] int8 weight path: llama2-7b at full width, {QUANT_LAYERS} "
           f"of 32 layers deep, quantized, sealed, unsealed; "
           "ops.qmm and ops.mha_flash on layer 0")
@@ -3595,11 +4125,13 @@ def main() -> int:
           for k, v in sv["paged_launches"].items()}
     b1_launches = (sv["launches"] + pl["chacha20_xor_blocked"]
                    + tr["launches"]["chacha20_xor_blocked"]
+                   + sh_tr["launches"]["chacha20_xor_blocked"]
                    + qp["launches"]["chacha20_xor_blocked"]
                    + rk["launches"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
           f"{b1_launches} (slot, paged, sharing, store, two-phase, fleet, "
-          f"RAG, mesh, TP, ranks, families, training, int8), B3 {pl['paged_attention']} (paged, "
+          f"RAG, mesh, TP, ranks, families, training, sharded training, "
+          f"int8), B3 {pl['paged_attention']} (paged, "
           f"sharing, store, two-phase, fleet, RAG, chameleon) and B4 "
           f"{pl['paged_attention_unseal']} (paged, sharing, store, "
           f"two-phase, fleet, chameleon)")

@@ -38,6 +38,27 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def mark_seconds(mark) -> float:
+    """A collective's seconds from its time mark: host-clock seconds as
+    they are, a pair of CUDA events read once the second has passed."""
+    if isinstance(mark, float):
+        return mark
+    start, end = mark
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3
+
+
+def take_all(groups) -> Tuple[int, List[Any]]:
+    """:meth:`Group.take` of each distinct group: the bytes summed, the
+    time marks in order."""
+    nbytes, marks = 0, []
+    for g in {id(g): g for g in groups}.values():
+        b, m = g.take()
+        nbytes += b
+        marks += m
+    return nbytes, marks
+
+
 def rank_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """``parts[0] + parts[1] + ...``, left to right (the all-reduce's fixed
     order)."""
@@ -90,8 +111,10 @@ class Group:
         """Every shard's tensor, in rank order."""
         raise NotImplementedError
 
-    def all_gather(self, parts: Parts, dim: int) -> torch.Tensor:
-        """Every shard's tensor concatenated along ``dim``, in rank order."""
+    def all_gather(self, parts: Parts, dim: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Every shard's tensor concatenated along ``dim``, in rank order
+        (into ``out`` when given)."""
         raise NotImplementedError
 
     def all_reduce(self, parts: Parts) -> torch.Tensor:
@@ -109,6 +132,9 @@ class Group:
         """Shard ``src``'s tensor (``t`` where this process holds ``src``;
         ``shape``/``dtype`` describe it everywhere)."""
         raise NotImplementedError
+
+    def barrier(self) -> None:
+        """Wait until every shard of the group reaches this point."""
 
     @property
     def measures(self) -> str:
@@ -130,11 +156,13 @@ class LocalGroup(Group):
         self._record((self.size - 1) * _nbytes(parts[0]), 0.0)
         return list(parts)
 
-    def all_gather(self, parts: Parts, dim: int) -> torch.Tensor:
+    def all_gather(self, parts: Parts, dim: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.size == 1:
-            return parts[0]
+            return parts[0] if out is None else out.copy_(parts[0])
         return self._timed((self.size - 1) * _nbytes(parts[0]),
-                           lambda: torch.cat(parts, dim=dim), events=True)
+                           lambda: torch.cat(parts, dim=dim, out=out),
+                           events=True)
 
     def all_reduce(self, parts: Parts) -> torch.Tensor:
         if self.size == 1:
@@ -206,10 +234,11 @@ class RankGroup(Group):
                            lambda: self._gather(part),
                            events=self.kind == "nccl")
 
-    def all_gather(self, parts: Parts, dim: int) -> torch.Tensor:
+    def all_gather(self, parts: Parts, dim: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.size == 1:
-            return parts[0]
-        return torch.cat(self.all_gather_list(parts), dim=dim)
+            return parts[0] if out is None else out.copy_(parts[0])
+        return torch.cat(self.all_gather_list(parts), dim=dim, out=out)
 
     def all_reduce(self, parts: Parts) -> torch.Tensor:
         if self.size == 1:
@@ -254,6 +283,11 @@ class RankGroup(Group):
 
         return self._timed(_nbytes(buf), run, events=self.kind == "nccl")
 
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier(group=self.pg)
+
     @property
     def measures(self) -> str:
         if self.kind == "nccl":
@@ -276,8 +310,49 @@ def axis_index(group: Group) -> List[int]:
     return list(group.local)
 
 
+class _PPermute(torch.autograd.Function):
+    """``group.ppermute`` with the reverse permutation as its backward."""
+
+    @staticmethod
+    def forward(ctx, group, perm, *parts):
+        ctx.group, ctx.perm = group, list(perm)
+        return tuple(o.view_as(o) for o in group.ppermute(list(parts), perm))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = [(dst, src) for src, dst in ctx.perm]
+        return (None, None, *ctx.group.ppermute(
+            [g.contiguous() for g in grads], back))
+
+
+class _PSum(torch.autograd.Function):
+    """``group.all_reduce`` of the local parts into one replicated tensor;
+    each part's gradient is the result's (a replicated value's cotangent
+    reaches every shard once)."""
+
+    @staticmethod
+    def forward(ctx, group, *parts):
+        ctx.n = len(parts)
+        return group.all_reduce(list(parts)).clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, *[grad] * ctx.n)
+
+
 def ppermute(parts: Parts, group: Group, perm) -> Parts:
-    return group.ppermute(parts, perm)
+    """Shard ``dst`` receives shard ``src``'s tensor for each ``(src,
+    dst)``; differentiable: the gradient travels the reverse permutation
+    (over ranks a send and a receive in the backward pass too, so every
+    rank runs its backward in step)."""
+    return list(_PPermute.apply(group, list(perm), *parts))
+
+
+def psum(parts: Parts, group: Group) -> torch.Tensor:
+    """The sum of every shard's tensor, in rank order, as one replicated
+    tensor (every rank holds it); differentiable, each local part's
+    gradient being the result's."""
+    return _PSum.apply(group, *parts)
 
 
 def all_gather(parts: Parts, group: Group, dim: int = 0) -> torch.Tensor:

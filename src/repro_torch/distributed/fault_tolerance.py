@@ -1,13 +1,14 @@
-"""Fault tolerance: failure injection and restart with resume (port of
-``repro.distributed.fault_tolerance``).
+"""Fault tolerance: failure injection, restart with resume, elastic
+rescale (port of ``repro.distributed.fault_tolerance``).
 
   * :class:`FailureInjector`: a deterministic failure schedule for tests
     and drills (stands in for preemptions and hardware faults);
   * :func:`run_with_restarts`: the crash-looping driver: run, and on a
     failure restore the latest checkpoint and the data cursor and go on.
-    It gives the same loss curve as an uninterrupted run, loss for loss;
-  * :func:`reshard_state` (placing a state on another mesh's shards) is
-    ROADMAP.md queue A item 21 part 2.
+    It gives the same loss curve as an uninterrupted run, loss for loss,
+    on one device or on a mesh (a placed state resumes onto its shards);
+  * :func:`reshard_state`: elastic rescale, a state placed onto another
+    mesh's shards (save on mesh A, resume on mesh B).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Iterable, Optional, Set
 
+from repro_torch.distributed import sharding
 from repro_torch.train.checkpoint import CheckpointManager
 
 Params = Any
@@ -47,8 +49,9 @@ def run_with_restarts(*, state: Params, train_step: Callable,
     ``data_factory(cursor)`` must return a deterministic iterator
     positioned at ``cursor`` batches consumed: a checkpoint stores the
     state at a step, so the resumed run sees exactly the batches the lost
-    run would have. A restore lands on the devices of ``state``'s leaves.
-    Returns (final_state, losses, restarts)."""
+    run would have. A restore lands on the devices of ``state``'s leaves,
+    or, for a state placed on a mesh, on its shards (every rank of the mesh
+    runs it in step). Returns (final_state, losses, restarts)."""
     like = state
     losses = {}
     restarts = 0
@@ -79,7 +82,7 @@ def run_with_restarts(*, state: Params, train_step: Callable,
 
 
 def reshard_state(state: Params, shardings: Params) -> Params:
-    """Elastic rescale onto another mesh's shards."""
-    raise NotImplementedError(
-        "placing a train state onto another mesh's shards is not ported yet "
-        "(ROADMAP.md queue A item 21 part 2)")
+    """Elastic rescale: every leaf of ``state`` (whole, or placed on
+    another mesh, gathered first) placed onto the matching
+    ``NamedSharding`` of ``shardings``."""
+    return sharding.place(state, shardings)

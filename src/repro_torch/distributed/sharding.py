@@ -1,12 +1,12 @@
-"""Sharding rules (port of ``repro.distributed.sharding``): map every param
-and cache leaf to a spec.
+"""Sharding rules (port of ``repro.distributed.sharding``): map every param,
+train-state, batch and cache leaf to a spec, and place a tree on a mesh.
 
 A spec is a plain tuple with one entry per dim: an axis name, a tuple of
 axis names, or None (where the reference has a ``PartitionSpec``). The rules
 are the reference's, table and all (the mesh plan places weights by
-``param_specs`` and a rank's KV cache by ``cache_specs``; ``batch_specs``
-is kept, tested against the reference, for the sharded trainer of
-ROADMAP.md queue A item 21 part 2):
+``param_specs`` and a rank's KV cache by ``cache_specs``; the sharded
+trainer places its state by ``state_specs`` and splits its batch by
+``batch_specs``):
   * TP over ``model``: attention heads, MLP hidden, MoE experts, vocab;
   * FSDP over ``data`` for the replicated remainder when
     ``cfg.parallel.fsdp`` (the embed/d_model dims);
@@ -19,16 +19,24 @@ one table covers every architecture. A dim that does not divide its mesh
 axes falls back to replication. Only ``mesh.shape`` and
 ``mesh.axis_names`` are read. ``state_specs`` gives a train state's specs
 (the moments follow their params, or shard over ``data`` alone under
-``zero1``); ``to_named`` pairs a spec tree with its mesh, the placement a
-sharded trainer (ROADMAP.md queue A item 21 part 2) would read.
+``zero1``); ``to_named`` pairs a spec tree with its mesh.
+
+:func:`place` is the port's ``jax.device_put(tree, named)``: every leaf
+goes to rest in its shards as a :class:`Placed` leaf, which holds only the
+blocks of the shards this process computes (every shard's on logical
+shards, the rank's own on a rank); :func:`gather` rebuilds whole leaves
+through the mesh's collective groups. :func:`block` is the block arithmetic
+both share with the mesh plan's weights (``runtime/plan.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
-from repro_torch.core.sealing import tree_map
+import torch
+
+from repro_torch.core.sealing import tree_leaves_with_names, tree_map
 
 Params = Any
 Spec = Tuple[Any, ...]
@@ -269,3 +277,173 @@ def to_named(mesh, spec_tree: Params) -> Params:
     """Every spec of a spec tree (dicts and NamedTuples of tuples) paired
     with ``mesh``."""
     return tree_map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# placement: a tree at rest in its shards, and gathered back whole
+# ---------------------------------------------------------------------------
+
+def axis_index(mesh, axis, coords) -> int:
+    """The block index along a spec entry of the shard at ``coords``
+    (``(data, model)``): its coordinate on that axis, or on a tuple of axes
+    their row-major combination (jax's order); 0 for None."""
+    if axis is None:
+        return 0
+    idx = 0
+    for a in (axis if isinstance(axis, tuple) else (axis,)):
+        idx = idx * mesh.shape[a] + coords[mesh.axis_names.index(a)]
+    return idx
+
+
+def block_key(mesh, spec: Spec, coords) -> Tuple[int, ...]:
+    """The block index, one a dim, that the shard at ``coords`` holds."""
+    return tuple(axis_index(mesh, a, coords) for a in spec)
+
+
+def narrow(leaf: torch.Tensor, spec: Spec, mesh,
+           key: Tuple[int, ...]) -> torch.Tensor:
+    """The block of ``leaf`` at block index ``key`` (a view)."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            n = leaf.shape[dim] // _axis_size(mesh, axis)
+            leaf = leaf.narrow(dim, key[dim] * n, n)
+    return leaf
+
+
+def block(leaf: torch.Tensor, spec: Spec, mesh, coords,
+          axes: Iterable[str] = ("data", "model")) -> torch.Tensor:
+    """The block of ``leaf`` that the shard at ``coords`` holds under
+    ``spec``, split over ``axes`` only (a view)."""
+    axes = set(axes)
+    kept = tuple(a if a is not None and set(
+        a if isinstance(a, tuple) else (a,)) <= axes else None for a in spec)
+    return narrow(leaf, kept, mesh, block_key(mesh, kept, coords))
+
+
+def local_coords(mesh):
+    """The ``(data, model)`` coordinates this process computes: every
+    shard's on logical shards, the rank's own on a rank."""
+    if mesh.spans_ranks:
+        return [tuple(mesh.coords)]
+    return [(d, m) for d in range(mesh.shape["data"])
+            for m in range(mesh.shape["model"])]
+
+
+class Placed:
+    """One leaf at rest in its shards (a ``NamedSharding``'s placement):
+    ``blocks[key]`` is the block at block index ``key`` (one index a dim,
+    :func:`block_key`), separately allocated on the mesh's device, for the
+    shards this process computes. Logical shards that hold the same block
+    (a replicated dim) share one copy of it."""
+
+    def __init__(self, named: "NamedSharding", shape, dtype,
+                 blocks: Dict[Tuple[int, ...], torch.Tensor]):
+        self.named = named
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.blocks = blocks
+
+    @property
+    def device(self) -> torch.device:
+        return self.named.mesh.device
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def shard(self, coords) -> torch.Tensor:
+        """The block the shard at ``coords`` holds."""
+        return self.blocks[block_key(self.named.mesh, self.named.spec,
+                                     coords)]
+
+    def __repr__(self) -> str:
+        return (f"Placed(shape={self.shape}, dtype={self.dtype}, "
+                f"spec={self.named.spec}, blocks={len(self.blocks)})")
+
+
+def place_leaf(leaf, named: "NamedSharding") -> Placed:
+    """``leaf`` (a tensor or array, or a :class:`Placed` leaf, gathered
+    first) at rest in the shards of ``named``."""
+    if isinstance(leaf, Placed):
+        leaf = gather_leaf(leaf)
+    mesh, spec = named.mesh, tuple(named.spec)
+    leaf = torch.as_tensor(leaf).to(mesh.device)
+    blocks: Dict[Tuple[int, ...], torch.Tensor] = {}
+    for coords in local_coords(mesh):
+        key = block_key(mesh, spec, coords)
+        if key not in blocks:
+            blocks[key] = narrow(leaf, spec, mesh, key).clone(
+                memory_format=torch.contiguous_format)
+    return Placed(named, leaf.shape, leaf.dtype, blocks)
+
+
+@torch.no_grad()
+def gather_leaf(x: Placed, out: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """The whole leaf: each sharded dim all-gathered over its axis's group
+    in turn (on logical shards a concatenation, on ranks the groups'
+    all-gather), the last one into ``out`` when given (a buffer refilled
+    at every gather). The bytes into one shard are counted once (a logical
+    mesh concatenates the same dim for every block of the others)."""
+    mesh, spec = x.named.mesh, tuple(x.named.spec)
+    dims = [d for d, axis in enumerate(spec) if axis is not None]
+    blocks = x.blocks
+    for dim in dims:
+        group = mesh.group(spec[dim])
+        counting = group.counting
+        rests = sorted({k[:dim] + (0,) + k[dim + 1:] for k in blocks})
+        merged = {}
+        try:
+            for j, rest in enumerate(rests):
+                group.counting = counting and j == 0
+                merged[rest] = group.all_gather(
+                    [blocks[rest[:dim] + (i,) + rest[dim + 1:]]
+                     for i in group.local], dim,
+                    out=out if dim == dims[-1] else None)
+        finally:
+            group.counting = counting
+        blocks = merged
+    (whole,) = blocks.values()
+    if out is not None and whole is not out:
+        out.copy_(whole)
+    return whole if out is None else out
+
+
+def place(tree: Params, named: Params) -> Params:
+    """Every leaf of ``tree`` at rest in the shards of the matching
+    ``NamedSharding`` of ``named`` (the reference's ``jax.tree.map(
+    jax.device_put, tree, named)``); a leaf placed already moves to the new
+    shards (gathered, then placed)."""
+    return tree_map(place_leaf, tree, named)
+
+
+def gather(tree: Params) -> Params:
+    """``tree`` with every :class:`Placed` leaf gathered whole (a
+    collective over ranks: every rank of the mesh calls it)."""
+    return tree_map(lambda x: gather_leaf(x) if isinstance(x, Placed)
+                    else x, tree)
+
+
+def placement(tree: Params) -> Optional[Params]:
+    """The ``NamedSharding`` tree a placed tree rests in, or None when no
+    leaf is placed."""
+    named = tree_map(lambda x: x.named if isinstance(x, Placed) else None,
+                     tree)
+    if all(n is None for _, n in tree_leaves_with_names(named)):
+        return None
+    return named
+
+
+def mesh_of(tree: Params):
+    """The mesh of a placed tree's first placed leaf, or None."""
+    for _, leaf in tree_leaves_with_names(tree):
+        if isinstance(leaf, Placed):
+            return leaf.named.mesh
+    return None
+
+
+def shard_nbytes(tree: Params, coords) -> int:
+    """Bytes the shard at ``coords`` holds of a placed tree."""
+    return sum(leaf.shard(coords).numel() * leaf.shard(coords).element_size()
+               for _, leaf in tree_leaves_with_names(tree)
+               if isinstance(leaf, Placed))

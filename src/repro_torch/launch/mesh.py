@@ -22,6 +22,8 @@ of ``dryrun.py``, ROADMAP.md queue A item 19).
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import Dict, Tuple, Union
 
 import torch
@@ -50,6 +52,9 @@ class Mesh:
         self.coords = coords
         self.backend = backend
         self.world = world
+        # every shard in row-major order (a ("data", "model") spec entry)
+        self.flat = world if world is not None else LocalGroup(
+            self.shape["data"] * self.shape["model"], device)
 
     @property
     def size(self) -> int:
@@ -59,6 +64,18 @@ class Mesh:
     @property
     def spans_ranks(self) -> bool:
         return self.coords is not None
+
+    def group(self, axis) -> Group:
+        """The collective group of a spec entry: ``"data"``, ``"model"``,
+        or both in row-major order."""
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
+        if isinstance(axis, tuple):
+            if axis != AXES:
+                raise ValueError(f"no group runs over the axes {axis} in "
+                                 f"that order; the mesh's order is {AXES}")
+            return self.flat
+        return self.groups[axis]
 
     def rank_of(self, data: int, model: int) -> int:
         """The global rank at ``(data, model)``."""
@@ -122,3 +139,35 @@ def make_host_mesh(data: int = 1, model: int = 1,
     return Mesh({"data": data, "model": model}, dev, groups, coords=coords,
                 backend=backend, world=RankGroup(pg, list(range(world)),
                                                  backend, dev))
+
+
+def join_world(device=None):
+    """Under torchrun (``WORLD_SIZE`` above 1): join the world (gloo for
+    the default group; a mesh's own groups pick NCCL or gloo), take this
+    rank's card unless ``device`` names one, and silence every rank but 0.
+    Returns ``(rank, device)``, the rank None outside torchrun."""
+    if int(os.environ.get("WORLD_SIZE", "1")) < 2:
+        return None, device
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    if device is None:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = f"cuda:{local % max(torch.cuda.device_count(), 1)}"
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    return rank, device
+
+
+def shared_keys():
+    """Rank 0's sealing and channel key material, broadcast to every rank
+    (inside the trust boundary): the ranks' trust domains seal and unseal
+    each other's rows and checkpoints."""
+    import torch.distributed as dist
+    from repro_torch.core.sealing import SealingKey
+
+    seeds = [os.urandom(32), os.urandom(32)]
+    dist.broadcast_object_list(seeds, src=0)
+    return dict(sealing_key=SealingKey.generate(seeds[0]),
+                io_key=SealingKey.generate(seeds[1]))

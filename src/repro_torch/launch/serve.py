@@ -51,20 +51,19 @@ and only rank 0 prints.
 from __future__ import annotations
 
 import argparse
-import os
-import sys
 import time
 
 import numpy as np
 
 from repro_torch.configs import get_config, list_configs, smoke_config
-from repro_torch.core import RooflineTerms, SealingKey, TrustDomain
+from repro_torch.core import RooflineTerms, TrustDomain
 from repro_torch.core.overheads import (STEP_COMPUTE_FRACTION,
                                         STEP_MEMORY_FRACTION,
                                         fused_unseal_savings,
                                         measured_link_tax,
                                         store_restore_savings)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import join_world, shared_keys
 from repro_torch.models import build_model
 from repro_torch.runtime import (Engine, FramePolicy, GenerationRequest,
                                  SamplingParams, parse_mesh)
@@ -118,37 +117,12 @@ def engine_kwargs(args, device):
 
 
 def join_ranks(args):
-    """Under torchrun with ``--mesh``: join the world (gloo for the default
-    group; the mesh's own groups pick NCCL or gloo), take this rank's
-    device, and silence every rank but 0. Returns the rank, or None outside
-    torchrun."""
-    if args.mesh is None or int(os.environ.get("WORLD_SIZE", "1")) < 2:
-        return None
-    if args.workers:
-        return None     # refused below, as in one process
-    import torch
-    import torch.distributed as dist
-
-    dist.init_process_group("gloo")
-    rank = dist.get_rank()
-    if args.device is None:
-        local = int(os.environ.get("LOCAL_RANK", rank))
-        args.device = f"cuda:{local % max(torch.cuda.device_count(), 1)}"
-    if rank != 0:
-        sys.stdout = open(os.devnull, "w")
+    """Under torchrun with ``--mesh``: :func:`join_world`. Returns the
+    rank, or None outside torchrun."""
+    if args.mesh is None or args.workers:
+        return None     # fleet mode with a mesh is refused below
+    rank, args.device = join_world(args.device)
     return rank
-
-
-def shared_keys():
-    """Rank 0's sealing and channel key material, broadcast to every rank
-    (inside the trust boundary): the ranks' trust domains seal and unseal
-    each other's rows."""
-    import torch.distributed as dist
-
-    seeds = [os.urandom(32), os.urandom(32)]
-    dist.broadcast_object_list(seeds, src=0)
-    return dict(sealing_key=SealingKey.generate(seeds[0]),
-                io_key=SealingKey.generate(seeds[1]))
 
 
 def build_requests(args, cfg, tenants: int = 0):

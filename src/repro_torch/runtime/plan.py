@@ -5,8 +5,8 @@ back eager callables that run under ``torch.inference_mode()``; PyTorch has
 no ``jit`` step. :class:`PrefillOnlyPlan` is the prefill half of a
 disaggregated engine (``Engine(prefill_plan=...)``). :class:`ShardedPlan`
 spans a mesh (``Engine(mesh="dp=2,tp=2")``) of logical shards on one device
-or of ranks, one device each: weights at rest in per-shard chunks over
-``data``, gathered at use, tensor-parallel compute over ``model``, every
+or of ranks, one device each: weights at rest in their ``data`` shards
+(``sharding.Placed``, as a sharded train state rests), gathered at use, tensor-parallel compute over ``model``, every
 step's gather and collectives counted into ``ChannelStats.collective_*``.
 """
 
@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.sealing import tree_leaves_with_names, tree_map
+from repro_torch.distributed.collectives import mark_seconds, take_all
 
 Params = Any
 Cache = Any
@@ -240,20 +241,20 @@ class PrefillOnlyPlan(ComputePlan):
 
 class ShardedWeights:
     """A :class:`ShardedPlan`'s weights: each leaf that ``param_specs``
-    shards over ``data`` at rest in separately allocated chunks
-    (``chunks[name]``, split along ``dims[name]``: every shard's on logical
-    shards, the rank's own on a rank), every other leaf whole. ``full`` is
-    the whole tree (on a rank: its ``model`` slice of every leaf), its
-    sharded leaves being the gather buffers (``buffers[name]``), allocated
-    once and refilled by every gather. ``compute`` is what the step reads:
-    ``full``, or under tensor parallelism the per-shard layer views
+    shards over ``data`` at rest in its ``data`` shards as a
+    :class:`~repro_torch.distributed.sharding.Placed` (``placed[name]``:
+    every shard's block on logical shards, the rank's own on a rank), every
+    other leaf whole. ``full`` is the whole tree (on a rank: its ``model``
+    slice of every leaf), its sharded leaves being the gather buffers
+    (``buffers[name]``), allocated once and refilled by every gather.
+    ``compute`` is what the step reads: ``full``, or under tensor
+    parallelism the per-shard layer views
     (:meth:`TensorParallel.layer_params`)."""
 
-    def __init__(self, full: Params, chunks: Dict[str, List[torch.Tensor]],
-                 dims: Dict[str, int], buffers: Dict[str, torch.Tensor]):
+    def __init__(self, full: Params, placed: Dict[str, Any],
+                 buffers: Dict[str, torch.Tensor]):
         self.full = full
-        self.chunks = chunks
-        self.dims = dims
+        self.placed = placed
         self.buffers = buffers
         self.compute: Any = full
 
@@ -275,11 +276,13 @@ class ShardedPlan(ComputePlan):
         its sealed KV (``/s{shard}``);
       - **params** are placed per
         :func:`repro_torch.distributed.sharding.param_specs` with FSDP forced
-        on: each leaf sharded over ``data`` sits at rest in chunks, and
+        on: each leaf sharded over ``data`` sits at rest in its ``data``
+        shards (:func:`~repro_torch.distributed.sharding.place_leaf`), and
         before every decode step and prefill call the plan gathers them
-        into full-size buffers (:meth:`gather`: a copy in device memory on
-        logical shards, the ``data`` group's all-gather on ranks). A rank
-        keeps only its ``model`` slice of every leaf;
+        into full-size buffers (:meth:`gather`, through
+        :func:`~repro_torch.distributed.sharding.gather_leaf`: a copy in
+        device memory on logical shards, the ``data`` group's all-gather on
+        ranks). A rank keeps only its ``model`` slice of every leaf;
       - **compute**: with ``tp == 1`` on logical shards the backend's
         unchanged batched step runs on the gathered weights, over the whole
         batch, in one call: every row's GEMM shapes, and with them its bits,
@@ -362,32 +365,29 @@ class ShardedPlan(ComputePlan):
             yield self.mesh.world
 
     def _take(self) -> Tuple[int, List[Any]]:
-        nbytes, marks = 0, []
-        for g in self._groups():
-            b, m = g.take()
-            nbytes += b
-            marks += m
-        return nbytes, marks
+        return take_all(self._groups())
 
     # -- placement ----------------------------------------------------------
     def _rank_slice(self, leaf: torch.Tensor, spec) -> torch.Tensor:
         """A rank's own block of ``leaf`` over ``model`` (a copy)."""
+        from repro_torch.distributed import sharding
         from repro_torch.distributed.tensor_parallel import model_dim
 
         dim = model_dim(spec)
         if dim < 0 or self.tp == 1:
             return leaf
-        n = leaf.shape[dim] // self.tp
-        return leaf.narrow(dim, self.mesh.coords[1] * n, n).clone()
+        only = tuple("model" if i == dim else None for i in range(len(spec)))
+        return sharding.block(leaf, only, self.mesh, self.mesh.coords).clone()
 
     @torch.inference_mode()
     def place_params(self, params: Params) -> ShardedWeights:
-        """Split every leaf ``param_specs`` shards over ``data`` into
-        chunks of its own (a rank keeps its ``model`` slice and its own
-        chunk), count the bytes a gather moves into one shard, allocate the
-        gather buffers, and take the tensor-parallel views. Weights this
-        plan placed already are returned as they are (a rank may place its
-        slice in turn before the engine is built on them)."""
+        """Place every leaf ``param_specs`` shards over ``data`` in its
+        ``data`` shards (:func:`~repro_torch.distributed.sharding.place_leaf`;
+        a rank keeps its ``model`` slice and its own block), count the bytes
+        a gather moves into one shard, allocate the gather buffers, and take
+        the tensor-parallel views. Weights this plan placed already are
+        returned as they are (a rank may place its slice in turn before the
+        engine is built on them)."""
         from repro_torch.distributed import sharding
         from repro_torch.distributed.tensor_parallel import (model_dim,
                                                              shard_views)
@@ -396,9 +396,7 @@ class ShardedPlan(ComputePlan):
             return params
         params = super().place_params(params)
         specs = sharding.param_specs(self._spec_cfg, params, self.mesh)
-        chunks: Dict[str, List[torch.Tensor]] = {}
-        dims: Dict[str, int] = {}
-        shapes: Dict[str, Tuple[int, ...]] = {}
+        placed: Dict[str, sharding.Placed] = {}
         split: Dict[str, int] = {}
 
         def place(node, spec, path):
@@ -409,22 +407,18 @@ class ShardedPlan(ComputePlan):
                 node = self._rank_slice(node, spec)
             if self.dp == 1 or "data" not in spec:
                 return node
-            dims[path] = spec.index("data")
-            shapes[path] = tuple(node.shape)
+            only = tuple(a if a == "data" else None for a in spec)
+            placed[path] = sharding.place_leaf(
+                node, sharding.NamedSharding(self.mesh, only))
             # a logical shard's gather moves its own model slice
             split[path] = (self.tp if not self.ranks and model_dim(spec) >= 0
                            else 1)
-            parts = node.chunk(self.dp, dim=dims[path])
-            chunks[path] = ([parts[self.mesh.coords[0]].clone()]
-                            if self.ranks else [c.clone() for c in parts])
             return path
 
         skeleton = place(params, specs, "")
-        buffers = {p: torch.empty(shapes[p], dtype=cs[0].dtype,
-                                  device=self.device)
-                   for p, cs in chunks.items()}
-        weights = ShardedWeights(_fill(skeleton, buffers), chunks, dims,
-                                 buffers)
+        buffers = {p: torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                   for p, x in placed.items()}
+        weights = ShardedWeights(_fill(skeleton, buffers), placed, buffers)
         shard_b = sum(b.numel() * b.element_size() // split[p]
                       for p, b in buffers.items())
         self._gather_bytes = shard_b * (self.dp - 1) // self.dp
@@ -466,16 +460,16 @@ class ShardedPlan(ComputePlan):
 
     @torch.inference_mode()
     def gather(self, weights: ShardedWeights) -> Any:
-        """Rebuild the full weights: every sharded leaf's chunks copied
-        into its buffer (over ranks, gathered over ``data``). Returns what
-        the step computes on (``weights.compute``)."""
-        data = self.mesh.groups["data"]
-        for path, cs in weights.chunks.items():
-            if self.ranks:
-                cs = data.all_gather_list(cs)
-            torch.cat(cs, dim=weights.dims[path], out=weights.buffers[path])
-        if self.ranks:
-            data.take()      # counted once, as the gather's bytes
+        """Rebuild the full weights: every sharded leaf gathered over
+        ``data`` into its buffer (:func:`~repro_torch.distributed.sharding.
+        gather_leaf`: on logical shards a copy in device memory). Returns
+        what the step computes on (``weights.compute``)."""
+        from repro_torch.distributed import sharding
+
+        for path, x in weights.placed.items():
+            sharding.gather_leaf(x, out=weights.buffers[path])
+        # counted once, as the plan's gather bytes, and timed as one
+        self.mesh.groups["data"].take()
         return weights.compute
 
     def _timed_gather(self, weights: ShardedWeights) -> Tuple[Any, Any]:
@@ -539,7 +533,7 @@ class ShardedPlan(ComputePlan):
                                               + pending[-1][0])
         return (len(pending),
                 sum(self._gather_bytes + b for b, _ in pending),
-                sum(_seconds(m) for _, marks in pending for m in marks))
+                sum(mark_seconds(m) for _, marks in pending for m in marks))
 
     def shard_of_slot(self, slot: int, max_slots: int) -> int:
         """Which data shard holds this slot's cache row: the ``/s{shard}``
@@ -547,16 +541,6 @@ class ShardedPlan(ComputePlan):
         if max_slots % self.dp != 0:
             return 0               # the rows do not split: replicated
         return int(slot) // (max_slots // self.dp)
-
-
-def _seconds(mark) -> float:
-    """A queued gather's seconds: host-clock seconds as they are, a pair of
-    CUDA events read once the second has passed."""
-    if isinstance(mark, float):
-        return mark
-    start, end = mark
-    end.synchronize()
-    return start.elapsed_time(end) * 1e-3
 
 
 def _fill(skeleton: Params, buffers: Dict[str, torch.Tensor]) -> Params:

@@ -78,29 +78,39 @@ def clip_by_global_norm(grads: Params, max_norm: float):
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
-@torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: Params, grads: Params,
-                 state: OptState):
-    """Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    step = state.step + 1
+def adamw_scalars(cfg: AdamWConfig, step: torch.Tensor):
+    """(lr, bias corrections 1 and 2) of update number ``step``, f32."""
     lr = lr_schedule(cfg, step)
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
                                      device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
                                      device=stepf.device), stepf)
+    return lr, bc1, bc2
 
-    def upd(p, g, m, v):
-        gf = g.float()
-        mf = m.float() * cfg.b1 + gf * (1 - cfg.b1)
-        vf = v.float() * cfg.b2 + gf.square() * (1 - cfg.b2)
-        delta = (mf / bc1) / ((vf / bc2).sqrt() + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), mf.to(m.dtype), \
-            vf.to(v.dtype)
 
-    out = tree_map(upd, params, grads, state.m, state.v)  # leaves: triples
+def adamw_leaf(cfg: AdamWConfig, scalars, p, g, m, v):
+    """One leaf's (or any slice of it: the update is element by element)
+    new (param, m, v), computed in f32 and cast back."""
+    lr, bc1, bc2 = scalars
+    gf = g.float()
+    mf = m.float() * cfg.b1 + gf * (1 - cfg.b1)
+    vf = v.float() * cfg.b2 + gf.square() * (1 - cfg.b2)
+    delta = (mf / bc1) / ((vf / bc2).sqrt() + cfg.eps) \
+        + cfg.weight_decay * p.float()
+    return (p.float() - lr * delta).to(p.dtype), mf.to(m.dtype), \
+        vf.to(v.dtype)
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, params: Params, grads: Params,
+                 state: OptState):
+    """Returns (new_params, new_state, metrics)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step = state.step + 1
+    scalars = adamw_scalars(cfg, step)
+    out = tree_map(lambda p, g, m, v: adamw_leaf(cfg, scalars, p, g, m, v),
+                   params, grads, state.m, state.v)  # leaves: triples
     new_p, new_m, new_v = (tree_map(lambda o: o[i], out) for i in range(3))
     return new_p, OptState(new_m, new_v, step), {"grad_norm": gnorm,
-                                                 "lr": lr}
+                                                 "lr": scalars[0]}

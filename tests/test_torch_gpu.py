@@ -935,3 +935,72 @@ def test_tp_ranks_on_card_equal_logical_blobs(card, tmp_path):
     assert sorted(ranks[0]["own"]) == sorted(n for s in want["seals"]
                                              for n in s)
     assert not ranks[1]["own"]
+
+
+def test_sharded_train_step_on_card_matches_one_device(card):
+    """Two sharded steps over a logical dp=2,tp=2 mesh on the card (FSDP
+    over data, 2 microbatches) against the one-device step on the card:
+    losses within 1e-5, every leaf within 1e-4 of its largest entry (the
+    shards' f32 gradients summed in another order; a gradient at rounding
+    noise can turn AdamW's step by up to lr); the state rests in its
+    shards, each block on the card."""
+    import dataclasses
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.data.pipeline import PackedLMDataset
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (abstract_train_state,
+                                              init_train_state,
+                                              make_sharded_train_step,
+                                              make_train_step)
+    cfg = smoke_config("deepseek-7b")
+    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, fsdp=True))
+    model = build_model(cfg, device=card)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    state = init_train_state(model, opt, seed=0)
+    mesh = make_host_mesh(2, 2, device=card)
+    sspecs = sharding.state_specs(cfg, abstract_train_state(model, opt), mesh)
+    data = iter(PackedLMDataset(batch_size=8, seq_len=32, seed=0))
+    batch = next(data)
+    sstep = make_sharded_train_step(model, opt, mesh, sspecs,
+                                    sharding.batch_specs(cfg, batch, mesh),
+                                    microbatches=2)
+    step = make_train_step(model, opt, microbatches=2)
+    placed = sharding.place(state, sharding.to_named(mesh, sspecs))
+    for _ in range(2):
+        placed, sm = sstep(placed, batch)
+        state, m = step(state, batch)
+        torch.testing.assert_close(sm["loss"], m["loss"], rtol=1e-5,
+                                   atol=1e-5)
+        batch = next(data)
+    assert sm["collective_bytes"] > 0 and sm["collective_s"] > 0
+    for (n, p), (_, w) in zip(tree_leaves_with_names(placed),
+                              tree_leaves_with_names(state)):
+        assert all(b.device.type == card.type for b in p.blocks.values()), n
+        g = sharding.gather_leaf(p)
+        scale = max(float(w.abs().max()), 1e-30) if w.is_floating_point() \
+            else 0.0
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale, msg=n)
+
+
+def test_gpipe_gradient_on_card(card):
+    """make_gpipe over a LocalGroup(4) on the card: the sequential stages'
+    output within 1e-4 and their gradient within 1e-3
+    (tests/test_distributed.py's tolerances)."""
+    from repro_torch.distributed.collectives import LocalGroup
+    from repro_torch.distributed.pipeline import make_gpipe
+    g = torch.Generator(device="cpu").manual_seed(5)
+    ws = (torch.randn(4, 64, 64, generator=g) * 0.15).to(card)
+    mb = torch.randn(6, 8, 64, generator=g).to(card)
+    ws.requires_grad_()
+    stage = lambda w, x: torch.tanh(x @ w)
+    out = make_gpipe(LocalGroup(4, card), stage)(ws, mb)
+    ref = mb
+    for i in range(4):
+        ref = stage(ws[i], ref)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    (got,) = torch.autograd.grad((out ** 2).sum(), ws)
+    (want,) = torch.autograd.grad((ref ** 2).sum(), ws)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)

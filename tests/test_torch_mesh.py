@@ -142,7 +142,8 @@ def _assert_same_mesh_run(j, t, gather_b=None):
     assert tch.collective_steps == jch.collective_steps > 0
     plan = teng.plan
     chunk_b = sum(c.numel() * c.element_size()
-                  for cs in teng.params.chunks.values() for c in cs)
+                  for x in teng.params.placed.values()
+                  for c in x.blocks.values())
     assert plan.collective_bytes_per_step == chunk_b // 2
     assert tch.collective_bytes == tch.collective_steps * chunk_b // 2
     if gather_b is not None:

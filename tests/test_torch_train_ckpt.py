@@ -205,8 +205,17 @@ def test_restart_resume_is_bit_identical(setup, tmp_path):
     for (n, a), (_, b) in zip(tree_leaves_with_names(faulty),
                               tree_leaves_with_names(clean)):
         assert torch.equal(a, b), n
-    with pytest.raises(NotImplementedError, match="item 21"):
-        reshard_state(clean, None)
+    # elastic rescale: the final state placed on a (2, 1) mesh rests in
+    # its state_specs shards and gathers back bit for bit
+    mesh = make_host_mesh(2, 1, device="cpu")
+    named = tsharding.to_named(mesh, tsharding.state_specs(
+        tm.cfg, tloop.abstract_train_state(tm, to), mesh))
+    placed = reshard_state(clean, named)
+    assert tsharding.placement(placed) == named
+    for (n, a), (_, b) in zip(
+            tree_leaves_with_names(tsharding.gather(placed)),
+            tree_leaves_with_names(clean)):
+        assert torch.equal(a, b), n
 
 
 # ---------------------------------------------------------------------------
@@ -308,9 +317,13 @@ def test_launcher_prints_reference_report_lines(monkeypatch, tmp_path):
     assert got[2].startswith("4 steps in ") and got[2].endswith(" tok/s)")
     first, last = map(float, got[3].removeprefix("loss: ").split(" -> "))
     assert last < first
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tlaunch.main(["--arch", "deepseek-7b", "--smoke", "--data-mesh", "2",
-                      "--device", "cpu"])
+    # a mesh (logical shards here) prints the reference's mesh line first
+    mesh = _run_main(tlaunch.main, ["--arch", "deepseek-7b", "--smoke",
+                                    "--steps", "2", "--seq", "32",
+                                    "--data-mesh", "2", "--device", "cpu"],
+                     monkeypatch)
+    assert mesh[:2] == ["mesh: {'data': 2, 'model': 1}",
+                        got[0].replace("tee=tdx", "tee=none")]
 
 
 def test_train_tiny_example_runs():
