@@ -91,7 +91,13 @@ Phases, each fatal on failure:
      tp=2 engine spanning the ranks give the TP path's tokens, sealed
      names and blob bytes bit for bit, every name sealed by one rank and
      the frames sent by rank 0 alone; then dp=2 over the same ranks on
-     Llama2-7B cut to 2 layers gives a logical dp=2 run's tokens.
+     Llama2-7B cut to 2 layers gives a logical dp=2 run's tokens. Then the
+     paged ranks path (PAGED_RANKS): Llama2-70B at published width, 2 of
+     80 layers, and dbrx-132b, 1 layer, each first on a logical tp=2 mesh
+     here, then on a paged tp=2 engine with gather decode spanning two
+     processes on the card (each rank its KV heads of every page): tokens,
+     page tables after every step, sealed names and blob bytes equal the
+     logical run's, every page sealed whole by rank 0 through B1.
      Each path runs with every kernel count set to 0 just before it; every
      request's tokens must equal the same request served alone on a fresh
      engine of that path; the pool invariants hold after every sharing and
@@ -113,9 +119,16 @@ Phases, each fatal on failure:
      the low wave and a preempting request under tdx. Chameleon's and
      rwkv6's requests equal their solo runs; the MoE families' rerun on a
      fresh engine repeats every token; on jamba a partially evicted row's
-     Mamba state stays bit-equal through a step it sits out. Then
-     whisper-small at full size: prefill over 1,500 frames and 16 decode
-     steps, each within a stated tolerance of the cache-free forward;
+     Mamba state stays bit-equal through a step it sits out. Chameleon,
+     dbrx and deepseek-v3 then serve the same waves on a tp=2 mesh of
+     logical shards over the same unsealed weights (FAMILY_TP: heads,
+     experts and MLA heads split, every token routed on every shard): each
+     request equal to its solo run (the MoE families: a rerun on a fresh
+     tp=2 engine), the collective bytes a step equal to tp_step_bytes, one
+     decode step's logits within FAMILY_TP_LOGITS_REL_TOL of one device's,
+     B1 the only kernel. Then whisper-small at full size: prefill over
+     1,500 frames and 16 decode steps, each within a stated tolerance of
+     the cache-free forward;
   7. training: Llama2-7B at full width, 2 of 32 layers, bf16, with the
      reference's train variant (attention and loss chunks of 512, 8
      microbatches, full remat, f32 moments) on packed 8 x 1024-token
@@ -1858,30 +1871,52 @@ RANKS_TIMEOUT_S = 600
 
 
 def tp_step_bytes(cfg, rows: int, tp: int) -> int:
-    """What one tp decode step's collectives move into a shard, written
-    down before the run: 2 reductions a layer plus the embedding's, each an
-    all-gather of the [rows, 1, d_model] bf16 partials, and the f32 logits
-    gathered along the vocabulary."""
-    d, layers, vocab = cfg.d_model, cfg.num_layers, cfg.vocab_size
-    return ((2 * layers + 1) * (tp - 1) * rows * d * 2
-            + (tp - 1) * rows * (vocab // tp) * 4)
+    """What one tp decode step's collectives move into a shard (dp=1),
+    written down before the run from the model's layer slots: every mixer
+    (attn, mla) and every FFN (swiglu, moe) reduces one [rows, 1, d_model]
+    partial in the model's dtype -- an all-gather of the other shards'
+    partials; attention whose KV heads do not divide tp (sequence
+    parallelism) also gathers the query heads and each shard's f32 (o,
+    max, sum). A MoE layer routes on every shard (its router is
+    replicated) and MLA's latent is computed on every shard, so neither
+    moves more. When tp divides the vocabulary the embedding reduces one
+    more partial and the f32 logits are gathered along it."""
+    from repro_torch.models.transformer import _blocks
+    d, vocab, el = cfg.d_model, cfg.vocab_size, cfg.torch_dtype.itemsize
+    part = (tp - 1) * rows * d * el
+    total = 0
+    for _, n, slots in _blocks(cfg):
+        for mixer, _ in slots:
+            layer = 2 * part
+            if mixer == "attn" and cfg.num_kv_heads % tp:
+                h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+                layer += ((tp - 1) * rows * (h // tp) * hd * el
+                          + (tp - 1) * rows * h * (hd + 2) * 4)
+            total += n * layer
+    if vocab % tp == 0:
+        total += part + (tp - 1) * rows * (vocab // tp) * 4
+    return total
 
 
 def record_seals(eng) -> list:
-    """Wrap the engine's KV seal: each seal's {name: sha256 of its
-    ciphertext and MAC}, in order (the bit-for-bit blob check keeps
-    these)."""
+    """Wrap the engine's KV seals (whole and, on the paged backend, tail
+    pages): each seal's {name: sha256 of its ciphertext and MAC}, in order
+    (the bit-for-bit blob check keeps these)."""
     import hashlib
-    seals, seal = [], eng.kv.seal
+    seals = []
+    for meth in ("seal", "seal_tail_pages"):
+        inner = getattr(eng.kv, meth, None)
+        if inner is None:
+            continue
 
-    def recording(*a, **k):
-        out = seal(*a, **k)
-        seals.append({n: hashlib.sha256(st.ciphertext.cpu().numpy().tobytes()
-                                        + st.mac).hexdigest()
-                      for n, st in out.items()})
-        return out
+        def recording(*a, _inner=inner, **k):
+            out = _inner(*a, **k)
+            seals.append({n: hashlib.sha256(
+                st.ciphertext.cpu().numpy().tobytes() + st.mac).hexdigest()
+                for n, st in out.items()})
+            return out
 
-    eng.kv.seal = recording
+        setattr(eng.kv, meth, recording)
     return seals
 
 
@@ -2161,6 +2196,239 @@ def phase_ranks(torch, np, cfg_name, specs, tp_out, device="cuda",
     check(launches > 0, "ranks tp=2: B1 ran under the seals and unseals")
     shutil.rmtree(work, ignore_errors=True)
     return dict(ranks=ranks, wall_s=wall, launches=launches, seals=len(names))
+
+
+# the paged ranks path: the paged backend with gather decode over the same
+# 2 gloo ranks on the card, tp=2 (each rank holds its KV heads of every
+# page), on the slot path's preempting waves, so per-page seals and their
+# restores run through B1 over ranks: Llama2-70B at published width (d_model
+# 8192, GQA 64/8, d_ff 28672; the paper's largest model) cut to 2 of 80
+# layers, then dbrx-132b's 1-layer cut (8 of its 16 experts a rank). Each
+# against a logical tp=2 run of the same seed-0 weights in the parent.
+PAGED_RANKS = [("llama2-70b", dict(num_layers=2)),
+               ("dbrx-132b", dict(num_layers=1))]
+PAGED_RANKS_KW = dict(PAGED_KW, kv_decode="gather")
+
+
+def serve_waves_tables(engine, specs, gen):
+    """serve_waves, stepping by hand to keep every step's page table."""
+    tables = []
+
+    def step():
+        engine.step()
+        tables.append(engine.kv.table.copy())
+
+    reqs = [engine.submit(gen(s)) for s in specs[:len(LOW_WAVE)]]
+    for _ in range(3):
+        step()
+    reqs += [engine.submit(gen(s)) for s in specs[len(LOW_WAVE):]]
+    while not engine.idle:
+        step()
+    return reqs, engine.run(max_steps=10_000), tables
+
+
+def paged_ranks_config(name, cut, smoke):
+    from repro_torch.configs import smoke_config
+    return smoke_config(name) if smoke else family_config(name, cut)
+
+
+def paged_run_record(torch, eng, td, specs, gen, device) -> dict:
+    """The waves on a paged engine: tokens, every seal's hashes, every
+    step's page table, timings and the collective counters."""
+    seals = record_seals(eng)
+    t0 = time.perf_counter()
+    reqs, stats, tables = serve_waves_tables(eng, specs, gen)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ch = td.channel.stats
+    steps = max(ch.collective_steps, 1)
+    return dict(tokens=[list(r.output) for r in reqs], seals=seals,
+                tables=tables, wall_s=time.perf_counter() - t0,
+                finished=all(r.finished for r in reqs),
+                p50=stats.p50_latency_s, preemptions=stats.preemptions,
+                seal_events=ch.seal_events, restore_events=ch.restore_events,
+                frames=ch.messages_out, steps=ch.collective_steps,
+                per_step=ch.collective_bytes // steps,
+                coll_ms=ch.collective_s / steps * 1e3,
+                describe=eng.plan.describe())
+
+
+def paged_rank_worker(rank, world, init_file, device, runs, smoke, out_dir):
+    """One rank of the paged ranks path (spawned): join the gloo world;
+    for each run build the seed-0 weights in turn (fingerprints checked
+    against the parent's), keep this rank's tp=2 half, and serve the waves
+    on a paged tp=2 engine spanning the ranks, recording which names this
+    rank sealed itself and its B1 launches."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=RANKS_TIMEOUT_S))
+    try:
+        from repro_torch.core import TrustDomain
+        from repro_torch.core.sealing import tree_leaves_with_names
+        from repro_torch.kernels import chacha20 as C
+        from repro_torch.models import build_model
+        from repro_torch.runtime import (Engine, GenerationRequest,
+                                         ShardedPlan, kvcache)
+
+        own = []
+        seal_tensor = kvcache.seal_tensor
+
+        def sealing(key, name, array, **kw):
+            own.append(name)
+            return seal_tensor(key, name, array, **kw)
+
+        kvcache.seal_tensor = sealing
+
+        def gen(spec):
+            prompt, mnt, prio = spec
+            return GenerationRequest(prompt=prompt.copy(), max_new_tokens=mnt,
+                                     priority=prio)
+
+        result = {}
+        for name, cut, specs, fps in runs:
+            model = build_model(paged_ranks_config(name, cut, smoke),
+                                device=device)
+            plan = ShardedPlan(model, tp=world)
+            weights = None
+            for turn in range(world):
+                if turn == rank:
+                    params = model.init_params(seed=0)
+                    got = {n: fingerprint(torch, t)
+                           for n, t in tree_leaves_with_names(params)}
+                    check(got == fps, f"rank {rank}: {name}'s seed-0 "
+                          f"weights' fingerprints equal the parent's")
+                    weights = plan.place_params(params)
+                    del params
+                    gc.collect()
+                    if device == "cuda":
+                        torch.cuda.empty_cache()
+                dist.barrier()
+            own.clear()
+            C.reset_launches()
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            td = TrustDomain("tdx", device=device, **tp_keys())
+            eng = Engine(model, weights, plan=plan, trust_domain=td,
+                         device=device, **PAGED_RANKS_KW)
+            del weights
+            result[name] = paged_run_record(torch, eng, td, specs, gen,
+                                            device)
+            result[name].update(
+                own=list(own), launches=C.launches,
+                peak=(torch.cuda.max_memory_allocated()
+                      if device == "cuda" else 0))
+            del eng, plan, model
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        torch.save(result, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_paged_ranks(torch, np, device="cuda", smoke=False) -> dict:
+    """The paged ranks path (PAGED_RANKS): for each model a logical tp=2
+    paged-gather run in this process (every kernel count set to 0 just
+    before it), then RANKS spawned processes on the card serving both
+    models' waves on a paged tp=2 engine spanning the ranks. Every rank's
+    tokens, page tables, sealed names and blob bytes equal the logical
+    run's; each name is sealed by exactly one rank (rank 0: the rows' data
+    shard's model coordinate 0, and the owner of content-named pages);
+    rank 0 alone sends frames; B1 ran on the ranks' path."""
+    import torch.multiprocessing as mp
+    from repro_torch.core import TrustDomain
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Engine, GenerationRequest
+
+    def gen(spec):
+        prompt, mnt, prio = spec
+        return GenerationRequest(prompt=prompt.copy(), max_new_tokens=mnt,
+                                 priority=prio)
+
+    runs, want = [], {}
+    for name, cut in PAGED_RANKS:
+        cfg = paged_ranks_config(name, cut, smoke)
+        model = build_model(cfg, device=device)
+        params = model.init_params(seed=0)
+        fps = {n: fingerprint(torch, t)
+               for n, t in tree_leaves_with_names(params)}
+        rng = np.random.default_rng(17)
+        specs = [(rng.integers(1, cfg.vocab_size, n).astype(np.int32), mnt,
+                  prio) for n, mnt, prio in LOW_WAVE + HIGH_WAVE]
+        # ---- the logical tp=2 run: every kernel count starts at 0 here --
+        reset_counts(C, P, Q, FA)
+        td = TrustDomain("tdx", device=device, **tp_keys())
+        eng = Engine(model, params, trust_domain=td, mesh=TP_MESH,
+                     device=device, **PAGED_RANKS_KW)
+        rec = paged_run_record(torch, eng, td, specs, gen, device)
+        rec["launches"] = path_launches()
+        # ---- end of the logical run ---------------------------------------
+        check(rec["finished"] and rec["preemptions"] > 0,
+              f"paged ranks, {name} logical tp=2: every request finished, "
+              f"after a preemption")
+        check(sum(rec["launches"].values())
+              == rec["launches"]["chacha20_xor_blocked"],
+              f"paged ranks, {name} logical tp=2: no kernel but B1 ran")
+        want[name] = rec
+        runs.append((name, cut, specs, fps))
+        del eng, params, model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    work = Path(__file__).resolve().parent / "build" / "paged_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(paged_rank_worker, nprocs=RANKS, join=True, args=(
+        RANKS, str(work / "init"), device, runs, smoke, str(work)))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    for name, _ in PAGED_RANKS:
+        w = want[name]
+        names = {n for s_ in w["seals"] for n in s_}
+        for r, got in enumerate(ranks):
+            g = got[name]
+            check(g["tokens"] == w["tokens"], f"paged ranks, {name}: rank "
+                  f"{r}'s tokens equal the logical tp=2 run's")
+            check(len(g["tables"]) == len(w["tables"]) and all(
+                np.array_equal(a, b) for a, b in zip(g["tables"],
+                                                     w["tables"])),
+                  f"paged ranks, {name}: rank {r}'s page table equals the "
+                  f"logical run's after every step")
+            check(g["seals"] == w["seals"], f"paged ranks, {name}: rank "
+                  f"{r}'s sealed names and blob bytes equal the logical "
+                  f"run's")
+            check(g["preemptions"] > 0 and g["restore_events"] > 0,
+                  f"paged ranks, {name}: a preemption and its restore")
+        sealed_by = [n for got in ranks for n in got[name]["own"]]
+        check(len(sealed_by) == len(set(sealed_by))
+              and names <= set(sealed_by),
+              f"paged ranks, {name}: every name sealed by exactly one rank")
+        check(all(not got[name]["own"] for got in ranks[1:]),
+              f"paged ranks, {name}: only rank 0 sealed")
+        check(ranks[0][name]["frames"] > 0
+              and all(got[name]["frames"] == 0 for got in ranks[1:]),
+              f"paged ranks, {name}: rank 0 alone sent egress frames")
+        check(sum(got[name]["launches"] for got in ranks) > 0,
+              f"paged ranks, {name}: B1 ran under the page seals")
+    launches = sum(got[name]["launches"] for got in ranks
+                   for name, _ in PAGED_RANKS)
+    logical = {k: sum(w["launches"][k] for w in want.values())
+               for k in want[PAGED_RANKS[0][0]]["launches"]}
+    return dict(ranks=ranks, want=want, wall_s=wall, launches=launches,
+                logical_launches=logical)
 
 
 def reset_counts(*kernels) -> None:
@@ -2608,6 +2876,114 @@ def family_waves(eng, specs, gen, partial: bool):
     return reqs, stats, frozen
 
 
+# the families on a tp=2 mesh of logical shards, each on its one-device
+# run's unsealed weights (no second load or seal): chameleon's GQA 64/8 with
+# qk-norm and dbrx's 16 experts (8 a shard) on paged-gather (a mesh refuses
+# kernel decode), deepseek-v3's MLA heads and 256 experts (128 a shard) on
+# the slot backend
+FAMILY_TP = {"chameleon-34b": FAMILY_GATHER, "dbrx-132b": FAMILY_GATHER,
+             "deepseek-v3-671b": ENGINE_KW}
+# one decode step's logits, tp=2 vs one device, bf16, 1 or 2 layers: each
+# of the 3 or 5 reductions rounds two bf16 partials and their sum where one
+# device rounds one product, about 2 x 2^-9 of the residual's scale each,
+# so about sqrt(5) x 2 x 2^-9 = 0.9 % of max |logit| was expected. The H100
+# (700 W) measured 0.99 % (chameleon-34b), 0.62 % (dbrx-132b) and 0.88 %
+# (deepseek-v3-671b), every argmax equal: 3 % is 3x the largest gap (a MoE
+# token whose top-k choice sits on a tie would route elsewhere on one side
+# and move far more)
+FAMILY_TP_LOGITS_REL_TOL = 0.03
+
+
+def family_tp(torch, np, name, model, params, specs, gen, one, key) -> dict:
+    """A family's TP path: the waves on a tp=2 engine of logical shards
+    over the one-device run's weights, every kernel count set to 0 just
+    before; each request equal to its solo run on the tp=2 engine (a MoE
+    family: a rerun on a fresh tp=2 engine, as its one-device check), the
+    collective bytes a step equal to tp_step_bytes, one decode step's
+    logits within FAMILY_TP_LOGITS_REL_TOL of one device's."""
+    from repro_torch.core import SealingKey, TrustDomain
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+    from repro_torch.runtime import Engine
+
+    cfg, kw = model.cfg, FAMILY_TP[name]
+    expect_b = tp_step_bytes(cfg, kw["max_slots"], 2)
+
+    def tp_engine():
+        return Engine(model, params, mesh=TP_MESH, **kw,
+                      trust_domain=TrustDomain(
+                          "tdx", sealing_key=SealingKey.generate(key + b"-tp"),
+                          io_key=SealingKey.generate(key + b"-tp-io")))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the family's TP path: every kernel count starts at 0 here -------
+    reset_counts(C, P, Q, FA)
+    eng = tp_engine()
+    t0 = time.perf_counter()
+    reqs, stats, _ = family_waves(eng, specs, gen, False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = path_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the family's TP path --------------------------------------
+    check(eng.plan.tp == 2, f"{name} tp: the engine spans a tp=2 plan")
+    check(all(r.finished for r in reqs) and stats.preemptions > 0,
+          f"{name} tp: every request finished, after a preemption")
+    check(launches["chacha20_xor_blocked"] > 0
+          and sum(launches.values()) == launches["chacha20_xor_blocked"],
+          f"{name} tp: B1 ran under the seals, and no other kernel "
+          f"({launches})")
+    outputs = [list(r.output) for r in reqs]
+    ch = eng.td.channel.stats
+    steps = ch.collective_steps
+    per_step = ch.collective_bytes // max(steps, 1)
+    check(per_step == eng.plan.collective_bytes_per_step == expect_b
+          and ch.collective_bytes == steps * expect_b,
+          f"{name} tp: {per_step} collective B/step == the formula's "
+          f"{expect_b} B")
+    coll_ms = ch.collective_s / max(steps, 1) * 1e3
+    if model.rows_coupled:
+        del eng
+        rerun, _, _ = family_waves(tp_engine(), specs, gen, False)
+        check([list(r.output) for r in rerun] == outputs,
+              f"{name} tp: a rerun on a fresh tp=2 engine repeats every "
+              f"token")
+        same = "a rerun on a fresh tp=2 engine repeats every token"
+    else:
+        for i, spec in enumerate(specs):
+            r = eng.submit(gen(spec))
+            eng.run(max_steps=10_000)
+            check(list(r.output) == outputs[i], f"{name} tp: request {i} "
+                  f"equals its solo run on the tp=2 engine")
+        same = "every request equals its solo run on the tp=2 engine"
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = torch.as_tensor(np.stack([specs[0][0][:20], specs[1][0][:20]]),
+                              device="cuda")
+    toks = torch.tensor([[5], [9]], dtype=torch.int32, device="cuda")
+    ref = step_logits(torch, Engine, model, params, None, prompts, toks)
+    got = step_logits(torch, Engine, model, params, TP_MESH, prompts, toks)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()), f"{name} tp logits finite")
+    check(err <= FAMILY_TP_LOGITS_REL_TOL * scale,
+          f"{name}: tp=2 logits within {FAMILY_TP_LOGITS_REL_TOL} x max "
+          f"|logit| of one device's ({err:.4g} vs max {scale:.4g})")
+    return dict(stats=stats, one=one, wall_s=wall_s, launches=launches,
+                peak=peak, steps=steps, per_step=per_step, expect_b=expect_b,
+                coll_ms=coll_ms, same=same, err=err, scale=scale,
+                argmax=bool(torch.equal(got.argmax(-1), ref.argmax(-1))),
+                backend=kw["kv_backend"] + ("-gather" if kw["kv_backend"]
+                                            == "paged" else ""),
+                agree=sum(a == b for o, p in zip(outputs, one["outputs"])
+                          for a, b in zip(o, p)),
+                tokens=sum(map(len, outputs)))
+
+
 def phase_family(torch, np, name, cut, kw) -> dict:
     """One decoder family: load, the waves with every kernel count set to
     0 just before the load, then the checks (finite logits, tokens in the
@@ -2684,6 +3060,9 @@ def phase_family(torch, np, name, cut, kw) -> dict:
         check_solo(Engine, TrustDomain, model, params, specs, gen, outputs,
                    kw)
         same = "every request equals its solo run"
+    tp = (family_tp(torch, np, name, model, params, specs, gen,
+                    dict(stats=stats, outputs=outputs), key)
+          if name in FAMILY_TP else None)
     # logits finite on a real prompt, and the model's own step times
     b, max_len = ENGINE_KW["max_slots"], ENGINE_KW["max_len"]
     with torch.inference_mode():
@@ -2707,7 +3086,8 @@ def phase_family(torch, np, name, cut, kw) -> dict:
     out = dict(name=name, cut=cut, layers=cfg.num_layers, stats=stats,
                wall_s=wall_s, launches=launches, peak=peak, same=same,
                decode_s=decode_s, prefill_s=prefill_s,
-               fused=getattr(eng.kv, "fused_restore_pages", 0), **load)
+               fused=getattr(eng.kv, "fused_restore_pages", 0), tp=tp,
+               **load)
     del eng, params, model, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -2812,6 +3192,23 @@ def print_family(r) -> None:
           f"{r['decode_s'] * 1e3:.2f} ms; peak device memory {r['peak']} B; "
           f"{r['same']}; launches {r['launches']}; {r['path_s']:.1f}s with "
           f"its checks")
+    t = r["tp"]
+    if t:
+        ts, one = t["stats"], t["one"]["stats"]
+        print(f"    {r['name']} on tp=2 logical shards ({t['backend']}): "
+              f"{ts.total_requests} requests / {ts.total_tokens} tokens in "
+              f"{t['wall_s']:.2f}s wall; next-token p50 "
+              f"{ts.p50_latency_s * 1e3:.2f} ms (one device "
+              f"{one.p50_latency_s * 1e3:.2f} ms); {ts.preemptions} "
+              f"preemptions; collectives {t['per_step']} B/step (formula "
+              f"{t['expect_b']} B), {t['coll_ms']:.4f} ms a step (CUDA "
+              f"events: sums and copies in device memory, one card, no "
+              f"link); one decode step's logits within {t['err']:.4g} of "
+              f"max |logit| {t['scale']:.4g} ({t['err'] / t['scale']:.3e}; "
+              f"limit {FAMILY_TP_LOGITS_REL_TOL}), argmax "
+              f"{'equal' if t['argmax'] else 'differs'}; {t['agree']} of "
+              f"{t['tokens']} tokens as one device's; {t['same']}; peak "
+              f"device memory {t['peak']} B; launches {t['launches']}")
 
 
 def print_train(r, smi) -> None:
@@ -3894,6 +4291,15 @@ def main() -> int:
           f"{RANKS_DP_LAYERS} of 32 layers: tokens equal the logical dp="
           f"{RANKS} run of the cut ({rk['wall_s']:.1f}s with the spawn)")
     t_phase = time.perf_counter()
+    rkp = phase_paged_ranks(torch, np)
+    phase_t["paged ranks"] = time.perf_counter() - t_phase
+    print(f"  paged ranks path: {', '.join(f'{n} {c}' for n, c in PAGED_RANKS)}"
+          f" at published width on tp=2, kv_backend='paged' with gather "
+          f"decode, over {RANKS} gloo processes on the one card: tokens, "
+          f"page tables after every step, sealed names and blob bytes equal "
+          f"a logical tp=2 run's bit for bit, every name sealed by rank 0 "
+          f"alone ({rkp['wall_s']:.1f}s with the spawn)")
+    t_phase = time.perf_counter()
     print("[6/9] families: " + ", ".join(
         f"{n} {cut}" for n, cut, _ in FAMILIES)
         + " at published width, one at a time under tdx; whisper-small at "
@@ -4096,6 +4502,23 @@ def main() -> int:
     print(f"    ranks path, tp=2: peak device memory of rank 0 "
           f"{rk['ranks'][0]['tp']['peak']} B (its whole seed-0 copy while it "
           f"built its half); B1 launches {rk['launches']} {card}")
+    for arch, _ in PAGED_RANKS:
+        w, r0 = rkp["want"][arch], rkp["ranks"][0][arch]
+        print(f"  paged ranks path, {arch} ({r0['describe']}): "
+              f"{sum(map(len, r0['tokens']))} tokens in {r0['wall_s']:.2f}s "
+              f"wall (logical tp=2 {w['wall_s']:.2f}s); next-token p50 "
+              f"{r0['p50'] * 1e3:.2f} ms (logical {w['p50'] * 1e3:.2f} ms); "
+              f"{r0['steps']} decode steps, {r0['preemptions']} preemptions, "
+              f"{r0['seal_events']} seals / {r0['restore_events']} restores; "
+              f"collectives {r0['per_step']} B/step, gloo "
+              + ", ".join(f"rank {i} {got[arch]['coll_ms']:.3f} ms"
+                          for i, got in enumerate(rkp["ranks"]))
+              + f" a step (host clock: gloo through host memory on one "
+                f"card, not NVLink; logical {w['coll_ms']:.4f} ms); B1 "
+                f"launches on the ranks " + ", ".join(
+                    f"rank {i} {got[arch]['launches']}"
+                    for i, got in enumerate(rkp["ranks"]))
+              + f"; peak device memory of rank 0 {r0['peak']} B {card}")
     print(f"  sampler vs the decode step: sample() {sp['ms']:.4f} ms device "
           f"/ {sp['host_ms']:.4f} ms with host issue, beside a 2-row "
           f"decode_step of {sv['decode_s'] * 1e3:.2f} ms (host clock)")
@@ -4116,8 +4539,9 @@ def main() -> int:
     print(f"  launches on the families path: " + "; ".join(
         f"{n} {r['launches']}" for n, r in fam.items())
         + f"; summed {fam_launches}")
+    fam_tp = [r["tp"]["launches"] for r in fam.values() if r.get("tp")]
     later = [sh["launches"], st_["launches"], fl["launches"],
-             rg["launches"], fam_launches] + [
+             rg["launches"], fam_launches, rkp["logical_launches"]] + fam_tp + [
         r["launches"] for r in sv["mesh"].values()] + [
         sv["tp"][label]["launches"] for label in MESH_BACKENDS] + [
         r["launches"] for r in sv["two_phase"]["modes"].values()]
@@ -4127,11 +4551,11 @@ def main() -> int:
                    + tr["launches"]["chacha20_xor_blocked"]
                    + sh_tr["launches"]["chacha20_xor_blocked"]
                    + qp["launches"]["chacha20_xor_blocked"]
-                   + rk["launches"])
+                   + rk["launches"] + rkp["launches"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
           f"{b1_launches} (slot, paged, sharing, store, two-phase, fleet, "
-          f"RAG, mesh, TP, ranks, families, training, sharded training, "
-          f"int8), B3 {pl['paged_attention']} (paged, "
+          f"RAG, mesh, TP, ranks, paged ranks, families, families on tp=2, "
+          f"training, sharded training, int8), B3 {pl['paged_attention']} (paged, "
           f"sharing, store, two-phase, fleet, RAG, chameleon) and B4 "
           f"{pl['paged_attention_unseal']} (paged, sharing, store, "
           f"two-phase, fleet, chameleon)")
@@ -4172,8 +4596,9 @@ def main() -> int:
         "bound_ms": qm["bound_ms"], "bound_by": qm["bound_by"],
         "library_ms": qm["lib_ms"]}]}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": count}}))
     return 0
 
 

@@ -109,6 +109,11 @@ def dtype_name(dtype: torch.dtype) -> str:
     return _DTYPE_NAMES[dtype]
 
 
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a header's numpy spelling."""
+    return _DTYPES[name]
+
+
 def _mac(key: SealingKey, sealed_header: bytes, ciphertext: torch.Tensor) -> bytes:
     h = hmac.new(key.mac_key, sealed_header, hashlib.sha256)
     flat = ciphertext.reshape(-1)

@@ -1,14 +1,19 @@
-"""Tensor-parallel compute for the dense family over a mesh's ``model``
-axis (the reference has no such file: XLA partitions its program by the
-specs and inserts the collectives).
+"""Tensor-parallel compute for the attention families (dense, vlm, and moe
+with attention or MLA) over a mesh's ``model`` axis (the reference has no
+such file: XLA partitions its program by the specs and inserts the
+collectives).
 
 Each model shard holds the slices :func:`~repro_torch.distributed.sharding.
 param_specs` gives it over ``model``: query heads ``[s*h/tp, (s+1)*h/tp)``
 of ``wq`` and ``wo``, KV heads ``[s*hk/tp, (s+1)*hk/tp)`` of ``wk``/``wv``
 (contiguous blocks keep GQA's grouping), the matching ``d_ff`` block of
-``w_gate``/``w_up``/``w_down`` and a vocabulary block of the embedding
+``w_gate``/``w_up``/``w_down`` (a dense layer's, or the shared experts'),
+experts ``[s*E/tp, (s+1)*E/tp)`` of a MoE layer, the heads of MLA's
+``w_uq``/``w_uk``/``w_uv``/``wo`` and a vocabulary block of the embedding
 table. On logical shards these are views of the placed weights; on a rank
-they are the rank's own tensors. A layer is
+they are the rank's own tensors. :class:`TensorParallel` walks the
+model's blocks (``transformer._blocks``) and dispatches each ``(mixer,
+ffn)`` slot:
 
     norm -> every local shard's mixer partial -> all-reduce -> residual add
     norm -> every local shard's FFN partial   -> all-reduce -> residual add
@@ -19,18 +24,45 @@ lookup in the shard's vocabulary block plus the all-reduce (exact: one
 shard holds each row), the unembedding gives each shard's f32 logits for
 its block, gathered along the vocabulary (exact).
 
-The KV cache follows :func:`~repro_torch.distributed.sharding.cache_specs`.
-When the KV heads divide the axis, shard ``s`` holds KV heads ``s`` of the
-cache. Otherwise (sequence parallelism) every shard holds a contiguous
-block of ``max_len / tp`` positions for every KV head: the query heads are
-gathered over ``model``, a step's new K/V row is written only by the shard
-owning its position, and attention is the distributed softmax -- each
-shard's ``(o, max, sum)`` over its block, merged in rank order.
+  * **attn** (dense, vlm, dbrx): each shard's heads; qk-norm normalises
+    each head on its own, so a shard's head slice normalises as the whole.
+  * **mla** (deepseek-v3): each shard's query heads and its heads of
+    ``w_uk``/``w_uv``/``wo``; ``w_dq`` and ``w_dkv`` are replicated, so
+    every shard computes the same latent ``ckv``/``krope`` rows. The port
+    keeps the latent whole on every model shard rather than splitting its
+    sequence over ``model`` as the reference's ``cache_specs`` does: the
+    rows are computed identically everywhere, the latent is a few hundred
+    values a token (576 at deepseek-v3's width), and keeping it whole
+    spares every layer of every step a distributed softmax and a gather of
+    the absorbed queries. Each shard attends with its own heads over the
+    whole latent, applies its ``w_uv`` and ``wo``, and the partials are
+    reduced.
+  * **swiglu**: the shard's ``d_ff`` block.
+  * **moe**: every shard routes **all** the call's tokens with the
+    replicated f32 router, so top-k, the stable sort, the capacity and the
+    drops are one device's (:func:`~repro_torch.models.moe.moe_ffn_tokens`
+    with the shard's expert range); a shard computes the kept pairs whose
+    expert it holds plus its ``d_ff`` block of the shared experts.
+
+The KV cache follows :func:`~repro_torch.distributed.sharding.cache_specs`
+for attention. When the KV heads divide the axis, shard ``s`` holds KV
+heads ``s`` of the cache. Otherwise (sequence parallelism) every shard
+attends over a contiguous block of ``max_len / tp`` positions for every KV
+head: the query heads are gathered over ``model`` and attention is the
+distributed softmax -- each shard's ``(o, max, sum)`` over its block,
+merged in rank order. ``local_cache`` says what a rank holds: its own
+heads or block (the slot layout), or every position (a paged pool over
+ranks in the SP case, which a rank keeps whole), in which case every rank
+writes every new row and attends over its block.
 
 Over ``data`` each data shard computes its own rows of a decode step (the
 batch split in ``dp`` contiguous blocks when it divides) and the rows'
 logits are gathered over ``data``, so every shard samples every row with
-the same bits. A prefill call (one row) runs whole on every data shard.
+the same bits. A MoE layer still routes the step's global rows, as the
+reference's SPMD program does (capacity depends on the token count): the
+data shards' normed inputs are gathered over ``data``, routed together,
+and each data shard keeps its rows' outputs. A prefill call runs whole on
+every data shard.
 """
 
 from __future__ import annotations
@@ -41,19 +73,20 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.models import layers
-from repro_torch.models.transformer import BLOCK, SLOT, _layer
+from repro_torch.models import layers, moe
+from repro_torch.models.transformer import _layer, _moe_cfg
 
 Params = Any
 
 def refuse_family(cfg) -> None:
-    """Tensor-parallel compute covers the dense family (the paper's Llama2
-    configs) only."""
-    if cfg.family != "dense" or cfg.embedding_inputs:
+    """Tensor-parallel compute covers the attention families: dense, vlm
+    and moe (attention or MLA)."""
+    if cfg.family in ("ssm", "hybrid", "encdec") or cfg.embedding_inputs:
         raise NotImplementedError(
             f"tensor-parallel compute (or a mesh over ranks) for the "
             f"{cfg.family} family ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md queue A item 21 part 3); dense models only")
+            f"(ROADMAP.md queue A item 21 part 3b); the dense, vlm and moe "
+            f"families only")
 
 
 def model_dim(spec) -> int:
@@ -78,10 +111,11 @@ def shard_views(params: Params, specs: Params, tp: int, shard: int) -> Params:
 
 
 class TensorParallel:
-    """The dense family's decode step and prefill over a mesh's ``model``
-    (and ``data``) groups; see the module docstring. ``local_cache`` says
-    whether the cache handed in holds this process's shard only (a rank)
-    or every shard (logical shards: each takes its views)."""
+    """The attention families' decode step and prefill over a mesh's
+    ``model`` (and ``data``) groups; see the module docstring.
+    ``local_cache`` says whether the cache handed in holds this process's
+    shard only (a rank) or every shard (logical shards: each takes its
+    views; or a rank's whole paged pool under sequence parallelism)."""
 
     def __init__(self, model, mesh, local_cache: bool):
         cfg = model.cfg
@@ -89,39 +123,52 @@ class TensorParallel:
         self.cfg, self.impl = cfg, model._impl
         self.tp, self.dp = mesh.shape["model"], mesh.shape["data"]
         self.mg, self.dg = mesh.groups["model"], mesh.groups["data"]
+        # every layer in order: (block, repeat, slot key, mixer, ffn)
+        self.slots = [(name, j, f"slot_{i}", m, f)
+                      for name, n, slots in self.impl.blocks
+                      for j in range(n) for i, (m, f) in enumerate(slots)]
+        kinds = {m for *_, m, _ in self.slots} | {f for *_, f in self.slots}
         h, hk = cfg.num_heads, cfg.num_kv_heads
-        if h % self.tp or cfg.d_ff % self.tp:
+        need = {"query heads": h}
+        if "swiglu" in kinds:
+            need["d_ff"] = cfg.d_ff
+        if "moe" in kinds:
+            need["experts"] = cfg.moe.num_experts
+            if cfg.moe.num_shared_experts:
+                need["shared experts' d_ff"] = (cfg.moe.d_ff_expert
+                                                * cfg.moe.num_shared_experts)
+        bad = {k: v for k, v in need.items() if v % self.tp}
+        if bad:
             raise ValueError(
-                f"tp={self.tp} must divide the query heads ({h}) and d_ff "
-                f"({cfg.d_ff}) of {cfg.name}")
-        self.sp = hk % self.tp != 0
+                f"tp={self.tp} must divide the "
+                + " and ".join(f"{k} ({v})" for k, v in bad.items())
+                + f" of {cfg.name}")
+        self.sp = "attn" in kinds and hk % self.tp != 0
         self.heads = h // self.tp
         self.acfg = dataclasses.replace(
             self.impl.acfg, num_heads=self.heads,
             num_kv_heads=hk if self.sp else hk // self.tp)
+        self.mcfg = _moe_cfg(cfg) if "moe" in kinds else None
         self.vocab_split = cfg.vocab_size % self.tp == 0
         self.local_cache = local_cache
 
     # -- params ----------------------------------------------------------------
     def layer_params(self, shards: List[Params]) -> List[Dict[str, Any]]:
         """Per local model shard: its embedding, final norm and per-layer
-        dicts (views into ``shards``, stable across steps since the plan
-        refills gathered weights in place)."""
-        out = []
-        for tree in shards:
-            out.append({
-                "embedding": tree["embedding"]["table"],
-                "final_norm": tree["final_norm"],
-                "layers": [_layer(tree[BLOCK], j)[SLOT]
-                           for j in range(self.cfg.num_layers)]})
-        return out
+        dicts in :attr:`slots` order (views into ``shards``, stable across
+        steps since the plan refills gathered weights in place)."""
+        return [{"embedding": tree["embedding"]["table"],
+                 "final_norm": tree["final_norm"],
+                 "layers": [_layer(tree[name], j)[slot]
+                            for name, j, slot, _, _ in self.slots]}
+                for tree in shards]
 
     # -- cache views ------------------------------------------------------------
     def _cache_shard(self, cl: Params, shard: int) -> Params:
         """Shard ``shard``'s part of a layer's ``[b, max_len, hk, hd]``
         cache views: its KV heads, or under sequence parallelism its block
-        of positions."""
-        if self.local_cache or self.tp == 1:
+        of positions. MLA's latent is whole on every shard."""
+        if self.local_cache or self.tp == 1 or "k" not in cl:
             return cl
         dim = 1 if self.sp else 2
         n = cl["k"].shape[dim] // self.tp
@@ -150,16 +197,19 @@ class TensorParallel:
             [layers.unembed({"table": lp["embedding"]}, x) for lp in lps],
             dim=-1)
 
-    # -- attention ---------------------------------------------------------------
-    def _attend(self, lps, j, h, positions, mode, cl) -> torch.Tensor:
-        """The mixer half, reduced over ``model``."""
-        if not self.sp:
-            parts = [self.impl.mixer("attn", lp["layers"][j], h, positions,
-                                     mode, self._cache_shard(cl, s),
-                                     acfg=self.acfg)
-                     for lp, s in zip(lps, self.mg.local)]
-            return self.mg.all_reduce(parts)
-        qkv = [layers._qkv(lp["layers"][j]["attn"], self.acfg, h, positions)
+    # -- mixers ------------------------------------------------------------------
+    def _mix(self, lps, li, mixer, h, positions, mode, cl) -> torch.Tensor:
+        """A layer's mixer half, reduced over ``model``."""
+        if mixer == "attn" and self.sp:
+            return self._attend_sp(lps, li, h, positions, mode, cl)
+        acfg = self.acfg if mixer == "attn" else None
+        parts = [self.impl.mixer(mixer, lp["layers"][li], h, positions,
+                                 mode, self._cache_shard(cl, s), acfg=acfg)
+                 for lp, s in zip(lps, self.mg.local)]
+        return self.mg.all_reduce(parts)
+
+    def _attend_sp(self, lps, li, h, positions, mode, cl) -> torch.Tensor:
+        qkv = [layers._qkv(lp["layers"][li]["attn"], self.acfg, h, positions)
                for lp in lps]
         q = self.mg.all_gather([t[0] for t in qkv], dim=2)   # every head
         k, v = qkv[0][1], qkv[0][2]
@@ -169,32 +219,39 @@ class TensorParallel:
             out = self._sp_decode(q, k, v, positions, cl)
         hs = self.heads
         parts = [torch.einsum("bshk,hkd->bsd", out[:, :, s * hs:(s + 1) * hs],
-                              lp["layers"][j]["attn"]["wo"])
+                              lp["layers"][li]["attn"]["wo"])
                  for lp, s in zip(lps, self.mg.local)]
         return self.mg.all_reduce(parts)
 
     def _sp_prefill(self, q, k, v, positions, cl) -> torch.Tensor:
         """Full causal attention over the prompt (every shard holds the
-        whole row's q, k, v); each shard keeps its block of positions."""
+        whole row's q, k, v); each shard keeps its block of positions, or
+        a whole cache takes every position."""
         s = q.shape[1]
-        for shard in self.mg.local:
-            cm = self._cache_shard(cl, shard)
-            block = cm["k"].shape[1]
-            lo = shard * block
+        if not self.local_cache:
+            cl["k"][:, :s] = k.to(cl["k"].dtype)
+            cl["v"][:, :s] = v.to(cl["v"].dtype)
+        else:
+            block = cl["k"].shape[1]
+            lo = self.mg.local[0] * block
             n = min(max(s - lo, 0), block)
             if n:
-                cm["k"][:, :n] = k[:, lo:lo + n].to(cm["k"].dtype)
-                cm["v"][:, :n] = v[:, lo:lo + n].to(cm["v"].dtype)
+                cl["k"][:, :n] = k[:, lo:lo + n].to(cl["k"].dtype)
+                cl["v"][:, :n] = v[:, lo:lo + n].to(cl["v"].dtype)
         return layers._attend_full(self.impl.acfg, q, k, v, positions)
 
     def _sp_decode(self, q, k, v, positions, cl) -> torch.Tensor:
-        """Write the new row on the shard owning its position, then the
-        distributed softmax over every shard's block of positions."""
+        """Write the new row (on the shard owning its position when a rank
+        holds its block only), then the distributed softmax over every
+        shard's block of positions."""
         b = q.shape[0]
         rows = torch.arange(b, device=q.device)
         block = (cl["k"].shape[1] if self.local_cache
                  else cl["k"].shape[1] // self.tp)
         pos = positions[:, 0].long().clamp(0, block * self.tp - 1)
+        if not self.local_cache:
+            for name, new in (("k", k), ("v", v)):
+                cl[name][rows, pos] = new[:, 0].to(cl[name].dtype)
         hk, hd = k.shape[2], k.shape[3]
         group = q.shape[2] // hk
         qg = q.reshape(b, 1, hk, group, hd).float()
@@ -202,13 +259,14 @@ class TensorParallel:
         parts = []
         for shard in self.mg.local:
             cm = self._cache_shard(cl, shard)
-            idx = pos - shard * block
-            own = ((idx >= 0) & (idx < block))[:, None, None]
-            at = idx.clamp(0, block - 1)
-            for name, new in (("k", k), ("v", v)):
-                leaf = cm[name]
-                leaf[rows, at] = torch.where(own, new[:, 0].to(leaf.dtype),
-                                             leaf[rows, at])
+            if self.local_cache:
+                idx = pos - shard * block
+                own = ((idx >= 0) & (idx < block))[:, None, None]
+                at = idx.clamp(0, block - 1)
+                for name, new in (("k", k), ("v", v)):
+                    leaf = cm[name]
+                    leaf[rows, at] = torch.where(
+                        own, new[:, 0].to(leaf.dtype), leaf[rows, at])
             kv_pos = shard * block + torch.arange(block, device=q.device)
             mask = kv_pos[None, :] <= pos[:, None]                # [b, blk]
             logits = torch.einsum("bqhgk,bshk->bhgqs", qg,
@@ -232,20 +290,56 @@ class TensorParallel:
         out = (num / den).permute(0, 3, 1, 2, 4)           # [b,1,hk,g,hd]
         return out.reshape(b, 1, hk * group, hd).to(q.dtype)
 
+    # -- FFNs ----------------------------------------------------------------------
+    def _ffn(self, lps, li, ffn, h) -> torch.Tensor:
+        """A layer's FFN half, reduced over ``model``: the shards' ``d_ff``
+        blocks, or their expert ranges of a MoE routed over all of ``h``'s
+        tokens."""
+        if ffn == "swiglu":
+            parts = [self.impl.ffn("swiglu", lp["layers"][li], h, "decode",
+                                   None)[0] for lp in lps]
+        else:
+            n = self.mcfg.num_experts // self.tp
+            parts = [moe.moe_forward(lp["layers"][li]["moe"], self.mcfg, h,
+                                     experts=(s * n, (s + 1) * n))[0]
+                     for lp, s in zip(lps, self.mg.local)]
+        return self.mg.all_reduce(parts)
+
     # -- the layer loop ----------------------------------------------------------
-    def _run(self, lps, x, positions, cache, mode) -> torch.Tensor:
+    def _run(self, lps, xs, positions, caches, mode,
+             split: bool = False) -> List[torch.Tensor]:
+        """Every layer over the local data shards' rows in lockstep
+        (``xs``, ``positions`` and ``caches`` one entry each; several only
+        when a decode step's rows split over ``data``: ``split``). Each
+        data shard runs its own mixers; a MoE layer routes every data
+        shard's rows together."""
         eps = self.cfg.norm_eps
-        bc = cache[BLOCK]
-        for j in range(self.cfg.num_layers):
-            cl = _layer(bc, j)[SLOT]
-            lp0 = lps[0]["layers"][j]
-            h = layers.rmsnorm(lp0["pre_norm"], x, eps)
-            x = x + self._attend(lps, j, h, positions, mode, cl)
-            h = layers.rmsnorm(lp0["post_norm"], x, eps)
-            x = x + self.mg.all_reduce(
-                [self.impl.ffn("swiglu", lp["layers"][j], h, mode, None)[0]
-                 for lp in lps])
-        return x
+        xs = list(xs)
+        for li, (name, j, slot, mixer, ffn) in enumerate(self.slots):
+            lp0 = lps[0]["layers"][li]
+            for i, x in enumerate(xs):
+                self._count(i)
+                cl = _layer(caches[i][name], j)[slot]
+                h = layers.rmsnorm(lp0["pre_norm"], x, eps)
+                xs[i] = x + self._mix(lps, li, mixer, h, positions[i], mode,
+                                      cl)
+            hs = [layers.rmsnorm(lp0["post_norm"], x, eps) for x in xs]
+            if ffn == "moe" and split:
+                self._count(0)
+                out = self._ffn(lps, li, ffn, self.dg.all_gather(hs, dim=0))
+                rows = hs[0].shape[0]
+                for i, d in enumerate(self.dg.local):
+                    xs[i] = xs[i] + out[d * rows:(d + 1) * rows]
+                continue
+            for i, h in enumerate(hs):
+                self._count(i)
+                xs[i] = xs[i] + self._ffn(lps, li, ffn, h)
+        self._count(0)
+        return xs
+
+    def _count(self, i: int) -> None:
+        """Bytes count into one shard: one data shard's reductions."""
+        self.mg.counting = i == 0
 
     def decode_step(self, lps, tokens: torch.Tensor, cache: Params):
         """tokens [b, 1] -> (logits [b, vocab] f32 for every row, cache):
@@ -254,20 +348,34 @@ class TensorParallel:
         b = tokens.shape[0]
         split = self.dp > 1 and b % self.dp == 0
         rows = b // self.dp if split else b
+        spans = [(d * rows, (d + 1) * rows) if split else (0, b)
+                 for d in (self.dg.local if split else self.dg.local[:1])]
+        subs = [_rows(cache, lo, hi) for lo, hi in spans]
+        xs = []
+        for i, (lo, hi) in enumerate(spans):
+            self._count(i)
+            xs.append(self._embed(lps, tokens[lo:hi]))
+        xs = self._run(lps, xs, [sub["pos"][:, None].clone()
+                                 for sub in subs], subs, "decode", split)
         outs = []
-        for i, d in enumerate(self.dg.local if split else self.dg.local[:1]):
-            lo, hi = (d * rows, (d + 1) * rows) if split else (0, b)
-            sub = _rows(cache, lo, hi)
-            positions = sub["pos"][:, None].clone()
-            # bytes count into one shard: one data shard's reductions
-            self.mg.counting = i == 0
-            x = self._embed(lps, tokens[lo:hi])
-            x = self._run(lps, x, positions, sub, "decode")
+        for i, x in enumerate(xs):
+            self._count(i)
             outs.append(self._unembed(lps, x)[:, 0])
-        self.mg.counting = True
+        self._count(0)
         logits = self.dg.all_gather(outs, dim=0) if split else outs[0]
         cache["pos"] += 1
         return logits, cache
+
+    def share_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` ``[L, b, ...]`` with every row a decode step wrote: on a
+        rank whose step computed only its data shard's rows, each data
+        shard's block gathered over ``data``; elsewhere ``x`` itself."""
+        b = x.shape[1]
+        if len(self.dg.local) == self.dp or b % self.dp:
+            return x
+        rows = b // self.dp
+        d = self.dg.local[0]
+        return self.dg.all_gather([x[:, d * rows:(d + 1) * rows]], dim=1)
 
     def prefill(self, lps, tokens: torch.Tensor, cache: Params):
         """tokens [b, s] -> (last-position logits [b, vocab] f32, cache),
@@ -276,7 +384,7 @@ class TensorParallel:
         b, s = tokens.shape[:2]
         positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         x = self._embed(lps, tokens)
-        x = self._run(lps, x, positions, cache, "prefill")
+        (x,) = self._run(lps, [x], [positions], [cache], "prefill")
         cache["pos"].fill_(s)
         return self._unembed(lps, x[:, -1:, :])[:, 0], cache
 

@@ -33,8 +33,9 @@ same tokens. The workers share one copy of the weights on the device.
 
 ``--mesh dp=N,tp=M`` spans the engine over an N x M mesh (``ShardedPlan``):
 the weights sit at rest in per-shard chunks over ``data`` and are gathered
-every decode step, ``tp=M`` splits the dense family's heads and ``d_ff``
-over ``model``, and the report adds the measured-vs-modeled ``link-tax``
+every decode step, ``tp=M`` splits the attention families' heads,
+``d_ff`` and experts over ``model`` (dense, vlm and moe, MLA included),
+and the report adds the measured-vs-modeled ``link-tax``
 line, which says what its measured term timed. In one process the mesh is
 logical shards on the one device (the measured term is copies and sums in
 device memory, not a link). Under torchrun it spans the ranks::
@@ -42,7 +43,10 @@ device memory, not a link). Under torchrun it spans the ranks::
     PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
         -m repro_torch.launch.serve --arch deepseek-7b --smoke --mesh tp=2
 
-(torchrun's standalone rendezvous is a loopback store). Each rank takes
+with either KV backend: ``--kv-backend paged`` (and ``--prefix-sharing``,
+``--page-store``) keeps each rank's KV heads of every page, every page
+sealed whole by one rank (torchrun's standalone rendezvous is a loopback
+store). Each rank takes
 card ``LOCAL_RANK`` (modulo the cards present; ``--device cpu`` for CPU
 ranks), every rank serves the same requests under rank 0's key material,
 and only rank 0 prints.

@@ -25,7 +25,7 @@ run.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -103,10 +103,15 @@ def route(params: Params, cfg: MoEConfig, x: torch.Tensor):
     return weights, indices, aux
 
 
-def moe_ffn_tokens(params: Params, cfg: MoEConfig, xf: torch.Tensor):
-    """MoE over flat tokens xf: [t, d] -> ([t, d], aux)."""
+def moe_ffn_tokens(params: Params, cfg: MoEConfig, xf: torch.Tensor,
+                   experts: Optional[Tuple[int, int]] = None):
+    """MoE over flat tokens xf: [t, d] -> ([t, d], aux). With ``experts=(lo,
+    hi)``, ``params["experts"]`` holds experts ``[lo, hi)`` only and the
+    output is their part of the sum (see the module docstring)."""
     t, d = xf.shape
     e, k = cfg.num_experts, cfg.top_k
+    lo, hi = experts or (0, e)
+    n = hi - lo
     weights, indices, aux = route(params, cfg, xf)
 
     tk = t * k
@@ -127,23 +132,26 @@ def moe_ffn_tokens(params: Params, cfg: MoEConfig, xf: torch.Tensor):
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(tk, device=dev) - starts[s_expert]
     keep = pos < capacity
-    # a dropped pair writes to a spare row past the experts' rows (the
-    # reference's out-of-range write, which writes nothing) and reads back
-    # the clamped last row, weighted by zero; no mask, so no host sync
-    slot = s_expert * capacity + pos
-    dest = torch.where(keep, slot, e * capacity)
+    if experts is not None:
+        keep = keep & (s_expert >= lo) & (s_expert < hi)
+    # a dropped pair (or one whose expert another shard holds) writes to a
+    # spare row past the experts' rows (the reference's out-of-range write,
+    # which writes nothing) and reads back the clamped last row, weighted
+    # by zero; no mask, so no host sync
+    slot = (s_expert - lo) * capacity + pos
+    dest = torch.where(keep, slot, n * capacity)
 
-    buf = torch.zeros((e * capacity + 1, d), dtype=xf.dtype, device=dev)
+    buf = torch.zeros((n * capacity + 1, d), dtype=xf.dtype, device=dev)
     buf[dest] = xf[s_token]
-    expert_in = buf[:-1].reshape(e, capacity, d)
+    expert_in = buf[:-1].reshape(n, capacity, d)
 
     ex = params["experts"]
     g = torch.bmm(expert_in, ex["w_gate"])
     u = torch.bmm(expert_in, ex["w_up"])
     expert_out = torch.bmm(F.silu(g) * u, ex["w_down"])
-    flat_out = expert_out.reshape(e * capacity, d)
+    flat_out = expert_out.reshape(n * capacity, d)
 
-    back = flat_out[torch.where(keep, slot, e * capacity - 1)].float()
+    back = flat_out[torch.where(keep, slot, n * capacity - 1)].float()
     back = back * (s_weight * keep.float())[:, None]
     # combine in a fixed order: un-sort to [t, k, d] and sum the k choices
     # of each token in order
@@ -156,10 +164,13 @@ def moe_ffn_tokens(params: Params, cfg: MoEConfig, xf: torch.Tensor):
     return out.to(xf.dtype), aux
 
 
-def moe_forward(params: Params, cfg: MoEConfig, x: torch.Tensor):
-    """x: [b, s, d] -> ([b, s, d], aux_loss)."""
+def moe_forward(params: Params, cfg: MoEConfig, x: torch.Tensor,
+                experts: Optional[Tuple[int, int]] = None):
+    """x: [b, s, d] -> ([b, s, d], aux_loss); with ``experts`` a shard's
+    part (its expert range and, given its ``d_ff`` block of them, its part
+    of the shared experts)."""
     b, s, d = x.shape
-    out, aux = moe_ffn_tokens(params, cfg, x.reshape(b * s, d))
+    out, aux = moe_ffn_tokens(params, cfg, x.reshape(b * s, d), experts)
     out = out.reshape(b, s, d)
     if cfg.num_shared_experts:
         out = out + layers.swiglu(params["shared"], x)

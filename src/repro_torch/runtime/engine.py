@@ -48,8 +48,8 @@ export.
 Meshes: ``Engine(mesh="dp=N,tp=M")`` (or a ready plan, ``plan=``) runs on a
 :class:`~repro_torch.runtime.plan.ShardedPlan`: the weights sit at rest in
 per-shard chunks over ``data`` and are gathered every step, ``tp > 1``
-splits the dense family's heads and ``d_ff`` over ``model`` (numerically
-close to one device, not bitwise), each step's gather and collectives are
+splits the attention families' heads, ``d_ff`` and experts over ``model``
+(numerically close to one device, not bitwise), each step's gather and collectives are
 counted into ``ChannelStats.collective_*``, and the KV backend is wrapped
 by :class:`~repro_torch.runtime.kvcache.ShardedKVBackend`, so sealed names
 carry the row's ``/s{shard}`` tag. A dp-only mesh's tokens are the
@@ -217,8 +217,8 @@ class Engine:
         observed (or ``step_time_hint_s``) step time. ``mesh``
         (``"dp=N,tp=M"``) spans the engine over a mesh of logical shards on
         its device, or over the ranks of an initialized process group (see
-        the module docstring); ``tp > 1`` on a family other than dense
-        raises ``NotImplementedError``. Equivalently pass a ready plan as
+        the module docstring); ``tp > 1`` on the hybrid, ssm or encdec
+        family raises ``NotImplementedError``. Equivalently pass a ready plan as
         ``plan``."""
         if plan is not None and mesh is not None:
             raise ValueError("pass mesh= or plan=, not both")

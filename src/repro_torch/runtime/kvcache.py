@@ -28,9 +28,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.sealing import (IntegrityError, SealedTensor,
-                                      SealingKey, dtype_name, seal_tensor,
-                                      seal_tree, tree_leaves_with_names,
-                                      tree_map_with_names, unseal_tree)
+                                      SealingKey, dtype_name, dtype_of,
+                                      seal_tensor, seal_tree,
+                                      tree_leaves_with_names,
+                                      tree_map_with_names, unseal_tensor,
+                                      unseal_tree)
 from repro_torch.kernels.ops import TILE_BYTES
 from repro_torch.runtime import sampling
 from repro_torch.runtime.plan import ComputePlan, SingleDevicePlan
@@ -513,6 +515,83 @@ def tail_blob_names(sealed: Dict[str, SealedTensor]
             for m in map(_PAGEMETA_RE.match, sealed) if m]
 
 
+class RankSealer:
+    """Whole-blob sealing on a mesh over ranks: every blob is sealed once,
+    whole, by one rank, and unsealed by one rank.
+
+    A seal gathers the blob's model blocks over ``model`` (a rank holds its
+    KV heads of a row or page), the owner seals the whole tensor under its
+    name, and the ciphertext and MAC are broadcast, so every rank's engine
+    holds the same sealed dict: the blob's bytes are a single-device
+    engine's, and no name and key ever seal two plaintexts (two ranks
+    sealing their own head slices under one name would reuse a ChaCha20
+    keystream). An unseal runs on the owner, which broadcasts whether every
+    MAC held and then each plaintext; each rank keeps its own block
+    (:meth:`mine`). Every rank calls every method in the same order."""
+
+    def __init__(self, plan):
+        self.mesh, self.tp = plan.mesh, plan.tp
+        self.world = plan.mesh.world
+        self.me = self.world.local[0]
+
+    def owner(self, shard: int = 0) -> int:
+        """The world rank at model coordinate 0 of data shard ``shard``."""
+        return self.mesh.rank_of(shard, 0)
+
+    def mine(self, whole: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's model block of a whole tensor along ``dim`` (-1:
+        the tensor itself)."""
+        if dim < 0:
+            return whole
+        n = whole.shape[dim] // self.tp
+        return whole.narrow(dim, self.mesh.coords[1] * n, n)
+
+    def seal(self, key: SealingKey, name: str, local, dim: int,
+             owner: int) -> SealedTensor:
+        """Seal the whole of ``local`` (this rank's block along ``dim``, or
+        the whole tensor or array when ``dim`` is -1) on ``owner``."""
+        if isinstance(local, np.ndarray):
+            local = torch.from_numpy(np.ascontiguousarray(local)).to(
+                self.mesh.device)
+        full = (local if dim < 0 else self.mesh.groups["model"].all_gather(
+            [local.contiguous()], dim))
+        sealer = self.me == owner
+        st = seal_tensor(key, name, full) if sealer else None
+        n_bytes = full.numel() * full.element_size()
+        words = (n_bytes + (-n_bytes) % TILE_BYTES) // 4
+        ct = self.world.broadcast(st.ciphertext if sealer else None, owner,
+                                  (16, words // 16), torch.int32)
+        mac = self.world.broadcast(
+            torch.frombuffer(bytearray(st.mac), dtype=torch.uint8)
+            if sealer else None, owner, (32,), torch.uint8)
+        return st if sealer else SealedTensor(
+            name=name, ciphertext=ct, mac=bytes(mac.cpu().numpy()),
+            shape=tuple(full.shape), dtype=dtype_name(full.dtype),
+            n_bytes=n_bytes)
+
+    def unseal(self, key: SealingKey, blobs: Dict[Any, SealedTensor],
+               owner: int) -> Dict[Any, torch.Tensor]:
+        """Every blob's whole plaintext on every rank, unsealed on
+        ``owner``; a failed MAC there raises on every rank."""
+        full, err = {}, None
+        if self.me == owner:
+            try:
+                full = {k: unseal_tensor(key, st) for k, st in blobs.items()}
+            except Exception as e:      # every rank must learn of it
+                err = e
+        ok = self.world.broadcast(torch.tensor([err is None],
+                                               dtype=torch.uint8),
+                                  owner, (1,), torch.uint8)
+        if err is not None:
+            raise err
+        if not bool(ok[0]):
+            raise IntegrityError(f"an unseal of {len(blobs)} blobs failed "
+                                 f"on rank {owner}")
+        return {k: self.world.broadcast(full.get(k), owner, tuple(st.shape),
+                                        dtype_of(st.dtype))
+                for k, st in blobs.items()}
+
+
 class ShardedKVBackend:
     """Mesh wrapper around either layout: compute and placement live in the
     backend's :class:`~repro_torch.runtime.plan.ShardedPlan`; the wrapper
@@ -524,23 +603,23 @@ class ShardedKVBackend:
     another shard. Everything else delegates to the wrapped backend.
 
     On logical shards the one cache holds every head, so a row seals as on
-    one device. Over ranks (the slot layout) a seal gathers the row's
-    **whole** KV -- every model shard's heads or position blocks, from the
-    ranks of the row's data shard -- and the rank at model coordinate 0 of
-    that data shard seals it alone, under the ``/s{shard}`` name: the blob's
-    bytes are a single-device engine's, and no name and key ever seal two
-    plaintexts (two ranks sealing their own head slices under one name
-    would reuse a ChaCha20 keystream). The ciphertext is then broadcast, so
-    every rank's engine holds the same sealed dict. A restore unseals on the
-    rank at model coordinate 0 of the target row's data shard, which
-    broadcasts the row; each rank keeps its own block."""
+    one device. Over ranks every blob is sealed whole by one rank
+    (:class:`RankSealer`). The slot layout's row is sealed by the rank at
+    model coordinate 0 of the row's data shard (only that data shard's
+    ranks computed it) and restored by the rank at model coordinate 0 of
+    the target row's data shard. The paged layout seals and restores
+    inside the backend (``PagedKVBackend``), whose pool every data shard
+    keeps whole and equal: by the rank at model coordinate 0 of the data
+    shard its ``/s{shard}`` tag names, and a content-named (shared) page
+    by rank 0."""
 
     def __init__(self, inner: KVBackend):
         self.inner = inner
         if not inner.plan.is_sharded:
             raise ValueError("ShardedKVBackend wants a backend built on a "
                              "ShardedPlan")
-        self._ranks = inner.plan.ranks
+        self._sealer = (RankSealer(inner.plan)
+                        if inner.plan.ranks and inner.name == "slot" else None)
 
     def __getattr__(self, attr):
         return getattr(self.inner, attr)
@@ -560,7 +639,7 @@ class ShardedKVBackend:
 
     def seal(self, key, slot, prefix, suffix=None, detach=False):
         suffix = suffix or self._suffix_for(slot)
-        if self._ranks:
+        if self._sealer is not None:
             return self._seal_over_ranks(key, slot, prefix, suffix)
         kw = {"detach": detach} if detach else {}
         return self.inner.seal(key, slot, prefix, suffix=suffix, **kw)
@@ -568,7 +647,7 @@ class ShardedKVBackend:
     def restore(self, key, sealed, slot, prefix, n_tokens, suffix=None):
         if suffix is None:
             suffix = self._detect_suffix(sealed, prefix)
-        if self._ranks:
+        if self._sealer is not None:
             return self._restore_over_ranks(key, sealed, slot, prefix, suffix)
         return self.inner.restore(key, sealed, slot, prefix, n_tokens,
                                   suffix=suffix)
@@ -590,17 +669,7 @@ class ShardedKVBackend:
             suffix = self._detect_suffix(sealed, prefix)
         return self.inner.discard_sealed(key, sealed, prefix, suffix=suffix)
 
-    # -- sealing over ranks -----------------------------------------------------
-    def _row_specs(self):
-        from repro_torch.distributed import sharding
-        from repro_torch.distributed.tensor_parallel import model_dim
-
-        plan = self.inner.plan
-        like = self.inner.model.abstract_cache(1, self.inner.max_len)
-        specs = sharding.cache_specs(plan._spec_cfg, like, plan.mesh)
-        return like, {p: model_dim(s)
-                      for p, s in tree_leaves_with_names(specs)}
-
+    # -- the slot layout's rows over ranks ----------------------------------------
     def _owner(self, slot: int) -> int:
         """The world rank at model coordinate 0 of the slot's data shard."""
         plan = self.inner.plan
@@ -608,65 +677,23 @@ class ShardedKVBackend:
             plan.shard_of_slot(slot, self.inner.max_slots), 0)
 
     def _seal_over_ranks(self, key, slot, prefix, suffix):
-        plan = self.inner.plan
-        mesh, world = plan.mesh, plan.mesh.world
-        owner = self._owner(slot)
-        data = owner // plan.tp
-        like, dims = self._row_specs()
-        row = dict(tree_leaves_with_names(extract_slot(self.inner.cache,
-                                                       slot)))
-        sealer = world.local[0] == owner
-        out: Dict[str, SealedTensor] = {}
-        for path, leaf in tree_leaves_with_names(like):
-            got = world.all_gather_list([row[path]])
-            dim = dims[path]
-            full = (got[owner] if dim < 0 else torch.cat(
-                [got[mesh.rank_of(data, m)] for m in range(plan.tp)], dim=dim))
-            name = prefix + path + suffix
-            st = seal_tensor(key, name, full) if sealer else None
-            n_bytes = full.numel() * full.element_size()
-            words = (n_bytes + (-n_bytes) % TILE_BYTES) // 4
-            ct = world.broadcast(st.ciphertext if sealer else None, owner,
-                                 (16, words // 16), torch.int32)
-            mac = world.broadcast(
-                torch.frombuffer(bytearray(st.mac), dtype=torch.uint8)
-                if sealer else None, owner, (32,), torch.uint8)
-            out[name] = st if sealer else SealedTensor(
-                name=name, ciphertext=ct, mac=bytes(mac.cpu().numpy()),
-                shape=tuple(full.shape), dtype=dtype_name(full.dtype),
-                n_bytes=n_bytes)
-        return out
+        sealer, owner = self._sealer, self._owner(slot)
+        row = extract_slot(self.inner.cache, slot)
+        dims = self.inner.plan.kv_dims(
+            self.inner.model.abstract_cache(1, self.inner.max_len))
+        return {prefix + path + suffix: sealer.seal(
+                    key, prefix + path + suffix, leaf, dims[path], owner)
+                for path, leaf in tree_leaves_with_names(row)}
 
     def _restore_over_ranks(self, key, sealed, slot, prefix, suffix):
-        plan = self.inner.plan
-        world = plan.mesh.world
-        owner = self._owner(slot)
-        like, dims = self._row_specs()
-        full, err = None, None
-        if world.local[0] == owner:
-            try:
-                full = dict(tree_leaves_with_names(unseal_tree(
-                    key, sealed, like, prefix=prefix, suffix=suffix)))
-            except Exception as e:      # every rank must learn of it
-                err = e
-        ok = world.broadcast(torch.tensor([err is None], dtype=torch.uint8),
-                             owner, (1,), torch.uint8)
-        if err is not None:
-            raise err
-        if not bool(ok[0]):
-            raise IntegrityError(f"the restore of {prefix!r} failed on rank "
-                                 f"{owner}")
-        mine = {}
-        for path, leaf in tree_leaves_with_names(like):
-            t = world.broadcast(full[path] if full else None, owner,
-                                tuple(leaf.shape), leaf.dtype)
-            dim = dims[path]
-            if dim >= 0:
-                n = t.shape[dim] // plan.tp
-                t = t.narrow(dim, plan.mesh.coords[1] * n, n)
-            mine[path] = t
-        insert_slot(self.inner.cache,
-                    tree_map_with_names(lambda p, _: mine[p], like), slot)
+        sealer = self._sealer
+        like = self.inner.model.abstract_cache(1, self.inner.max_len)
+        dims = self.inner.plan.kv_dims(like)
+        full = sealer.unseal(key, {path: sealed[prefix + path + suffix]
+                                   for path, _ in tree_leaves_with_names(like)},
+                             self._owner(slot))
+        insert_slot(self.inner.cache, tree_map_with_names(
+            lambda p, _: sealer.mine(full[p], dims[p]), like), slot)
 
 
 def make_backend(kind: str, model, *, max_slots: int, max_len: int,

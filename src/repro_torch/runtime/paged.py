@@ -90,7 +90,8 @@ from repro_torch.kernels.paged_attention import (paged_attention,
 from repro_torch.models import layers
 from repro_torch.models.transformer import BLOCK, SLOT, _layer
 from repro_torch.runtime import sampling
-from repro_torch.runtime.kvcache import KVBackend, host_upload
+from repro_torch.runtime.kvcache import (_SUFFIX_RE, KVBackend, RankSealer,
+                                        host_upload)
 from repro_torch.runtime.pagestore import SealedPageStore
 from repro_torch.runtime.plan import ComputePlan
 
@@ -213,8 +214,21 @@ class PagedKVBackend(KVBackend):
                 f"model {model.cfg.name} has no sequence-length KV leaves to "
                 f"page; use kv_backend='slot' for pure-state families")
         leaves = {**self._pools, **self._dense}
-        self.blocks = self.plan.place_paged_cache(
-            _with_leaves(template, lambda p, _: leaves[p]), tuple(self._pools))
+        whole = _with_leaves(template, lambda p, _: leaves[p])
+        self.blocks = self.plan.place_paged_cache(whole, tuple(self._pools))
+        placed = dict(tree_leaves_with_names(self.blocks))
+        self._pools = {p: placed[p] for p in self._pools}
+        self._dense = {p: placed[p] for p in self._dense}
+        # over ranks: the dim of a page [L, page, ...] (a pool's dim less
+        # one) or of a slot's row [L, 1, ...] over which this rank holds
+        # only its model block (-1: whole), and the sealer every blob goes
+        # through (see _seal_blob)
+        dims = self.plan.kv_dims(whole)
+        del whole, leaves
+        self._kv_dim = {p: dims[p] - 1 if p in self._pools and dims[p] > 0
+                        else dims[p] for p in placed}
+        self._sealer = (RankSealer(self.plan)
+                        if getattr(self.plan, "ranks", False) else None)
 
         # host-side sequence state
         self.pos = np.zeros(max_slots, np.int32)           # live KV positions
@@ -290,12 +304,15 @@ class PagedKVBackend(KVBackend):
         logits, _ = self.plan.decode_step(params, tokens, cache)
         rows = torch.arange(b, device=pos.device)
         at = pos.long().clamp(max=self.max_len - 1)
+        # over ranks a data shard stepped its rows only: every rank takes
+        # every row's writes, so each rank's pool stays whole
+        share = self.plan.share_rows
         for p, pool in self._pools.items():
-            pool[:, write_phys, write_off] = view[p][:, rows, at]
+            pool[:, write_phys, write_off] = share(view[p][:, rows, at])
         stepped = write_phys > 0
         for p, leaf in self._dense.items():
             mask = stepped.reshape(1, b, *([1] * (leaf.dim() - 2)))
-            leaf.copy_(torch.where(mask, view[p], leaf))
+            leaf.copy_(torch.where(mask, share(view[p]), leaf))
         return logits
 
     def _init_kernel_decode(self, model) -> None:
@@ -481,8 +498,8 @@ class PagedKVBackend(KVBackend):
         """Seal one resident page under its canonical content-derived name
         (same content => same name => same nonce and plaintext)."""
         pages = self._page_arrays([phys])
-        return {kpath: seal_tensor(key, shared_page_name(key_bytes, kpath),
-                                   arr[:, 0])
+        return {kpath: self._seal_blob(key, shared_page_name(key_bytes, kpath),
+                                       arr[:, 0], kpath)
                 for kpath, arr in pages.items()}
 
     def _publish_store(self, skey: SealingKey, key_bytes: bytes,
@@ -608,8 +625,7 @@ class PagedKVBackend(KVBackend):
                 if key is not None and skey is not None:
                     blobs = self.page_store.lookup(skey, key)
                     if blobs is not None:
-                        plain = {kpath: unseal_tensor(skey, st)
-                                 for kpath, st in blobs.items()}
+                        plain = self._unseal_blobs(skey, blobs)
                         nb = sum(st.n_bytes for st in blobs.values())
                         plan.append(("store", j, key, (plain, nb)))
                         pending.add(key)
@@ -809,15 +825,52 @@ class PagedKVBackend(KVBackend):
         for kpath, arr in self._page_arrays(phys).items():
             for j, ordinal in enumerate(ordinals):
                 name = f"{prefix}{kpath}/p{ordinal}{suffix}"
-                sealed[name] = seal_tensor(key, name, arr[:, j])
+                sealed[name] = self._seal_blob(key, name, arr[:, j], kpath,
+                                               suffix)
         return sealed
 
-    def _seal_meta(self, key: SealingKey, name: str, values) -> SealedTensor:
-        return seal_tensor(key, name, np.asarray(values, np.int32),
-                           device=self.device)
+    def _seal_meta(self, key: SealingKey, name: str, values,
+                   suffix: str = "") -> SealedTensor:
+        return self._seal_blob(key, name, np.asarray(values, np.int32),
+                               suffix=suffix)
 
-    def _unseal_meta(self, key: SealingKey, st: SealedTensor) -> np.ndarray:
-        return unseal_tensor(key, st).cpu().numpy()
+    def _unseal_meta(self, key: SealingKey, st: SealedTensor,
+                     suffix: str = "") -> np.ndarray:
+        return self._unseal_blobs(key, {0: st}, suffix)[0].cpu().numpy()
+
+    # -- sealing over ranks ---------------------------------------------------
+    def _owner(self, suffix: str) -> int:
+        """The rank that seals and unseals a blob tagged ``suffix``: model
+        coordinate 0 of the data shard the tag names, rank 0 for an
+        untagged (content-named) blob."""
+        m = _SUFFIX_RE.search(suffix)
+        return self._sealer.owner(int(m.group(1)) if m else 0)
+
+    def _seal_blob(self, key: SealingKey, name: str, x,
+                   kpath: Optional[str] = None,
+                   suffix: str = "") -> SealedTensor:
+        """Seal one blob: a page or slot row of leaf ``kpath`` as this
+        process holds it, or a host array. Over ranks the blob is sealed
+        whole, once, by :meth:`_owner` (:class:`~repro_torch.runtime.
+        kvcache.RankSealer`), and every rank gets its ciphertext."""
+        if self._sealer is None:
+            return seal_tensor(key, name, x, device=self.device)
+        dim = self._kv_dim[kpath] if kpath is not None else -1
+        return self._sealer.seal(key, name, x, dim, self._owner(suffix))
+
+    def _unseal_blobs(self, key: SealingKey, blobs: Dict[Any, SealedTensor],
+                      suffix: str = "") -> Dict[Any, torch.Tensor]:
+        """Every blob's whole plaintext (MAC-checked); over ranks unsealed
+        by :meth:`_owner` and broadcast."""
+        if self._sealer is None:
+            return {k: unseal_tensor(key, st) for k, st in blobs.items()}
+        return self._sealer.unseal(key, blobs, self._owner(suffix))
+
+    def _mine(self, kpath: str, whole: torch.Tensor) -> torch.Tensor:
+        """This process's block of a whole page or row of leaf ``kpath``."""
+        if self._sealer is None:
+            return whole
+        return self._sealer.mine(whole, self._kv_dim[kpath])
 
     def seal(self, key, slot, prefix, suffix: str = "",
              detach: bool = False) -> Dict[str, SealedTensor]:
@@ -845,23 +898,24 @@ class PagedKVBackend(KVBackend):
             keys_cat += k
             self._sealed_refs[k] = self._sealed_refs.get(k, 0) + 1
         meta_name = f"{prefix}/meta{suffix}"
-        sealed = {meta_name: self._seal_meta(key, meta_name, meta)}
+        sealed = {meta_name: self._seal_meta(key, meta_name, meta, suffix)}
         if shared:
             keys_name = f"{prefix}/sharedkeys{suffix}"
-            sealed[keys_name] = seal_tensor(
+            sealed[keys_name] = self._seal_blob(
                 key, keys_name, np.frombuffer(keys_cat, np.uint8),
-                device=self.device)
+                suffix=suffix)
         sealed.update(self._seal_pages(
             key, prefix, private,
             [int(self.table[slot, j]) for j in private], suffix))
         for kpath, leaf in self._dense.items():
             name = f"{prefix}{kpath}{suffix}"
-            sealed[name] = seal_tensor(key, name, leaf[:, slot:slot + 1])
+            sealed[name] = self._seal_blob(key, name, leaf[:, slot:slot + 1],
+                                           kpath, suffix)
         return sealed
 
     def _shared_keys(self, key: SealingKey, sealed: Dict[str, SealedTensor],
-                     name: str) -> List[bytes]:
-        cat = unseal_tensor(key, sealed[name]).cpu().numpy().tobytes()
+                     name: str, suffix: str = "") -> List[bytes]:
+        cat = self._unseal_meta(key, sealed[name], suffix).tobytes()
         return [cat[16 * i:16 * (i + 1)] for i in range(len(cat) // 16)]
 
     @torch.inference_mode()
@@ -872,11 +926,12 @@ class PagedKVBackend(KVBackend):
         # any accounting state moves, so a tampered blob fails the restore
         # without leaking the slot, a page or a refcount.
         self._seal_key_cache = key
-        meta = self._unseal_meta(key, sealed[f"{prefix}/meta{suffix}"])
+        meta = self._unseal_meta(key, sealed[f"{prefix}/meta{suffix}"],
+                                 suffix)
         pos, n_alloc, n_shared = int(meta[0]), int(meta[1]), int(meta[2])
         shared_ords = [int(meta[3 + 2 * i]) for i in range(n_shared)]
         keys = (self._shared_keys(key, sealed,
-                                  f"{prefix}/sharedkeys{suffix}")
+                                  f"{prefix}/sharedkeys{suffix}", suffix)
                 if n_shared else [])
         shared_set = set(shared_ords)
         ords = [j for j in range(n_alloc) if j not in shared_set]
@@ -895,9 +950,10 @@ class PagedKVBackend(KVBackend):
                 for p in list(self._cipher_pages):
                     self._materialize_page(p)
             self._crypt_key = key
-        # phase 1: MAC-verify everything (fused pages without decrypting)
+        # phase 1: MAC-verify everything (fused pages without decrypting;
+        # the rest decrypted in one batch, over ranks on one rank)
         fused_blobs: Dict[int, Dict[str, SealedTensor]] = {}
-        pages: Dict[int, Dict[str, torch.Tensor]] = {}
+        need: Dict[Tuple, SealedTensor] = {}
         for j in ords:
             blobs = {kpath: sealed[f"{prefix}{kpath}/p{j}{suffix}"]
                      for kpath in self._pools}
@@ -906,8 +962,8 @@ class PagedKVBackend(KVBackend):
                     verify_mac(key, st)
                 fused_blobs[j] = blobs
             else:
-                pages[j] = {kpath: unseal_tensor(key, st)
-                            for kpath, st in blobs.items()}
+                need.update({("p", j, kpath): st
+                             for kpath, st in blobs.items()})
         # shared ordinals: re-link a page resident in the index, or bring
         # back (MAC-checked, here in phase 1) a parked one, or, third tier,
         # one the store outlived the parked blob with (a deadline abort
@@ -918,25 +974,27 @@ class PagedKVBackend(KVBackend):
         for j, k in zip(shared_ords, keys):
             if k in self._index:
                 relink[j] = k
-            elif k in self._parked:
-                blobs = self._parked[k]
-                remat[j] = ("remat", k, {kpath: unseal_tensor(key, st)
-                                         for kpath, st in blobs.items()},
-                            sum(st.n_bytes for st in blobs.values()))
+                continue
+            if k in self._parked:
+                tier, blobs = "remat", self._parked[k]
             elif (self.page_store is not None
                   and self.page_store.contains(key, k)):
-                blobs = self.page_store.lookup(key, k)
-                remat[j] = ("store", k, {kpath: unseal_tensor(key, st)
-                                         for kpath, st in blobs.items()},
-                            sum(st.n_bytes for st in blobs.values()))
+                tier, blobs = "store", self.page_store.lookup(key, k)
             else:
                 raise IntegrityError(
                     f"shared page (ordinal {j}) is neither resident, "
                     f"parked, nor store-resident: sealed state references "
                     f"lost content")
-        dense_rows = {kpath: unseal_tensor(key,
-                                           sealed[f"{prefix}{kpath}{suffix}"])
-                      for kpath in self._dense}
+            remat[j] = (tier, k, {}, sum(st.n_bytes for st in blobs.values()))
+            need.update({("r", j, kpath): st for kpath, st in blobs.items()})
+        need.update({("d", kpath): sealed[f"{prefix}{kpath}{suffix}"]
+                     for kpath in self._dense})
+        opened = self._unseal_blobs(key, need, suffix)
+        pages = {j: {kpath: opened["p", j, kpath] for kpath in self._pools}
+                 for j in ords if j not in fused_set}
+        for j, (_, _, got, _) in remat.items():
+            got.update({kpath: opened["r", j, kpath] for kpath in self._pools})
+        dense_rows = {kpath: opened["d", kpath] for kpath in self._dense}
         # phase 2: commit: map, write, and account. Sealed references are
         # released by discard_sealed once the engine's whole restore
         # succeeded, so a rolled-back restore leaves parked blobs intact.
@@ -981,6 +1039,7 @@ class PagedKVBackend(KVBackend):
         slot ``slot``."""
         for kpath, row in rows.items():
             leaf = self._dense[kpath]
+            row = self._mine(kpath, row)
             leaf[:, slot] = row[:, 0].to(leaf.device, leaf.dtype)
 
     def discard_sealed(self, key: SealingKey, sealed: Dict[str, SealedTensor],
@@ -995,7 +1054,7 @@ class PagedKVBackend(KVBackend):
         name = f"{prefix}/sharedkeys{suffix}"
         if name not in sealed:
             return
-        for k in self._shared_keys(key, sealed, name):
+        for k in self._shared_keys(key, sealed, name, suffix):
             if k in self._sealed_refs:
                 self._sealed_refs[k] -= 1
                 if self._sealed_refs[k] <= 0:
@@ -1017,7 +1076,8 @@ class PagedKVBackend(KVBackend):
         idx = torch.as_tensor(phys, dtype=torch.long, device=self.device)
         for kpath, pool in self._pools.items():
             pool[:, idx] = torch.stack(
-                [writes[p][kpath].to(pool.device) for p in phys], dim=1)
+                [self._mine(kpath, writes[p][kpath]).to(pool.device)
+                 for p in phys], dim=1)
 
     # -- partial eviction -----------------------------------------------------
     def evictable_tail_pages(self, slot: int) -> int:
@@ -1054,7 +1114,7 @@ class PagedKVBackend(KVBackend):
         phys = [int(p) for p in self.table[slot, ordinals]]
         meta_name = f"{prefix}/pagemeta{suffix}"
         sealed = {meta_name: self._seal_meta(key, meta_name,
-                                             [ordinals[0], n_pages])}
+                                             [ordinals[0], n_pages], suffix)}
         sealed.update(self._seal_pages(key, prefix, ordinals, phys, suffix))
         self.table[slot, ordinals] = 0
         self._alloc[slot] = n_alloc - n_pages
@@ -1082,7 +1142,8 @@ class PagedKVBackend(KVBackend):
         (the tail rides along a whole-slot restore whose ``acquire``
         already reserved the sequence's worst case)."""
         self._seal_key_cache = key
-        meta = self._unseal_meta(key, sealed[f"{prefix}/pagemeta{suffix}"])
+        meta = self._unseal_meta(key, sealed[f"{prefix}/pagemeta{suffix}"],
+                                 suffix)
         start, n_pages = int(meta[0]), int(meta[1])
         if reserve and not self.on_demand:
             assert self.can_restore_tail(n_pages), \
@@ -1091,9 +1152,10 @@ class PagedKVBackend(KVBackend):
             self._reserve_free -= n_pages
         ordinals = list(range(start, start + n_pages))
         # decrypt first (MAC gate), then map and write
-        pages = {j: {kpath: unseal_tensor(
-                        key, sealed[f"{prefix}{kpath}/p{j}{suffix}"])
-                     for kpath in self._pools}
+        plain = self._unseal_blobs(
+            key, {(j, kpath): sealed[f"{prefix}{kpath}/p{j}{suffix}"]
+                  for j in ordinals for kpath in self._pools}, suffix)
+        pages = {j: {kpath: plain[j, kpath] for kpath in self._pools}
                  for j in ordinals}
         writes = {}
         for j, p in zip(ordinals, self._take_pages(n_pages)):

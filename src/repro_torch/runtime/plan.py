@@ -18,7 +18,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.sealing import tree_leaves_with_names, tree_map
+from repro_torch.core.sealing import (tree_leaves_with_names, tree_map,
+                                      tree_map_with_names)
 from repro_torch.distributed.collectives import mark_seconds, take_all
 
 Params = Any
@@ -82,6 +83,19 @@ class ComputePlan:
         """The paged backend's pool and slot-dense leaves as the plan holds
         them."""
         return blocks
+
+    def kv_dims(self, cache: Cache) -> Dict[str, int]:
+        """Per leaf path of a whole cache (a dense cache, or the paged
+        backend's pools, at their full shapes): the dim over which this
+        process holds only its model block, -1 where it holds the leaf
+        whole."""
+        return {p: -1 for p, _ in tree_leaves_with_names(cache)}
+
+    def share_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` ``[L, b, ...]``, the rows a decode step wrote, with every
+        row's values: the identity unless the step computed only some rows
+        here (a rank of a data shard)."""
+        return x
 
     @property
     def egresses(self) -> bool:
@@ -289,15 +303,19 @@ class ShardedPlan(ComputePlan):
         are the single-device engine's (cuBLAS picks its kernel by the row
         count), and a MoE model's expert capacity is reckoned over the
         global batch as the reference's SPMD program reckons it. With
-        ``tp > 1``, or over ranks, the dense family's
+        ``tp > 1``, or over ranks, the attention families'
         :class:`~repro_torch.distributed.tensor_parallel.TensorParallel`
         compute runs instead: each data shard steps its rows, each model
-        shard its heads and ``d_ff`` block, reduced over ``model``;
-      - the **KV cache** follows ``cache_specs`` (:meth:`place_dense_cache`):
-        one copy on logical shards, whose model shards take views of their
-        heads (or position blocks); on a rank its own heads (or block) of
-        every row. The reference's replicated page pool stays one copy on
-        logical shards.
+        shard its heads, ``d_ff`` block or experts, reduced over ``model``;
+      - the **KV cache** follows ``cache_specs`` (:meth:`place_dense_cache`,
+        :meth:`kv_dims`): one copy on logical shards, whose model shards
+        take views of their heads (or position blocks); on a rank its own
+        heads (or block) of every row, and MLA's latent whole (computed
+        identically on every model shard). The paged pool is one copy on
+        logical shards; on a rank it is the rank's KV heads of every page,
+        or the whole pool where the heads do not divide ``tp`` and for the
+        latent, as the reference replicates its pool
+        (:meth:`place_paged_cache`).
 
     Each decode step counts ``collective_bytes_per_step``, the bytes moved
     into one shard: ``(dp - 1) / dp`` of the shard's part of every leaf
@@ -336,6 +354,9 @@ class ShardedPlan(ComputePlan):
         self._pending: List[Tuple[int, List[Any]]] = []
         self._gather_bytes = 0
         self.collective_bytes_per_step = 0
+        # a rank's KV holds every position (a paged pool) rather than its
+        # block of them under sequence parallelism
+        self._whole_seq = False
 
     @classmethod
     def from_spec(cls, model, spec: str) -> "ShardedPlan":
@@ -431,11 +452,51 @@ class ShardedPlan(ComputePlan):
             weights.compute = tpd.layer_params(shards)
         return weights
 
+    def kv_dims(self, cache: Cache) -> Dict[str, int]:
+        """On a rank: the dim ``cache_specs`` shards over ``model`` for
+        each leaf, except MLA's latent (whole on every model shard) and,
+        when the backend is paged, the sequence dim of sequence-parallel
+        KV (a pool's pages hold any positions, so a rank keeps them all).
+        Logical shards hold every leaf whole."""
+        if not self.ranks or self.tp == 1:
+            return super().kv_dims(cache)
+        from repro_torch.distributed import sharding
+        from repro_torch.distributed.tensor_parallel import model_dim
+
+        specs = sharding.cache_specs(self._spec_cfg, cache, self.mesh)
+        dims = {}
+        for path, spec in tree_leaves_with_names(specs):
+            dim = model_dim(spec)
+            if (path.endswith(("['ckv']", "['krope']"))
+                    or (self._whole_seq and dim == 2)):
+                dim = -1
+            dims[path] = dim
+        return dims
+
+    def share_rows(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ranks and self.tensor_parallel is not None:
+            return self.tensor_parallel.share_rows(x)
+        return x
+
+    def _rank_cache(self, cache: Cache) -> Cache:
+        """A rank's block of every cache leaf over ``model``
+        (:meth:`kv_dims`), copied."""
+        dims = self.kv_dims(cache)
+
+        def mine(path, leaf):
+            dim = dims[path]
+            if dim < 0:
+                return leaf
+            n = leaf.shape[dim] // self.tp
+            return leaf.narrow(dim, self.mesh.coords[1] * n, n).clone()
+
+        return tree_map_with_names(mine, cache)
+
     def place_dense_cache(self, cache: Cache) -> Cache:
         """Logical shards keep the one cache (each model shard takes views
         of its heads or position block); a rank keeps its own block of
-        every leaf ``cache_specs`` shards over ``model``. A rank keeps every
-        row: it writes only its data shard's rows in a decode step."""
+        every leaf :meth:`kv_dims` splits. A rank keeps every row: it
+        writes only its data shard's rows in a decode step."""
         tpd = self.tensor_parallel
         if tpd is not None and tpd.sp:
             max_len = next(t for _, t in tree_leaves_with_names(cache)
@@ -446,17 +507,21 @@ class ShardedPlan(ComputePlan):
                     f"divide by tp={self.tp}")
         if not self.ranks:
             return cache
-        from repro_torch.distributed import sharding
-
-        specs = sharding.cache_specs(self._spec_cfg, cache, self.mesh)
-        return tree_map(self._rank_slice, cache, specs)
+        return self._rank_cache(cache)
 
     def place_paged_cache(self, blocks: Cache, paged_paths) -> Cache:
-        if self.ranks:
-            raise NotImplementedError(
-                "the paged KV backend over ranks is not ported yet "
-                "(ROADMAP.md queue A item 21 part 3); use kv_backend='slot'")
-        return blocks
+        """Logical shards keep the one pool. A rank keeps its KV heads of
+        every page ``[L, P+1, page, hk/tp, hd]``, or the whole pool where
+        the heads do not divide ``tp`` and for MLA's latent; the backend's
+        prefill caches then hold every position as well, and the
+        tensor-parallel step writes and reads them whole."""
+        if not self.ranks:
+            return blocks
+        tpd = self.tensor_parallel
+        if tpd.sp:
+            self._whole_seq = True
+            tpd.local_cache = False
+        return self._rank_cache(blocks)
 
     @torch.inference_mode()
     def gather(self, weights: ShardedWeights) -> Any:

@@ -1,10 +1,13 @@
 """What one rank of a gloo world runs for tests/test_torch_ranks.py (CPU
 ranks) and tests/test_torch_gpu.py (ranks sharing the card), and what the
-parent runs on logical shards to compare: the port's engine on
-smoke deepseek-7b through two waves of sampled requests, the second
-preempting, with every seal's names and ciphertext recorded; and the ring
-collective matmuls over the mesh's ``model`` group. Imports torch and
-repro_torch only, so a spawned rank starts quickly."""
+parent runs on logical shards to compare: the port's engine (one of
+``RUNS``: smoke deepseek-7b on the slot backend, or on the paged backend
+with prefix sharing, or with one KV head (sequence parallelism), smoke
+dbrx-132b or deepseek-v3-671b paged) through two waves of
+sampled requests, the second preempting, with every seal's names and
+ciphertext and every step's page table recorded; and the ring collective
+matmuls over the mesh's ``model`` group. Imports torch and repro_torch
+only, so a spawned rank starts quickly."""
 
 from datetime import timedelta
 
@@ -17,45 +20,59 @@ import torch
 ENGINE = dict(max_slots=4, max_len=64, prefill_buckets=(4, 8),
               kv_backend="slot")
 RING_SHAPES = dict(x=(64, 32), w=(32, 48), xk=(64, 128), wk=(128, 48))
+PAGED = dict(kv_backend="paged", page_size=8)
+# run name -> (arch, engine overrides, a shared prompt pair in the low
+# wave, config overrides): "sp" has one KV head, which tp=2 does not
+# divide, so each rank keeps the whole pool; "mla" keeps the latent whole
+RUNS = {"slot": ("deepseek-7b", {}, False, {}),
+        "paged": ("deepseek-7b", dict(PAGED, prefix_sharing=True), True, {}),
+        "dbrx": ("dbrx-132b", PAGED, False, {}),
+        "sp": ("deepseek-7b", PAGED, False, dict(num_kv_heads=1)),
+        "mla": ("deepseek-v3-671b", PAGED, False, {})}
 
 
-def specs():
-    """(prompt, max_new_tokens, priority, seed): five lows on four slots,
-    then two highs that preempt."""
+def specs(shared=False):
+    """(prompt, max_new_tokens, priority, seed): five lows on four slots
+    (with ``shared`` a sixth whose 8-token prompt equals the third's, so
+    the pair maps one full page), then two highs that preempt."""
     p8 = np.arange(1, 9, dtype=np.int32)
     p4 = np.arange(1, 5, dtype=np.int32)
     low = [(p4, 8, 0, 100), (p4 + 1, 5, 0, 101), (p8, 8, 0, 102),
            (p8 + 2, 6, 0, 103), (np.arange(1, 13, dtype=np.int32), 6, 0, 104)]
+    if shared:
+        low.append((p8.copy(), 7, 0, 107))
     high = [(np.full(8, 7, np.int32), 4, 5, 105),
             (np.full(8, 9, np.int32), 3, 5, 106)]
     return low, high
 
 
-def serve(mesh, device="cpu"):
-    """The waves on one engine over ``mesh`` (logical shards, or the ranks
-    of the initialized world) on ``device``. Returns the tokens, every
-    seal's {name: (ciphertext bytes, mac)}, the egress frames and the
-    plan's description."""
+def serve(mesh, device="cpu", run="slot"):
+    """The waves of ``RUNS[run]`` on one engine over ``mesh`` (logical
+    shards, or the ranks of the initialized world) on ``device``. Returns
+    the tokens, every seal's {name: (ciphertext bytes, mac)}, every step's
+    page table (paged), the egress frames and the plan's description."""
     from repro_torch.configs import smoke_config
     from repro_torch.core import SealingKey, TrustDomain
     from repro_torch.models import build_model
     from repro_torch.runtime import Engine, GenerationRequest, SamplingParams
 
-    model = build_model(smoke_config("deepseek-7b"), device=device)
+    import dataclasses
+
+    arch, kv, shared, cfg_kw = RUNS[run]
+    model = build_model(dataclasses.replace(smoke_config(arch), **cfg_kw),
+                        device=device)
     td = TrustDomain("tdx", sealing_key=SealingKey.generate(b"seal"),
                      io_key=SealingKey.generate(b"io"), device=device)
     eng = Engine(model, model.init_params(0), trust_domain=td, mesh=mesh,
-                 device=device, **ENGINE)
+                 device=device, **dict(ENGINE, **kv))
     seals = []
-    seal = eng.kv.seal
-
-    def recording(*a, **k):
-        out = seal(*a, **k)
-        seals.append({n: (st.ciphertext.cpu().numpy().tobytes(), st.mac)
-                      for n, st in out.items()})
-        return out
-
-    eng.kv.seal = recording
+    for meth in ("seal", "seal_tail_pages"):
+        def recording(*a, _inner=getattr(eng.kv, meth), **k):
+            out = _inner(*a, **k)
+            seals.append({n: (st.ciphertext.cpu().numpy().tobytes(), st.mac)
+                          for n, st in out.items()})
+            return out
+        setattr(eng.kv, meth, recording)
 
     def gen(spec):
         prompt, mnt, prio, seed = spec
@@ -63,15 +80,25 @@ def serve(mesh, device="cpu"):
             prompt=prompt.copy(), max_new_tokens=mnt, priority=prio,
             params=SamplingParams(temperature=0.9, top_k=16, seed=seed))
 
-    low, high = specs()
+    tables = []
+
+    def step():
+        eng.step()
+        if hasattr(eng.kv, "table"):
+            tables.append(eng.kv.table.copy())
+
+    low, high = specs(shared)
     reqs = [eng.submit(gen(s)) for s in low]
     for _ in range(3):
-        eng.step()
+        step()
     reqs += [eng.submit(gen(s)) for s in high]
+    while not eng.idle:
+        step()
     stats = eng.run()
     return dict(tokens=[list(r.output) for r in reqs], seals=seals,
-                frames=td.channel.stats.messages_out,
+                tables=tables, frames=td.channel.stats.messages_out,
                 preemptions=stats.preemptions,
+                shared_pages=stats.shared_pages,
                 steps=td.channel.stats.collective_steps,
                 describe=eng.plan.describe())
 
@@ -96,30 +123,10 @@ def ring(group):
     return y, y2
 
 
-def paged_refusal(mesh, device):
-    """The paged backend over ranks raises (ROADMAP item 21 part 3); the
-    message, or None if it did not raise."""
-    from repro_torch.configs import smoke_config
-    from repro_torch.core import SealingKey, TrustDomain
-    from repro_torch.models import build_model
-    from repro_torch.runtime import Engine
-
-    model = build_model(smoke_config("deepseek-7b"), device=device)
-    try:
-        Engine(model, model.init_params(0), mesh=mesh, device=device,
-               trust_domain=TrustDomain("tdx", device=device,
-                                        sealing_key=SealingKey.generate(
-                                            b"seal")),
-               kv_backend="paged", page_size=8, **{
-                   k: v for k, v in ENGINE.items() if k != "kv_backend"})
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
-def rank_main(rank, world, init_file, mesh, out_dir, with_ring, device):
-    """One rank: join the gloo world, serve, record which names this rank
-    sealed itself, and save what it saw."""
+def rank_main(rank, world, init_file, mesh, out_dir, with_ring, device,
+              runs):
+    """One rank: join the gloo world, serve each of ``runs``, record which
+    names this rank sealed itself, and save what it saw."""
     import torch.distributed as dist
     from repro_torch.runtime import kvcache
 
@@ -136,26 +143,30 @@ def rank_main(rank, world, init_file, mesh, out_dir, with_ring, device):
             return seal_tensor(key, name, array, **kw)
 
         kvcache.seal_tensor = sealing
-        out = serve(mesh, device)
-        out["own"] = own
+        out = {}
+        for run in runs:
+            own.clear()
+            out[run] = serve(mesh, device, run)
+            out[run]["own"] = list(own)
         if with_ring:
             from repro_torch.launch.mesh import make_host_mesh
             out["ring"] = ring(make_host_mesh(1, world,
                                               device="cpu").groups["model"])
-            out["paged"] = paged_refusal(mesh, device)
         torch.save(out, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def spawn(mesh, world, tmp_path, with_ring=False, device="cpu"):
+def spawn(mesh, world, tmp_path, with_ring=False, device="cpu",
+          runs=("slot",)):
     """Run ``rank_main`` on ``world`` spawned ranks on ``device`` (the CPU,
-    or all of them on the one card); returns each rank's record. A rank
-    that fails fails the call."""
+    or all of them on the one card); returns each rank's record: one entry
+    per run of ``runs`` (and ``"ring"``). A rank that fails fails the
+    call."""
     import torch.multiprocessing as mp
 
     mp.spawn(rank_main, args=(world, str(tmp_path / "init"), mesh,
-                              str(tmp_path), with_ring, device),
+                              str(tmp_path), with_ring, device, tuple(runs)),
              nprocs=world, join=True)
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
             for r in range(world)]

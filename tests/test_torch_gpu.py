@@ -926,7 +926,8 @@ def test_tp_ranks_on_card_equal_logical_blobs(card, tmp_path):
     import _torch_ranks_worker as W
 
     want = W.serve("tp=2", "cuda")
-    ranks = W.spawn("tp=2", 2, tmp_path, device="cuda")
+    ranks = [got["slot"] for got in W.spawn("tp=2", 2, tmp_path,
+                                            device="cuda")]
     assert want["seals"]
     for got in ranks:
         assert got["tokens"] == want["tokens"]
@@ -935,6 +936,46 @@ def test_tp_ranks_on_card_equal_logical_blobs(card, tmp_path):
     assert sorted(ranks[0]["own"]) == sorted(n for s in want["seals"]
                                              for n in s)
     assert not ranks[1]["own"]
+
+
+def test_tp_moe_engine_on_card_equals_cpu(card):
+    """A smoke f32 dbrx-132b engine on tp=2 logical shards on the card
+    (each shard its half of the experts, routing every token) serves the
+    CPU tp=2 engine's tokens through the sampled waves and a preemption,
+    on the paged backend with gather decode."""
+    cfg = smoke_config("dbrx-132b")
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(seed=3)
+    kv = dict(kv_backend="paged", page_size=8)
+    got, eng, names = _serve_mesh(card, build_model(cfg, device=card),
+                                  tree_map(lambda t: t.to(card), params),
+                                  "tp=2", **kv)
+    want, _, _ = _serve_mesh(torch.device("cpu"), cpu, params, "tp=2", **kv)
+    assert got == want
+    assert names and all(n.endswith("/s0") for n in names)
+    assert eng.plan.tensor_parallel.mcfg.num_experts == 4
+
+
+def test_paged_ranks_on_card_equal_logical(card, tmp_path):
+    """Two ranks sharing the card serve the paged backend (prefix sharing,
+    a preemption) at tp=2 with a logical tp=2 run's tokens, page tables
+    after every step and blob bytes; rank 0 alone seals, each name once."""
+    import numpy as np
+    import _torch_ranks_worker as W
+
+    want = W.serve("tp=2", "cuda", "paged")
+    ranks = [got["paged"] for got in W.spawn(
+        "tp=2", 2, tmp_path, device="cuda", runs=("paged",))]
+    assert want["seals"] and want["shared_pages"] > 0
+    for got in ranks:
+        assert got["tokens"] == want["tokens"]
+        assert got["seals"] == want["seals"]
+        assert len(got["tables"]) == len(want["tables"])
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(got["tables"], want["tables"]))
+    names = {n for s in want["seals"] for n in s}
+    assert len(set(ranks[0]["own"])) == len(ranks[0]["own"])
+    assert names <= set(ranks[0]["own"]) and not ranks[1]["own"]
 
 
 def test_sharded_train_step_on_card_matches_one_device(card):

@@ -4,15 +4,25 @@ running the same engine loop on the same requests
 (tests/_torch_ranks_worker.py), against the same mesh on logical shards in
 this process.
 
-On ``tp=2`` and ``dp=2`` over 2 ranks and ``dp=2,tp=2`` over 4, every
-rank's tokens, sealed names and blob bytes equal the logical run's bit for
-bit; each name is sealed by exactly one rank (model coordinate 0 of the
-row's data shard), and only rank 0 sends egress frames; the paged backend
-over ranks raises naming ROADMAP.md item 21 part 3. The ring
+On ``tp=2`` and ``dp=2`` over 2 ranks and ``dp=2,tp=2`` over 4 (the slot
+backend), on ``tp=2`` and ``dp=2`` with the paged backend (smoke
+deepseek-7b with prefix sharing: a shared page, a preemption that seals
+pages by value and by reference), and paged at ``tp=2`` on smoke
+dbrx-132b (MoE), on deepseek-v3-671b (MLA's latent whole on every rank)
+and with one KV head (each rank keeps the whole pool), every rank's tokens, page tables, sealed names and blob bytes
+equal the logical run's bit for bit; each name is sealed by exactly one
+rank (model coordinate 0 of the row's data shard, rank 0 for a
+content-named page), and only rank 0 sends egress frames. The serving
+launcher under ``torch.distributed.run`` prints the logical run's lines
+on a paged MoE model with sharing and the store. The ring
 collective matmuls (``distributed/overlap.py``) over 2 ranks and over a
 ``LocalGroup(2)`` match the one-shot products and the reference's own
 functions under ``shard_map`` on conftest's 2 host devices, within the
 reference test's tolerances (tests/test_distributed.py: 1e-4 and 1e-3)."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -23,52 +33,74 @@ from repro.distributed import overlap as joverlap
 from repro.distributed.compat import make_mesh, shard_map as jshard_map
 from repro_torch.distributed.collectives import LocalGroup
 
-MESHES = {"tp2": ("tp=2", 2), "dp2": ("dp=2", 2), "dp2tp2": ("dp=2,tp=2", 4)}
+# mesh name -> (mesh, world, the worker's runs on one spawn)
+MESHES = {"tp2": ("tp=2", 2, ("slot", "paged", "dbrx", "sp", "mla")),
+          "dp2": ("dp=2", 2, ("slot", "paged")),
+          "dp2tp2": ("dp=2,tp=2", 4, ("slot",))}
+# (mesh name, run); the slot runs keep their mesh's name as the case id
+CASES = [(m, r) for m, (_, _, runs) in MESHES.items() for r in runs]
 RING_TOL = (1e-4, 1e-3)     # the reference test's atol for each product
+# the serving launcher on a MoE model, paged with sharing and the store
+LAUNCH = ["-m", "repro_torch.launch.serve", "--arch", "dbrx-132b", "--smoke",
+          "--mesh", "tp=2", "--kv-backend", "paged", "--page-size", "8",
+          "--prefix-sharing", "--page-store", "--requests", "4",
+          "--max-new-tokens", "6", "--device", "cpu"]
 
 _RUNS = {}
 
 
-def _logical(mesh):
+def _logical(mesh, run):
     """The same waves on logical shards in this process (one thread, as
     the ranks run)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return W.serve(mesh)
+        return W.serve(mesh, "cpu", run)
     finally:
         torch.set_num_threads(threads)
 
 
 def _ranks(name, tmp_path_factory):
     if name not in _RUNS:
-        mesh, world = MESHES[name]
+        mesh, world, runs = MESHES[name]
         _RUNS[name] = W.spawn(mesh, world, tmp_path_factory.mktemp(name),
-                              with_ring=name == "tp2")
+                              with_ring=name == "tp2", runs=runs)
     return _RUNS[name]
 
 
-@pytest.mark.parametrize("name", sorted(MESHES))
-def test_ranks_equal_logical_shards(name, tmp_path_factory):
-    """Every rank's tokens, sealed names and blob bytes equal the logical
-    run's; no name is sealed by two ranks, every name by one; rank 0 alone
-    egresses."""
-    mesh, world = MESHES[name]
-    want = _logical(mesh)
-    ranks = _ranks(name, tmp_path_factory)
+@pytest.mark.parametrize("name,run", CASES,
+                         ids=[m if r == "slot" else f"{m}-{r}"
+                              for m, r in CASES])
+def test_ranks_equal_logical_shards(name, run, tmp_path_factory):
+    """Every rank's tokens, page tables, sealed names and blob bytes equal
+    the logical run's; no name is sealed by two ranks, every recorded name
+    by one (and on the paged backend each content-named page too, by rank
+    0); rank 0 alone egresses."""
+    mesh, world, _ = MESHES[name]
+    want = _logical(mesh, run)
+    ranks = [got[run] for got in _ranks(name, tmp_path_factory)]
     assert want["preemptions"] > 0 and want["seals"]
     for r, got in enumerate(ranks):
         assert got["tokens"] == want["tokens"], r
         assert got["seals"] == want["seals"], r
+        assert len(got["tables"]) == len(want["tables"])
+        for a, b in zip(got["tables"], want["tables"]):
+            assert np.array_equal(a, b), r
         assert got["preemptions"] == want["preemptions"]
+        assert got["shared_pages"] == want["shared_pages"]
         assert got["steps"] == want["steps"] > 0
         assert f"{world} ranks over gloo" in got["describe"]
+    if run == "paged":
+        assert want["shared_pages"] > 0
     names = [n for s in want["seals"] for n in s]
-    owners = [r for r, got in enumerate(ranks) for _ in got["own"]]
     sealed_by = [n for got in ranks for n in got["own"]]
-    assert sorted(sealed_by) == sorted(names)          # each name once
+    assert len(set(sealed_by)) == len(sealed_by)       # no name twice
+    assert set(names) <= set(sealed_by)
+    assert all(n.startswith("kvshared/") for n in set(sealed_by) - set(names))
     tp = 2 if "tp" in mesh else 1
-    assert set(owners) <= {r for r in range(world) if r % tp == 0}
+    for r, got in enumerate(ranks):
+        assert r % tp == 0 or not got["own"], r
+        assert all(r == 0 for n in got["own"] if n.startswith("kvshared/"))
     assert ranks[0]["frames"] == want["frames"] > 0
     assert all(got["frames"] == 0 for got in ranks[1:])
 
@@ -77,13 +109,12 @@ def test_ring_matmuls_over_ranks_and_local(tmp_path_factory):
     """all_gather_matmul and matmul_reduce_scatter over 2 gloo ranks equal
     the same rings over a LocalGroup(2) bit for bit, the one-shot products
     and the reference's rings on 2 host devices within the reference
-    test's tolerances. (The same spawn checks the paged refusal.)"""
+    test's tolerances."""
     a = W.ring_inputs()
     y_local, y2_local = W.ring(LocalGroup(2, "cpu"))
     for got in _ranks("tp2", tmp_path_factory):
         y, y2 = got["ring"]
         assert torch.equal(y, y_local) and torch.equal(y2, y2_local)
-        assert "item 21 part 3" in got["paged"]    # paged over ranks raises
     assert torch.allclose(y_local, a["x"] @ a["w"], atol=RING_TOL[0])
     assert torch.allclose(y2_local, a["xk"] @ a["wk"], atol=RING_TOL[1])
     from jax.sharding import PartitionSpec as P
@@ -101,3 +132,35 @@ def test_ring_matmuls_over_ranks_and_local(tmp_path_factory):
                                atol=RING_TOL[0], rtol=0)
     np.testing.assert_allclose(y2_local.numpy(), np.asarray(jy2),
                                atol=RING_TOL[1], rtol=0)
+
+
+def test_launcher_serves_paged_moe_over_ranks():
+    """``serve.py --mesh tp=2 --kv-backend paged --prefix-sharing
+    --page-store`` on smoke dbrx-132b under ``torch.distributed.run`` over
+    2 gloo ranks prints the logical run's sealed-traffic, sharing and
+    store lines and its collective bytes a step, the mesh line naming the
+    ranks, and nothing from rank 1."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in ("src", os.environ.get("PYTHONPATH")) if p))
+    logical = subprocess.run([sys.executable, *LAUNCH], capture_output=True,
+                             text=True, timeout=300, env=env)
+    assert logical.returncode == 0, logical.stderr[-2000:]
+    ranks = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", *LAUNCH], capture_output=True, text=True,
+        timeout=300, env=env)
+    assert ranks.returncode == 0, ranks.stderr[-2000:]
+
+    def lines(out, *starts):
+        return [ln for ln in out.splitlines() if ln.startswith(starts)]
+
+    same = ("sealed-KV traffic:", "prefix sharing:", "store hits:",
+            "kv decode:")
+    assert lines(ranks.stdout, *same) == lines(logical.stdout, *same)
+    assert len(lines(logical.stdout, *same)) == 4
+    assert lines(ranks.stdout, "[mesh] engine spans dp=1,tp=2 (2 ranks "
+                               "over gloo")
+    tax = [ln.split(" over ")[0] for ln in lines(ranks.stdout, "link-tax")]
+    assert tax == [ln.split(" over ")[0]
+                   for ln in lines(logical.stdout, "link-tax")]
+    assert len(lines(ranks.stdout, "served ")) == 1    # rank 0 alone
