@@ -93,11 +93,13 @@ Phases, each fatal on failure:
      the frames sent by rank 0 alone; then dp=2 over the same ranks on
      Llama2-7B cut to 2 layers gives a logical dp=2 run's tokens. Then the
      paged ranks path (PAGED_RANKS): Llama2-70B at published width, 2 of
-     80 layers, and dbrx-132b, 1 layer, each first on a logical tp=2 mesh
-     here, then on a paged tp=2 engine with gather decode spanning two
-     processes on the card (each rank its KV heads of every page): tokens,
-     page tables after every step, sealed names and blob bytes equal the
-     logical run's, every page sealed whole by rank 0 through B1.
+     80 layers, dbrx-132b, 1 layer, and jamba-v0.1-52b, one group of 8 on
+     an 11-page pool, each first on a logical tp=2 mesh here, then on a
+     paged tp=2 engine with gather decode spanning two processes on the
+     card (each rank its KV heads of every page and its Mamba channels of
+     every row): tokens, page tables after every step, sealed names and
+     blob bytes equal the logical run's, every page and recurrent row
+     sealed whole by rank 0 through B1, every paused row's state frozen.
      Each path runs with every kernel count set to 0 just before it; every
      request's tokens must equal the same request served alone on a fresh
      engine of that path; the pool invariants hold after every sharing and
@@ -119,13 +121,16 @@ Phases, each fatal on failure:
      the low wave and a preempting request under tdx. Chameleon's and
      rwkv6's requests equal their solo runs; the MoE families' rerun on a
      fresh engine repeats every token; on jamba a partially evicted row's
-     Mamba state stays bit-equal through a step it sits out. Chameleon,
-     dbrx and deepseek-v3 then serve the same waves on a tp=2 mesh of
-     logical shards over the same unsealed weights (FAMILY_TP: heads,
-     experts and MLA heads split, every token routed on every shard): each
+     Mamba state stays bit-equal through a step it sits out. Every family
+     but whisper then serves the same waves on a tp=2 mesh of logical
+     shards over the same unsealed weights (FAMILY_TP: heads, experts, MLA
+     heads, Mamba channels and rwkv6 heads split, every token routed on
+     every shard; jamba's paused row frozen there too): each
      request equal to its solo run (the MoE families: a rerun on a fresh
      tp=2 engine), the collective bytes a step equal to tp_step_bytes, one
-     decode step's logits within FAMILY_TP_LOGITS_REL_TOL of one device's,
+     decode step's logits within FAMILY_TP's limit of one device's (jamba:
+     tp_f32_witness on its served weights upcast to f32, in f32 within
+     TP_F32_TOL, in bf16 within TP_BF16_RATIO x one device's own error),
      B1 the only kernel. Then whisper-small at full size: prefill over
      1,500 frames and 16 decode steps, each within a stated tolerance of
      the cache-free forward;
@@ -1873,25 +1878,38 @@ RANKS_TIMEOUT_S = 600
 def tp_step_bytes(cfg, rows: int, tp: int) -> int:
     """What one tp decode step's collectives move into a shard (dp=1),
     written down before the run from the model's layer slots: every mixer
-    (attn, mla) and every FFN (swiglu, moe) reduces one [rows, 1, d_model]
-    partial in the model's dtype -- an all-gather of the other shards'
-    partials; attention whose KV heads do not divide tp (sequence
-    parallelism) also gathers the query heads and each shard's f32 (o,
-    max, sum). A MoE layer routes on every shard (its router is
-    replicated) and MLA's latent is computed on every shard, so neither
-    moves more. When tp divides the vocabulary the embedding reduces one
-    more partial and the f32 logits are gathered along it."""
-    from repro_torch.models.transformer import _blocks
+    (attn, mla, mamba, rwkv) and every FFN (swiglu, moe, cmix) reduces one
+    [rows, 1, d_model] partial in the model's dtype -- an all-gather of the
+    other shards' partials; attention whose KV heads do not divide tp
+    (sequence parallelism) also gathers the query heads and each shard's
+    f32 (o, max, sum). A Mamba mixer also reduces its f32 [rows, 1,
+    2 d_state + dt_rank] ``bcdt`` partials; rwkv6's time mix gathers its
+    heads' [rows, 1, d_model / tp] outputs in the model's dtype for
+    ``ln_out``, its channel mix the f32 receptance blocks of the same
+    width (``vv`` is the FFN's reduction); ``ln0`` is replicated and moves
+    nothing. A MoE layer routes on every shard (its router is replicated)
+    and MLA's latent is computed on every shard, so neither moves more.
+    When tp divides the vocabulary the embedding reduces one more partial
+    and the f32 logits are gathered along it."""
+    from repro_torch.models.transformer import _blocks, _mamba_cfg
     d, vocab, el = cfg.d_model, cfg.vocab_size, cfg.torch_dtype.itemsize
     part = (tp - 1) * rows * d * el
+    block = (tp - 1) * rows * (d // tp)
     total = 0
     for _, n, slots in _blocks(cfg):
-        for mixer, _ in slots:
+        for mixer, ffn in slots:
             layer = 2 * part
             if mixer == "attn" and cfg.num_kv_heads % tp:
                 h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
                 layer += ((tp - 1) * rows * (h // tp) * hd * el
                           + (tp - 1) * rows * h * (hd + 2) * 4)
+            if mixer == "mamba":
+                m = _mamba_cfg(cfg)
+                layer += (tp - 1) * rows * (2 * m.d_state + m.dt_rank_) * 4
+            if mixer == "rwkv":
+                layer += block * el
+            if ffn == "cmix":
+                layer += block * 4
             total += n * layer
     if vocab % tp == 0:
         total += part + (tp - 1) * rows * (vocab // tp) * 4
@@ -2203,25 +2221,60 @@ def phase_ranks(torch, np, cfg_name, specs, tp_out, device="cuda",
 # page), on the slot path's preempting waves, so per-page seals and their
 # restores run through B1 over ranks: Llama2-70B at published width (d_model
 # 8192, GQA 64/8, d_ff 28672; the paper's largest model) cut to 2 of 80
-# layers, then dbrx-132b's 1-layer cut (8 of its 16 experts a rank). Each
-# against a logical tp=2 run of the same seed-0 weights in the parent.
-PAGED_RANKS = [("llama2-70b", dict(num_layers=2)),
-               ("dbrx-132b", dict(num_layers=1))]
+# layers, then dbrx-132b's 1-layer cut (8 of its 16 experts a rank), then
+# jamba-v0.1-52b's group of 8 (4,096 of 8,192 Mamba channels and 8 of 16
+# experts a rank; each rank's channels of every row slot-dense beside its
+# KV heads of every page) on its 11-page pool, where a row's tail is
+# evicted and the row pauses. Each against a logical tp=2 run of the same
+# seed-0 weights in the parent, freed before the ranks spawn; a rank builds
+# the whole seed-0 tree once, in turn, and keeps its slice.
 PAGED_RANKS_KW = dict(PAGED_KW, kv_decode="gather")
+# jamba's pool and waves (the families path's too): 11 pages of 16
+# positions, four lows and one high, so the low that loses its tail page
+# sits out the high request's steps
+JAMBA_PAGES = 11
+FAMILY_WAVE = [(20, 16, 0), (24, 16, 0), (100, 16, 0), (40, 16, 0)]
+FAMILY_HIGH = (100, 8, 5)
+# (name, depth cut, engine kwargs, waves: the lows, then the highs)
+PAGED_RANKS = [("llama2-70b", dict(num_layers=2), PAGED_RANKS_KW,
+                LOW_WAVE + HIGH_WAVE),
+               ("dbrx-132b", dict(num_layers=1), PAGED_RANKS_KW,
+                LOW_WAVE + HIGH_WAVE),
+               ("jamba-v0.1-52b", dict(num_layers=8),
+                dict(PAGED_RANKS_KW, num_pages=JAMBA_PAGES),
+                FAMILY_WAVE + [FAMILY_HIGH])]
 
 
 def serve_waves_tables(engine, specs, gen):
-    """serve_waves, stepping by hand to keep every step's page table."""
+    """serve_waves, stepping by hand to keep every step's page table. On a
+    model with recurrent state (slot-dense leaves) the lower-rid running
+    low loses its tail page as the high wave arrives, as family_waves
+    does, and pauses; for each step a row sat out paused, whether its
+    recurrent-state rows (this process's block of them) came out
+    bit-equal is kept (``engine.frozen``: one bool a paused row a
+    step)."""
     tables = []
+    engine.frozen = []
 
     def step():
+        import torch
+        dense = engine.kv._dense
+        paused = sorted(engine._paused) if dense else []
+        before = {s: {k: v[:, s].clone() for k, v in dense.items()}
+                  for s in paused}
         engine.step()
         tables.append(engine.kv.table.copy())
+        engine.frozen += [all(torch.equal(v[:, s], before[s][k])
+                              for k, v in dense.items())
+                          for s in paused if s in engine._paused]
 
     reqs = [engine.submit(gen(s)) for s in specs[:len(LOW_WAVE)]]
     for _ in range(3):
         step()
     reqs += [engine.submit(gen(s)) for s in specs[len(LOW_WAVE):]]
+    if engine.kv._dense:
+        running = engine.scheduler.running
+        engine.partial_preempt(min(running, key=lambda s: running[s].rid), 1)
     while not engine.idle:
         step()
     return reqs, engine.run(max_steps=10_000), tables
@@ -2248,6 +2301,7 @@ def paged_run_record(torch, eng, td, specs, gen, device) -> dict:
                 p50=stats.p50_latency_s, preemptions=stats.preemptions,
                 seal_events=ch.seal_events, restore_events=ch.restore_events,
                 frames=ch.messages_out, steps=ch.collective_steps,
+                frozen=list(eng.frozen),
                 per_step=ch.collective_bytes // steps,
                 coll_ms=ch.collective_s / steps * 1e3,
                 describe=eng.plan.describe())
@@ -2290,13 +2344,16 @@ def paged_rank_worker(rank, world, init_file, device, runs, smoke, out_dir):
                                      priority=prio)
 
         result = {}
-        for name, cut, specs, fps in runs:
+        for name, cut, kw, specs, fps in runs:
             model = build_model(paged_ranks_config(name, cut, smoke),
                                 device=device)
             plan = ShardedPlan(model, tp=world)
             weights = None
+            build_peak = held = 0
             for turn in range(world):
                 if turn == rank:
+                    if device == "cuda":
+                        torch.cuda.reset_peak_memory_stats()
                     params = model.init_params(seed=0)
                     got = {n: fingerprint(torch, t)
                            for n, t in tree_leaves_with_names(params)}
@@ -2307,6 +2364,8 @@ def paged_rank_worker(rank, world, init_file, device, runs, smoke, out_dir):
                     gc.collect()
                     if device == "cuda":
                         torch.cuda.empty_cache()
+                        build_peak = torch.cuda.max_memory_allocated()
+                        held = torch.cuda.memory_allocated()
                 dist.barrier()
             own.clear()
             C.reset_launches()
@@ -2314,12 +2373,13 @@ def paged_rank_worker(rank, world, init_file, device, runs, smoke, out_dir):
                 torch.cuda.reset_peak_memory_stats()
             td = TrustDomain("tdx", device=device, **tp_keys())
             eng = Engine(model, weights, plan=plan, trust_domain=td,
-                         device=device, **PAGED_RANKS_KW)
+                         device=device, **kw)
             del weights
             result[name] = paged_run_record(torch, eng, td, specs, gen,
                                             device)
             result[name].update(
-                own=list(own), launches=C.launches,
+                own=list(own), launches=C.launches, build_peak=build_peak,
+                held=held,
                 peak=(torch.cuda.max_memory_allocated()
                       if device == "cuda" else 0))
             del eng, plan, model
@@ -2356,7 +2416,7 @@ def phase_paged_ranks(torch, np, device="cuda", smoke=False) -> dict:
                                  priority=prio)
 
     runs, want = [], {}
-    for name, cut in PAGED_RANKS:
+    for name, cut, kw, waves in PAGED_RANKS:
         cfg = paged_ranks_config(name, cut, smoke)
         model = build_model(cfg, device=device)
         params = model.init_params(seed=0)
@@ -2364,13 +2424,17 @@ def phase_paged_ranks(torch, np, device="cuda", smoke=False) -> dict:
                for n, t in tree_leaves_with_names(params)}
         rng = np.random.default_rng(17)
         specs = [(rng.integers(1, cfg.vocab_size, n).astype(np.int32), mnt,
-                  prio) for n, mnt, prio in LOW_WAVE + HIGH_WAVE]
+                  prio) for n, mnt, prio in waves]
         # ---- the logical tp=2 run: every kernel count starts at 0 here --
         reset_counts(C, P, Q, FA)
         td = TrustDomain("tdx", device=device, **tp_keys())
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         eng = Engine(model, params, trust_domain=td, mesh=TP_MESH,
-                     device=device, **PAGED_RANKS_KW)
+                     device=device, **kw)
         rec = paged_run_record(torch, eng, td, specs, gen, device)
+        rec["peak"] = (torch.cuda.max_memory_allocated()
+                       if device == "cuda" else 0)
         rec["launches"] = path_launches()
         # ---- end of the logical run ---------------------------------------
         check(rec["finished"] and rec["preemptions"] > 0,
@@ -2379,8 +2443,12 @@ def phase_paged_ranks(torch, np, device="cuda", smoke=False) -> dict:
         check(sum(rec["launches"].values())
               == rec["launches"]["chacha20_xor_blocked"],
               f"paged ranks, {name} logical tp=2: no kernel but B1 ran")
+        check(all(rec["frozen"]) and (bool(rec["frozen"])
+                                       or not eng.kv._dense),
+              f"paged ranks, {name} logical tp=2: a row paused, and every "
+              f"paused row's recurrent state stayed frozen")
         want[name] = rec
-        runs.append((name, cut, specs, fps))
+        runs.append((name, cut, kw, specs, fps))
         del eng, params, model
         gc.collect()
         if device == "cuda":
@@ -2395,7 +2463,7 @@ def phase_paged_ranks(torch, np, device="cuda", smoke=False) -> dict:
     ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
              for r in range(RANKS)]
     shutil.rmtree(work, ignore_errors=True)
-    for name, _ in PAGED_RANKS:
+    for name, *_ in PAGED_RANKS:
         w = want[name]
         names = {n for s_ in w["seals"] for n in s_}
         for r, got in enumerate(ranks):
@@ -2412,6 +2480,9 @@ def phase_paged_ranks(torch, np, device="cuda", smoke=False) -> dict:
                   f"run's")
             check(g["preemptions"] > 0 and g["restore_events"] > 0,
                   f"paged ranks, {name}: a preemption and its restore")
+            check(len(g["frozen"]) == len(w["frozen"]) and all(g["frozen"]),
+                  f"paged ranks, {name}: rank {r} kept every paused row's "
+                  f"block of recurrent state frozen")
         sealed_by = [n for got in ranks for n in got[name]["own"]]
         check(len(sealed_by) == len(set(sealed_by))
               and names <= set(sealed_by),
@@ -2424,7 +2495,7 @@ def phase_paged_ranks(torch, np, device="cuda", smoke=False) -> dict:
         check(sum(got[name]["launches"] for got in ranks) > 0,
               f"paged ranks, {name}: B1 ran under the page seals")
     launches = sum(got[name]["launches"] for got in ranks
-                   for name, _ in PAGED_RANKS)
+                   for name, *_ in PAGED_RANKS)
     logical = {k: sum(w["launches"][k] for w in want.values())
                for k in want[PAGED_RANKS[0][0]]["launches"]}
     return dict(ranks=ranks, want=want, wall_s=wall, launches=launches,
@@ -2743,7 +2814,6 @@ def phase_serve(torch, np) -> dict:
 # 11-page pool (2 pages stay with the paused low, the high takes 9), so
 # the paused low sits out decode steps until the high finishes.
 FAMILY_GATHER = dict(PAGED_KW, kv_decode="gather")
-JAMBA_PAGES = 11
 FAMILIES = [
     ("rwkv6-3b", dict(num_layers=4), ENGINE_KW),
     ("chameleon-34b", dict(num_layers=2), PAGED_KW),
@@ -2755,8 +2825,6 @@ FAMILIES = [
     ("jamba-v0.1-52b", dict(num_layers=8),
      dict(FAMILY_GATHER, num_pages=JAMBA_PAGES)),
 ]
-FAMILY_WAVE = [(20, 16, 0), (24, 16, 0), (100, 16, 0), (40, 16, 0)]
-FAMILY_HIGH = (100, 8, 5)
 # whisper-small at full size (12 + 12 layers): no engine (the reference's
 # server refuses the encoder-decoder); Model.prefill over WHISPER_FRAMES
 # frame embeddings and a WHISPER_PROMPT-token prompt, then WHISPER_STEPS
@@ -2847,42 +2915,35 @@ def load_family(torch, model, key: bytes):
                               weight_bytes=n_bytes, n_leaves=len(prints))
 
 
-def family_waves(eng, specs, gen, partial: bool):
-    """FAMILY_WAVE, 3 steps, then FAMILY_HIGH, to the end. With ``partial``
-    the lower-rid low is partially evicted (one tail page) just before
-    the high request's step; its recurrent-state rows must come out of
-    that step, which it sits out while the high request steps, bit for bit
-    as they went in. Returns (requests, stats, rows frozen or None)."""
+def family_waves(eng, specs, gen):
+    """FAMILY_WAVE, 3 steps, then FAMILY_HIGH, to the end. On a paged
+    backend with recurrent state (slot-dense rows beside the pages) the
+    lower-rid low is partially evicted (one tail page) just before the
+    high request's step; its recurrent-state rows must come out of that
+    step, which it sits out while the high request steps, bit for bit as
+    they went in. Returns (requests, stats, rows frozen or None)."""
     import torch
     reqs = [eng.submit(gen(s)) for s in specs[:len(FAMILY_WAVE)]]
     for _ in range(3):
         eng.step()
     frozen = None
     reqs.append(eng.submit(gen(specs[-1])))
-    if partial:
+    dense = getattr(eng.kv, "_dense", None)
+    if dense:
         running = eng.scheduler.running
         slot = min(running, key=lambda s: running[s].rid)
         eng.partial_preempt(slot, 1)
-        dense = eng.kv._dense
-        check(bool(dense), "jamba keeps recurrent-state leaves slot-dense")
         before = {k: v[:, slot].clone() for k, v in dense.items()}
         eng.step()
         check(slot in eng._paused and len(eng.scheduler.running) == 2,
-              "jamba: the partially evicted low sat out the step in which "
-              "the high request stepped")
+              "the partially evicted low sat out the step in which the "
+              "high request stepped")
         frozen = all(torch.equal(v[:, slot], before[k])
                      for k, v in dense.items())
     stats = eng.run(max_steps=10_000)
     return reqs, stats, frozen
 
 
-# the families on a tp=2 mesh of logical shards, each on its one-device
-# run's unsealed weights (no second load or seal): chameleon's GQA 64/8 with
-# qk-norm and dbrx's 16 experts (8 a shard) on paged-gather (a mesh refuses
-# kernel decode), deepseek-v3's MLA heads and 256 experts (128 a shard) on
-# the slot backend
-FAMILY_TP = {"chameleon-34b": FAMILY_GATHER, "dbrx-132b": FAMILY_GATHER,
-             "deepseek-v3-671b": ENGINE_KW}
 # one decode step's logits, tp=2 vs one device, bf16, 1 or 2 layers: each
 # of the 3 or 5 reductions rounds two bf16 partials and their sum where one
 # device rounds one product, about 2 x 2^-9 of the residual's scale each,
@@ -2892,6 +2953,33 @@ FAMILY_TP = {"chameleon-34b": FAMILY_GATHER, "dbrx-132b": FAMILY_GATHER,
 # token whose top-k choice sits on a tie would route elsewhere on one side
 # and move far more)
 FAMILY_TP_LOGITS_REL_TOL = 0.03
+# the families on a tp=2 mesh of logical shards, each on its one-device
+# run's unsealed weights (no second load or seal): chameleon's GQA 64/8 with
+# qk-norm and dbrx's 16 experts (8 a shard) on paged-gather (a mesh refuses
+# kernel decode), deepseek-v3's MLA heads and 256 experts (128 a shard) on
+# the slot backend; jamba's group of 8 (4,096 of 8,192 Mamba channels and 8
+# of 16 experts a shard) on paged-gather with its 11-page pool and the
+# paused row's freeze; rwkv6's 4 layers (20 of 40 heads a shard) on the
+# slot backend, as the reference serves it. Each: the engine's kwargs and
+# the limit on one decode step's logits, tp=2 vs one device, relative to
+# max |logit|; None holds them by tp_f32_witness instead (jamba's 8 bf16
+# layers: each bf16 run drifts about 2.5 % from exact, so the two bf16
+# runs part by up to the sum, and a fixed limit would only restate it)
+FAMILY_TP = {"chameleon-34b": (FAMILY_GATHER, FAMILY_TP_LOGITS_REL_TOL),
+             "dbrx-132b": (FAMILY_GATHER, FAMILY_TP_LOGITS_REL_TOL),
+             "deepseek-v3-671b": (ENGINE_KW, FAMILY_TP_LOGITS_REL_TOL),
+             "jamba-v0.1-52b": (dict(FAMILY_GATHER, num_pages=JAMBA_PAGES),
+                                None),
+             "rwkv6-3b": (ENGINE_KW, FAMILY_TP_LOGITS_REL_TOL)}
+# tp_f32_witness, on the served weights upcast to f32 after the bf16 runs:
+# f32 tp=2 logits within TP_F32_TOL x max |logit| of f32 one device's with
+# the same argmax (the tp=2 compute is the one-device compute up to f32
+# rounding), and the bf16 tp=2 logits no further from the f32 one device's
+# than TP_BF16_RATIO x the bf16 one device's are: tp=2's extra roundings
+# (two bf16 partials and their sum where one device rounds one product)
+# may at most double the error bf16 makes on one device
+TP_F32_TOL = 1e-4
+TP_BF16_RATIO = 2.0
 
 
 def family_tp(torch, np, name, model, params, specs, gen, one, key) -> dict:
@@ -2900,7 +2988,8 @@ def family_tp(torch, np, name, model, params, specs, gen, one, key) -> dict:
     before; each request equal to its solo run on the tp=2 engine (a MoE
     family: a rerun on a fresh tp=2 engine, as its one-device check), the
     collective bytes a step equal to tp_step_bytes, one decode step's
-    logits within FAMILY_TP_LOGITS_REL_TOL of one device's."""
+    logits within FAMILY_TP's limit of one device's (or, without one,
+    kept for tp_f32_witness)."""
     from repro_torch.core import SealingKey, TrustDomain
     from repro_torch.kernels import chacha20 as C
     from repro_torch.kernels import flash_attention as FA
@@ -2908,7 +2997,7 @@ def family_tp(torch, np, name, model, params, specs, gen, one, key) -> dict:
     from repro_torch.kernels import qmatmul as Q
     from repro_torch.runtime import Engine
 
-    cfg, kw = model.cfg, FAMILY_TP[name]
+    cfg, (kw, tol) = model.cfg, FAMILY_TP[name]
     expect_b = tp_step_bytes(cfg, kw["max_slots"], 2)
 
     def tp_engine():
@@ -2924,7 +3013,7 @@ def family_tp(torch, np, name, model, params, specs, gen, one, key) -> dict:
     reset_counts(C, P, Q, FA)
     eng = tp_engine()
     t0 = time.perf_counter()
-    reqs, stats, _ = family_waves(eng, specs, gen, False)
+    reqs, stats, frozen = family_waves(eng, specs, gen)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = path_launches()
@@ -2933,6 +3022,9 @@ def family_tp(torch, np, name, model, params, specs, gen, one, key) -> dict:
     check(eng.plan.tp == 2, f"{name} tp: the engine spans a tp=2 plan")
     check(all(r.finished for r in reqs) and stats.preemptions > 0,
           f"{name} tp: every request finished, after a preemption")
+    if frozen is not None:
+        check(frozen, f"{name} tp: the paused row's recurrent-state rows "
+                      f"are bit-equal before and after the step it sat out")
     check(launches["chacha20_xor_blocked"] > 0
           and sum(launches.values()) == launches["chacha20_xor_blocked"],
           f"{name} tp: B1 ran under the seals, and no other kernel "
@@ -2948,7 +3040,7 @@ def family_tp(torch, np, name, model, params, specs, gen, one, key) -> dict:
     coll_ms = ch.collective_s / max(steps, 1) * 1e3
     if model.rows_coupled:
         del eng
-        rerun, _, _ = family_waves(tp_engine(), specs, gen, False)
+        rerun, _, _ = family_waves(tp_engine(), specs, gen)
         check([list(r.output) for r in rerun] == outputs,
               f"{name} tp: a rerun on a fresh tp=2 engine repeats every "
               f"token")
@@ -2970,12 +3062,14 @@ def family_tp(torch, np, name, model, params, specs, gen, one, key) -> dict:
     got = step_logits(torch, Engine, model, params, TP_MESH, prompts, toks)
     err, scale = float((got - ref).abs().max()), float(ref.abs().max())
     check(bool(torch.isfinite(got).all()), f"{name} tp logits finite")
-    check(err <= FAMILY_TP_LOGITS_REL_TOL * scale,
-          f"{name}: tp=2 logits within {FAMILY_TP_LOGITS_REL_TOL} x max "
-          f"|logit| of one device's ({err:.4g} vs max {scale:.4g})")
+    if tol is not None:
+        check(err <= tol * scale,
+              f"{name}: tp=2 logits within {tol} x max |logit| of one "
+              f"device's ({err:.4g} vs max {scale:.4g})")
     return dict(stats=stats, one=one, wall_s=wall_s, launches=launches,
                 peak=peak, steps=steps, per_step=per_step, expect_b=expect_b,
-                coll_ms=coll_ms, same=same, err=err, scale=scale,
+                coll_ms=coll_ms, same=same, err=err, scale=scale, tol=tol,
+                frozen=frozen, logits=(prompts, toks, ref, got),
                 argmax=bool(torch.equal(got.argmax(-1), ref.argmax(-1))),
                 backend=kw["kv_backend"] + ("-gather" if kw["kv_backend"]
                                             == "paged" else ""),
@@ -3008,7 +3102,6 @@ def phase_family(torch, np, name, cut, kw) -> dict:
         return GenerationRequest(prompt=prompt.copy(), max_new_tokens=mnt,
                                  priority=prio)
 
-    partial = name == "jamba-v0.1-52b"
     key = f"chip-family-{name}".encode()
     # ---- the family's path: every kernel count starts at 0 here ----------
     gc.collect()
@@ -3017,7 +3110,7 @@ def phase_family(torch, np, name, cut, kw) -> dict:
     td, params, load = load_family(torch, model, key)
     eng = Engine(model, params, trust_domain=td, **kw)
     t0 = time.perf_counter()
-    reqs, stats, frozen = family_waves(eng, specs, gen, partial)
+    reqs, stats, frozen = family_waves(eng, specs, gen)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = path_launches()
@@ -3042,16 +3135,16 @@ def phase_family(torch, np, name, cut, kw) -> dict:
         check(len(out) == spec[1] and all(0 <= t < cfg.vocab_size
                                           for t in out),
               f"{name}: request produced {spec[1]} tokens in the vocabulary")
-    if partial:
-        check(frozen, "jamba: the paused row's recurrent-state rows are "
-                      "bit-equal before and after the step it sat out")
+    if frozen is not None:
+        check(frozen, f"{name}: the paused row's recurrent-state rows are "
+                      f"bit-equal before and after the step it sat out")
     if model.rows_coupled:
         # MoE capacity couples a row's tokens to its batch-mates (in the
         # reference too): a rerun on a fresh engine must repeat them
         again = Engine(model, params, **kw, trust_domain=TrustDomain(
             "tdx", sealing_key=SealingKey.generate(key),
             io_key=SealingKey.generate(key + b"-io")))
-        rerun, _, _ = family_waves(again, specs, gen, partial)
+        rerun, _, _ = family_waves(again, specs, gen)
         check([list(r.output) for r in rerun] == outputs,
               f"{name}: a rerun on a fresh engine repeats every token")
         del again
@@ -3088,7 +3181,15 @@ def phase_family(torch, np, name, cut, kw) -> dict:
                decode_s=decode_s, prefill_s=prefill_s,
                fused=getattr(eng.kv, "fused_restore_pages", 0), tp=tp,
                **load)
-    del eng, params, model, cache
+    del eng, cache, logits, step
+    if tp is not None:
+        bf16 = tp.pop("logits")
+        if tp["tol"] is None:
+            t0 = time.perf_counter()
+            tp["witness"] = tp_f32_witness(torch, model, params, *bf16)
+            tp["witness"]["s"] = time.perf_counter() - t0
+        del bf16
+    del params, model
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3160,6 +3261,58 @@ def phase_whisper(torch, np) -> dict:
     return out
 
 
+def upcast_in_place(tree) -> None:
+    """Every floating leaf of a tree of dicts to f32, one leaf at a time in
+    place: each bf16 leaf is freed as its f32 copy is made, so the card
+    never holds both trees."""
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            upcast_in_place(tree[k])
+        elif tree[k].is_floating_point():
+            tree[k] = tree[k].float()
+
+
+def tp_f32_witness(torch, model, params, prompts, toks, one16,
+                   tp16) -> dict:
+    """The f32 witness of a family's tp=2 compute at the served width, on
+    the served weights: ``params`` (the caller's only copy) upcast to f32
+    in place, then one decode step's logits after ``prompts`` on one
+    device and on tp=2 logical shards. The f32 tp=2 logits must be within
+    TP_F32_TOL x max |logit| of the f32 one device's with the same argmax,
+    and the bf16 tp=2 logits ``tp16`` no further from the f32 one device's
+    than TP_BF16_RATIO x the bf16 one device's ``one16`` are."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Engine
+
+    name = model.cfg.name
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    upcast_in_place(params)
+    model = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    ref = step_logits(torch, Engine, model, params, None, prompts, toks)
+    f32 = step_logits(torch, Engine, model, params, TP_MESH, prompts, toks)
+    scale = float(ref.abs().max())
+
+    def rel(a):
+        return float((a.float() - ref).abs().max()) / scale
+    out = dict(f32=rel(f32), one16=rel(one16), tp16=rel(tp16),
+               argmax=bool(torch.equal(f32.argmax(-1), ref.argmax(-1))),
+               peak=torch.cuda.max_memory_allocated())
+    check(ref.dtype == f32.dtype == torch.float32
+          and bool(torch.isfinite(f32).all()),
+          f"{name}: the witness's logits are f32 and finite")
+    check(out["f32"] <= TP_F32_TOL and out["argmax"],
+          f"{name}: f32 tp=2 logits within {TP_F32_TOL} x max |logit| of "
+          f"f32 one device's ({out['f32']:.3e}), argmax equal")
+    check(out["tp16"] <= TP_BF16_RATIO * out["one16"],
+          f"{name}: bf16 tp=2 logits {out['tp16']:.3e} of max |logit| from "
+          f"f32 one device's, within {TP_BF16_RATIO} x bf16 one device's "
+          f"{out['one16']:.3e}")
+    return out
+
+
 def phase_families(torch, np) -> dict:
     """Every family of FAMILIES, then whisper, one model on the card at a
     time."""
@@ -3205,10 +3358,21 @@ def print_family(r) -> None:
               f"events: sums and copies in device memory, one card, no "
               f"link); one decode step's logits within {t['err']:.4g} of "
               f"max |logit| {t['scale']:.4g} ({t['err'] / t['scale']:.3e}; "
-              f"limit {FAMILY_TP_LOGITS_REL_TOL}), argmax "
+              f"limit {t['tol'] or 'none: the f32 witness'}), argmax "
               f"{'equal' if t['argmax'] else 'differs'}; {t['agree']} of "
-              f"{t['tokens']} tokens as one device's; {t['same']}; peak "
-              f"device memory {t['peak']} B; launches {t['launches']}")
+              f"{t['tokens']} tokens as one device's; {t['same']}; paused "
+              f"row frozen: {t['frozen']}; peak device memory {t['peak']} "
+              f"B; launches {t['launches']}")
+        w = t.get("witness")
+        if w:
+            print(f"    {r['name']}'s f32 witness (the served weights upcast "
+                  f"in place): f32 tp=2 logits {w['f32']:.3e} of max "
+                  f"|logit| from f32 one device's (limit {TP_F32_TOL}), "
+                  f"argmax {'equal' if w['argmax'] else 'differs'}; bf16 "
+                  f"one device {w['one16']:.3e} and bf16 tp=2 "
+                  f"{w['tp16']:.3e} from f32 one device's (ratio "
+                  f"{w['tp16'] / w['one16']:.3f}, limit {TP_BF16_RATIO}); "
+                  f"peak device memory {w['peak']} B; {w['s']:.1f}s")
 
 
 def print_train(r, smi) -> None:
@@ -4293,7 +4457,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     rkp = phase_paged_ranks(torch, np)
     phase_t["paged ranks"] = time.perf_counter() - t_phase
-    print(f"  paged ranks path: {', '.join(f'{n} {c}' for n, c in PAGED_RANKS)}"
+    print(f"  paged ranks path: "
+          f"{', '.join(f'{n} {c}' for n, c, *_ in PAGED_RANKS)}"
           f" at published width on tp=2, kv_backend='paged' with gather "
           f"decode, over {RANKS} gloo processes on the one card: tokens, "
           f"page tables after every step, sealed names and blob bytes equal "
@@ -4502,8 +4667,11 @@ def main() -> int:
     print(f"    ranks path, tp=2: peak device memory of rank 0 "
           f"{rk['ranks'][0]['tp']['peak']} B (its whole seed-0 copy while it "
           f"built its half); B1 launches {rk['launches']} {card}")
-    for arch, _ in PAGED_RANKS:
+    for arch, *_ in PAGED_RANKS:
         w, r0 = rkp["want"][arch], rkp["ranks"][0][arch]
+        build_on_card = [got[arch]["build_peak"] + sum(
+            g[arch]["held"] for g in rkp["ranks"][:i])
+            for i, got in enumerate(rkp["ranks"])]
         print(f"  paged ranks path, {arch} ({r0['describe']}): "
               f"{sum(map(len, r0['tokens']))} tokens in {r0['wall_s']:.2f}s "
               f"wall (logical tp=2 {w['wall_s']:.2f}s); next-token p50 "
@@ -4518,7 +4686,16 @@ def main() -> int:
                 f"launches on the ranks " + ", ".join(
                     f"rank {i} {got[arch]['launches']}"
                     for i, got in enumerate(rkp["ranks"]))
-              + f"; peak device memory of rank 0 {r0['peak']} B {card}")
+              + f"; {len(r0['frozen'])} paused-row steps frozen; peak "
+                f"device memory serving " + ", ".join(
+                    f"rank {i} {got[arch]['peak']} B"
+                    for i, got in enumerate(rkp["ranks"]))
+              + ", building in turn " + ", ".join(
+                  f"rank {i} {got[arch]['build_peak']} B (the card "
+                  f"{on_card} B with the ranks before it holding their "
+                  f"halves)" for i, (got, on_card) in enumerate(zip(
+                      rkp["ranks"], build_on_card)))
+              + f" (logical run {w['peak']} B, freed first) {card}")
     print(f"  sampler vs the decode step: sample() {sp['ms']:.4f} ms device "
           f"/ {sp['host_ms']:.4f} ms with host issue, beside a 2-row "
           f"decode_step of {sv['decode_s'] * 1e3:.2f} ms (host clock)")

@@ -1,7 +1,7 @@
-"""Tensor-parallel compute for the attention families (dense, vlm, and moe
-with attention or MLA) over a mesh's ``model`` axis (the reference has no
-such file: XLA partitions its program by the specs and inserts the
-collectives).
+"""Tensor-parallel compute for the decoder families (dense, vlm, moe with
+attention or MLA, hybrid: jamba's Mamba + attention + MoE, and ssm: rwkv6)
+over a mesh's ``model`` axis (the reference has no such file: XLA
+partitions its program by the specs and inserts the collectives).
 
 Each model shard holds the slices :func:`~repro_torch.distributed.sharding.
 param_specs` gives it over ``model``: query heads ``[s*h/tp, (s+1)*h/tp)``
@@ -9,7 +9,10 @@ of ``wq`` and ``wo``, KV heads ``[s*hk/tp, (s+1)*hk/tp)`` of ``wk``/``wv``
 (contiguous blocks keep GQA's grouping), the matching ``d_ff`` block of
 ``w_gate``/``w_up``/``w_down`` (a dense layer's, or the shared experts'),
 experts ``[s*E/tp, (s+1)*E/tp)`` of a MoE layer, the heads of MLA's
-``w_uq``/``w_uk``/``w_uv``/``wo`` and a vocabulary block of the embedding
+``w_uq``/``w_uk``/``w_uv``/``wo``, Mamba's channels ``[s*di/tp,
+(s+1)*di/tp)`` (of ``w_in`` the block of x's columns and the matching
+block of z's, :func:`shard_leaf`), rwkv6's heads of the time mix and
+``d_ff`` block of the channel mix, and a vocabulary block of the embedding
 table. On logical shards these are views of the placed weights; on a rank
 they are the rank's own tensors. :class:`TensorParallel` walks the
 model's blocks (``transformer._blocks``) and dispatches each ``(mixer,
@@ -43,7 +46,25 @@ its block, gathered along the vocabulary (exact).
     drops are one device's (:func:`~repro_torch.models.moe.moe_ffn_tokens`
     with the shard's expert range); a shard computes the kept pairs whose
     expert it holds plus its ``d_ff`` block of the shared experts.
+  * **mamba** (jamba): each shard's channels, conv and scan included;
+    ``xi @ w_bcdt`` contracts over the channels, so the shards' f32
+    partials are reduced (and cast once) before B, C and dt split off
+    (:func:`~repro_torch.models.ssm.mamba_shards`); ``w_out``'s rows give
+    the partial the mixer's reduction sums.
+  * **rwkv** (time mix): each shard's heads and its heads of the
+    replicated ``bonus``; ``ln_out`` normalises over all of ``d``, so the
+    heads' outputs are gathered over ``model`` and the one-device
+    layernorm runs on the whole row; each shard gates its block and
+    applies its ``w_o`` rows (:func:`~repro_torch.models.ssm.
+    rwkv6_time_mix_shards`). Its norms are layernorms, and ``ln0`` follows
+    the embedding (replicated: it moves nothing).
+  * **cmix** (rwkv6's channel mix): ``vv`` is a ``d_ff`` partial, reduced;
+    the receptance is a ``d`` block, gathered in f32; their product is
+    whole on every shard (no reduction after it).
 
+The recurrent state follows :func:`~repro_torch.distributed.sharding.
+cache_specs`: a shard's channels of Mamba's ``conv`` and ``ssm``, its heads
+of ``wkv``; rwkv6's ``tmix_x``/``cmix_x`` rows are whole and written once.
 The KV cache follows :func:`~repro_torch.distributed.sharding.cache_specs`
 for attention. When the KV heads divide the axis, shard ``s`` holds KV
 heads ``s`` of the cache. Otherwise (sequence parallelism) every shard
@@ -73,20 +94,23 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.models import layers, moe
-from repro_torch.models.transformer import _layer, _moe_cfg
+from repro_torch.distributed import sharding
+from repro_torch.models import layers, moe, ssm
+from repro_torch.models.transformer import (_layer, _mamba_cfg, _moe_cfg,
+                                            _rwkv_cfg, _store)
 
 Params = Any
 
+
 def refuse_family(cfg) -> None:
-    """Tensor-parallel compute covers the attention families: dense, vlm
-    and moe (attention or MLA)."""
-    if cfg.family in ("ssm", "hybrid", "encdec") or cfg.embedding_inputs:
+    """Tensor-parallel compute covers the decoder families: dense, vlm, moe
+    (attention or MLA), hybrid and ssm."""
+    if cfg.family == "encdec" or cfg.embedding_inputs:
         raise NotImplementedError(
             f"tensor-parallel compute (or a mesh over ranks) for the "
             f"{cfg.family} family ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md queue A item 21 part 3b); the dense, vlm and moe "
-            f"families only")
+            f"(ROADMAP.md queue A item 21 part 3c); the dense, vlm, moe, "
+            f"hybrid and ssm families only")
 
 
 def model_dim(spec) -> int:
@@ -97,25 +121,42 @@ def model_dim(spec) -> int:
     return -1
 
 
-def shard_views(params: Params, specs: Params, tp: int, shard: int) -> Params:
-    """Shard ``shard``'s slice of every leaf over ``model``: views, no
-    copies."""
-    if isinstance(params, dict):
-        return {k: shard_views(v, specs[k], tp, shard)
-                for k, v in params.items()}
-    dim = model_dim(specs)
+def shard_leaf(leaf: torch.Tensor, spec, names, tp: int,
+               shard: int) -> torch.Tensor:
+    """Shard ``shard``'s block over ``model`` of the leaf at key path
+    ``names``, a view: its ``spec`` block, except that of Mamba's ``w_in``
+    ``[..., d, 2 * di]`` (x's columns, then z's) it is the shard's block
+    of x's columns and the matching block of z's, as ``[..., d, 2, di /
+    tp]`` (a contiguous column block would give shard 0 all of x and shard
+    1 all of z). A rank keeps that block flat, x's columns then z's, so
+    ``tp=1, shard=0`` views a rank's own ``w_in`` so too."""
+    dim = model_dim(spec)
     if dim < 0:
-        return params
-    n = params.shape[dim] // tp
-    return params.narrow(dim, shard * n, n)
+        return leaf
+    if tuple(names[-2:]) == ("mamba", "w_in"):
+        leaf, dim = leaf.unflatten(-1, (2, -1)), leaf.dim()
+    n = leaf.shape[dim] // tp
+    return leaf.narrow(dim, shard * n, n)
+
+
+def shard_views(params: Params, specs: Params, tp: int, shard: int,
+                names=()) -> Params:
+    """Shard ``shard``'s slice of every leaf over ``model``
+    (:func:`shard_leaf`): views, no copies."""
+    if isinstance(params, dict):
+        return {k: shard_views(v, specs[k], tp, shard, names + (k,))
+                for k, v in params.items()}
+    return shard_leaf(params, specs, names, tp, shard)
 
 
 class TensorParallel:
-    """The attention families' decode step and prefill over a mesh's
+    """The decoder families' decode step and prefill over a mesh's
     ``model`` (and ``data``) groups; see the module docstring.
-    ``local_cache`` says whether the cache handed in holds this process's
+    ``local_cache`` says whether the KV handed in holds this process's
     shard only (a rank) or every shard (logical shards: each takes its
-    views; or a rank's whole paged pool under sequence parallelism)."""
+    views; or a rank's whole paged pool under sequence parallelism). The
+    recurrent-state leaves hold every shard's channels or heads on logical
+    shards and a rank's own on a rank, whatever the backend."""
 
     def __init__(self, model, mesh, local_cache: bool):
         cfg = model.cfg
@@ -129,14 +170,20 @@ class TensorParallel:
                       for j in range(n) for i, (m, f) in enumerate(slots)]
         kinds = {m for *_, m, _ in self.slots} | {f for *_, f in self.slots}
         h, hk = cfg.num_heads, cfg.num_kv_heads
-        need = {"query heads": h}
-        if "swiglu" in kinds:
+        need = {}
+        if kinds & {"attn", "mla"}:
+            need["query heads"] = h
+        if "swiglu" in kinds or "cmix" in kinds:
             need["d_ff"] = cfg.d_ff
         if "moe" in kinds:
             need["experts"] = cfg.moe.num_experts
             if cfg.moe.num_shared_experts:
                 need["shared experts' d_ff"] = (cfg.moe.d_ff_expert
                                                 * cfg.moe.num_shared_experts)
+        if "mamba" in kinds:
+            need["Mamba's d_inner"] = _mamba_cfg(cfg).d_inner
+        if "rwkv" in kinds:
+            need["rwkv heads"] = _rwkv_cfg(cfg).num_heads
         bad = {k: v for k, v in need.items() if v % self.tp}
         if bad:
             raise ValueError(
@@ -151,46 +198,77 @@ class TensorParallel:
         self.mcfg = _moe_cfg(cfg) if "moe" in kinds else None
         self.vocab_split = cfg.vocab_size % self.tp == 0
         self.local_cache = local_cache
+        self.mesh, self.ranks = mesh, mesh.spans_ranks
+        self._dims: Dict[tuple, Dict[str, int]] = {}
 
     # -- params ----------------------------------------------------------------
     def layer_params(self, shards: List[Params]) -> List[Dict[str, Any]]:
         """Per local model shard: its embedding, final norm and per-layer
         dicts in :attr:`slots` order (views into ``shards``, stable across
-        steps since the plan refills gathered weights in place)."""
+        steps since the plan refills gathered weights in place) and
+        rwkv6's ``ln0``."""
         return [{"embedding": tree["embedding"]["table"],
                  "final_norm": tree["final_norm"],
+                 "ln0": tree.get("ln0"),
                  "layers": [_layer(tree[name], j)[slot]
                             for name, j, slot, _, _ in self.slots]}
                 for tree in shards]
 
     # -- cache views ------------------------------------------------------------
+    def _cache_dims(self, cl: Params) -> Dict[str, int]:
+        """The dim of each of a layer's cache views ``[b, ...]`` that
+        ``cache_specs`` shards over ``model`` past the batch (-1: none),
+        except MLA's latent, whole on every shard."""
+        dims = self._dims.get(tuple(cl))
+        if dims is None:
+            specs = sharding.cache_specs(
+                self.cfg, {k: v[None] for k, v in cl.items()}, self.mesh)
+            dims = {k: -1 if k in ("ckv", "krope") or model_dim(s[2:]) < 0
+                    else model_dim(s[2:]) + 1 for k, s in specs.items()}
+            self._dims[tuple(cl)] = dims
+        return dims
+
     def _cache_shard(self, cl: Params, shard: int) -> Params:
-        """Shard ``shard``'s part of a layer's ``[b, max_len, hk, hd]``
-        cache views: its KV heads, or under sequence parallelism its block
-        of positions. MLA's latent is whole on every shard."""
-        if self.local_cache or self.tp == 1 or "k" not in cl:
+        """Shard ``shard``'s part of a layer's cache views, by
+        :meth:`_cache_dims`: of the ``[b, max_len, hk, hd]`` KV its heads,
+        or under sequence parallelism its block of positions (unless the
+        cache is local); of the recurrent state its channels or heads
+        (unless on a rank, which holds only its own). rwkv6's
+        ``tmix_x``/``cmix_x`` are whole on every shard."""
+        if self.tp == 1:
             return cl
-        dim = 1 if self.sp else 2
-        n = cl["k"].shape[dim] // self.tp
-        return {k: v.narrow(dim, shard * n, n) for k, v in cl.items()}
+        out = dict(cl)
+        for k, dim in self._cache_dims(cl).items():
+            local = self.local_cache if k in ("k", "v") else self.ranks
+            if dim >= 0 and not local:
+                n = cl[k].shape[dim] // self.tp
+                out[k] = cl[k].narrow(dim, shard * n, n)
+        return out
 
     # -- embedding / unembedding ------------------------------------------------
     def _embed(self, lps, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding (a masked lookup in each shard's vocabulary
+        block, reduced), then rwkv6's replicated ``ln0``."""
         if not self.vocab_split or self.tp == 1:
-            return layers.embed({"table": lps[0]["embedding"]}, tokens)
-        parts = []
-        for lp, s in zip(lps, self.mg.local):
-            table = lp["embedding"]
-            n = table.shape[0]
-            idx = tokens.long() - s * n
-            inside = (idx >= 0) & (idx < n)
-            rows = table[idx.clamp(0, n - 1)]
-            parts.append(torch.where(inside[..., None], rows,
-                                     rows.new_zeros(())))
-        return self.mg.all_reduce(parts)
+            x = layers.embed({"table": lps[0]["embedding"]}, tokens)
+        else:
+            parts = []
+            for lp, s in zip(lps, self.mg.local):
+                table = lp["embedding"]
+                n = table.shape[0]
+                idx = tokens.long() - s * n
+                inside = (idx >= 0) & (idx < n)
+                rows = table[idx.clamp(0, n - 1)]
+                parts.append(torch.where(inside[..., None], rows,
+                                         rows.new_zeros(())))
+            x = self.mg.all_reduce(parts)
+        if self.cfg.family == "ssm":
+            x = layers.layernorm(lps[0]["ln0"], x, self.cfg.norm_eps)
+        return x
 
     def _unembed(self, lps, x: torch.Tensor) -> torch.Tensor:
-        x = layers.rmsnorm(lps[0]["final_norm"], x, self.cfg.norm_eps)
+        norm = layers.layernorm if self.cfg.family == "ssm" else layers.rmsnorm
+        x = norm(lps[0]["final_norm"], x, self.cfg.norm_eps)
         if not self.vocab_split or self.tp == 1:
             return layers.unembed({"table": lps[0]["embedding"]}, x)
         return self.mg.all_gather(
@@ -202,11 +280,42 @@ class TensorParallel:
         """A layer's mixer half, reduced over ``model``."""
         if mixer == "attn" and self.sp:
             return self._attend_sp(lps, li, h, positions, mode, cl)
+        if mixer == "mamba":
+            return self._mamba(lps, li, h, mode, cl)
+        if mixer == "rwkv":
+            return self._time_mix(lps, li, h, cl)
         acfg = self.acfg if mixer == "attn" else None
         parts = [self.impl.mixer(mixer, lp["layers"][li], h, positions,
                                  mode, self._cache_shard(cl, s), acfg=acfg)
                  for lp, s in zip(lps, self.mg.local)]
         return self.mg.all_reduce(parts)
+
+    def _mamba(self, lps, li, h, mode, cl) -> torch.Tensor:
+        """Mamba over the shards' channels: the ``bcdt`` partials reduced
+        in f32 inside, each shard's new state written into its views, the
+        ``w_out`` partials reduced."""
+        views = [self._cache_shard(cl, s) for s in self.mg.local]
+        outs, states = ssm.mamba_shards(
+            [lp["layers"][li]["mamba"] for lp in lps], _mamba_cfg(self.cfg),
+            h, views, mode, self.mg.all_reduce)
+        for view, st in zip(views, states):
+            _store(view, st)
+        return self.mg.all_reduce(outs)
+
+    def _time_mix(self, lps, li, h, cl) -> torch.Tensor:
+        """rwkv6's time mix over the shards' heads (prefill and decode both
+        continue the cached segment): the heads' outputs gathered for
+        ``ln_out``, the ``w_o`` partials reduced; ``tmix_x`` written
+        once."""
+        views = [self._cache_shard(cl, s) for s in self.mg.local]
+        outs, x_last, states = ssm.rwkv6_time_mix_shards(
+            [lp["layers"][li]["tmix"] for lp in lps], _rwkv_cfg(self.cfg),
+            self.mg.local, h, cl["tmix_x"], [v["wkv"] for v in views],
+            lambda parts: self.mg.all_gather(parts, dim=-1))
+        for view, st in zip(views, states):
+            view["wkv"].copy_(st)
+        cl["tmix_x"].copy_(x_last)
+        return self.mg.all_reduce(outs)
 
     def _attend_sp(self, lps, li, h, positions, mode, cl) -> torch.Tensor:
         qkv = [layers._qkv(lp["layers"][li]["attn"], self.acfg, h, positions)
@@ -291,10 +400,18 @@ class TensorParallel:
         return out.reshape(b, 1, hk * group, hd).to(q.dtype)
 
     # -- FFNs ----------------------------------------------------------------------
-    def _ffn(self, lps, li, ffn, h) -> torch.Tensor:
+    def _ffn(self, lps, li, ffn, h, cl) -> torch.Tensor:
         """A layer's FFN half, reduced over ``model``: the shards' ``d_ff``
         blocks, or their expert ranges of a MoE routed over all of ``h``'s
-        tokens."""
+        tokens; rwkv6's channel mix reduces and gathers inside and is whole
+        (``cmix_x`` written once)."""
+        if ffn == "cmix":
+            out, x_last = ssm.rwkv6_channel_mix_shards(
+                [lp["layers"][li]["cmix"] for lp in lps], h, cl["cmix_x"],
+                self.mg.all_reduce,
+                lambda parts: self.mg.all_gather(parts, dim=-1))
+            cl["cmix_x"].copy_(x_last)
+            return out
         if ffn == "swiglu":
             parts = [self.impl.ffn("swiglu", lp["layers"][li], h, "decode",
                                    None)[0] for lp in lps]
@@ -317,23 +434,25 @@ class TensorParallel:
         xs = list(xs)
         for li, (name, j, slot, mixer, ffn) in enumerate(self.slots):
             lp0 = lps[0]["layers"][li]
+            norm = layers.layernorm if mixer == "rwkv" else layers.rmsnorm
+            cls = [_layer(c[name], j)[slot] for c in caches]
             for i, x in enumerate(xs):
                 self._count(i)
-                cl = _layer(caches[i][name], j)[slot]
-                h = layers.rmsnorm(lp0["pre_norm"], x, eps)
+                h = norm(lp0["pre_norm"], x, eps)
                 xs[i] = x + self._mix(lps, li, mixer, h, positions[i], mode,
-                                      cl)
-            hs = [layers.rmsnorm(lp0["post_norm"], x, eps) for x in xs]
+                                      cls[i])
+            hs = [norm(lp0["post_norm"], x, eps) for x in xs]
             if ffn == "moe" and split:
                 self._count(0)
-                out = self._ffn(lps, li, ffn, self.dg.all_gather(hs, dim=0))
+                out = self._ffn(lps, li, ffn, self.dg.all_gather(hs, dim=0),
+                                None)
                 rows = hs[0].shape[0]
                 for i, d in enumerate(self.dg.local):
                     xs[i] = xs[i] + out[d * rows:(d + 1) * rows]
                 continue
             for i, h in enumerate(hs):
                 self._count(i)
-                xs[i] = xs[i] + self._ffn(lps, li, ffn, h)
+                xs[i] = xs[i] + self._ffn(lps, li, ffn, h, cls[i])
         self._count(0)
         return xs
 

@@ -14,6 +14,16 @@ axis); the functions take one layer's slice. Mamba's state is
 ``{"conv": [b, d_conv - 1, d_inner], "ssm": [b, d_inner, d_state] f32}``,
 RWKV6's ``tmix_x``/``cmix_x`` ``[b, d]`` and ``wkv`` ``[b, h, hd, hd]``
 f32.
+
+The ``*_shards`` functions are the tensor-parallel forms
+(``distributed/tensor_parallel.py``): they take the local model shards'
+params in a list, run the shards in lockstep and call the collectives they
+are handed where a product contracts over the split dim; their sizes
+come from the shards' params. A Mamba shard holds a block of ``d_inner``
+channels, an RWKV6 shard a block of heads and of the channel mix's
+``d_ff``. Mamba's one-device functions keep their own operations (a shard
+splits ``w_in``'s product and sums ``bcdt`` in f32); RWKV6's one-device
+mixes are the shard forms over one shard.
 """
 
 from __future__ import annotations
@@ -74,11 +84,15 @@ def init_mamba(gen: torch.Generator, cfg: MambaConfig, dtype=torch.bfloat16,
     }
 
 
-def _selective_params(params: Params, cfg: MambaConfig, xi: torch.Tensor):
-    """xi: [b, s, d_inner] (post-conv). Returns dA [b, s, di, ds], dBx and
-    C [b, s, ds], all f32."""
+def _selective_params(params: Params, cfg: MambaConfig, xi: torch.Tensor,
+                      bcdt: Optional[torch.Tensor] = None):
+    """xi: [b, s, d_inner] (post-conv); ``bcdt`` its [b, s, 2 ds + dr]
+    projection by ``w_bcdt``, made here when None (a tensor-parallel shard
+    passes the one reduced over every shard's channels). Returns dA
+    [b, s, di, ds], dBx and C [b, s, ds], all f32."""
     ds = cfg.d_state
-    bcdt = torch.einsum("bsd,de->bse", xi, params["w_bcdt"])
+    if bcdt is None:
+        bcdt = torch.einsum("bsd,de->bse", xi, params["w_bcdt"])
     b_sel, c_sel, dt = bcdt[..., :ds], bcdt[..., ds:2 * ds], bcdt[..., 2 * ds:]
     dt = torch.einsum("bsr,rd->bsd", dt, params["w_dt"]).float()
     dt = F.softplus(dt + params["dt_bias"])                   # [b, s, di]
@@ -134,37 +148,50 @@ def _gate_out(params: Params, y: torch.Tensor, xi: torch.Tensor,
     return torch.einsum("bsd,de->bse", y, params["w_out"])
 
 
-def _mamba_seq(params: Params, cfg: MambaConfig, x: torch.Tensor,
-               conv_state: Optional[torch.Tensor],
-               h0: Optional[torch.Tensor]):
-    """The full-sequence path: (y, new conv state, last ssm state)."""
-    b, s, _ = x.shape
-    di, ds = cfg.d_inner, cfg.d_state
-    xz = torch.einsum("bsd,de->bse", x, params["w_in"])
-    xi, z = xz[..., :di], xz[..., di:]
-    xi, new_conv = _causal_conv(params, cfg, xi, conv_state)
-
+def _pad_chunks(cfg: MambaConfig, xi: torch.Tensor) -> torch.Tensor:
+    """xi [b, s, di] zero-padded along s to whole chunks."""
+    s = xi.shape[1]
     chunk = min(cfg.chunk, s)
-    nchunks = (s + chunk - 1) // chunk
-    pad_to = nchunks * chunk
-    xi_p = F.pad(xi, (0, 0, 0, pad_to - s)) if pad_to != s else xi
-    dA, dBx, c_sel = _selective_params(params, cfg, xi_p)
+    pad_to = (s + chunk - 1) // chunk * chunk
+    return F.pad(xi, (0, 0, 0, pad_to - s)) if pad_to != s else xi
+
+
+def _scan_seq(cfg: MambaConfig, sel, s: int, h0: Optional[torch.Tensor]):
+    """The chunked scan over the selective params ``sel`` (dA, dBx, C of
+    the chunk-padded sequence) from the entry state ``h0`` (zeros when
+    None): (y [b, s, di] f32, last state)."""
+    dA, dBx, c_sel = sel
+    b, pad_to, di, ds = dA.shape
+    chunk = min(cfg.chunk, s)
     if pad_to != s:
         # padded positions are identity steps (dA = 1, dBx = 0), else they
         # would decay the carried state handed to decode
-        valid = (torch.arange(pad_to, device=x.device) < s)[None, :, None,
-                                                            None]
-        dA = torch.where(valid, dA, torch.ones((), device=x.device))
-        dBx = torch.where(valid, dBx, torch.zeros((), device=x.device))
-    h = (torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+        valid = (torch.arange(pad_to, device=dA.device) < s)[None, :, None,
+                                                             None]
+        dA = torch.where(valid, dA, torch.ones((), device=dA.device))
+        dBx = torch.where(valid, dBx, torch.zeros((), device=dA.device))
+    h = (torch.zeros((b, di, ds), dtype=torch.float32, device=dA.device)
          if h0 is None else h0)
     hs = []
-    for c in range(nchunks):
+    for c in range(pad_to // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
         hc, h = _chunk_scan(dA[:, sl], dBx[:, sl], h)
         hs.append(hc)
     hs = torch.cat(hs, dim=1)[:, :s]
-    y = torch.einsum("bsdn,bsn->bsd", hs, c_sel[:, :s])
+    return torch.einsum("bsdn,bsn->bsd", hs, c_sel[:, :s]), h
+
+
+def _mamba_seq(params: Params, cfg: MambaConfig, x: torch.Tensor,
+               conv_state: Optional[torch.Tensor],
+               h0: Optional[torch.Tensor]):
+    """The full-sequence path: (y, new conv state, last ssm state)."""
+    di = cfg.d_inner
+    xz = torch.einsum("bsd,de->bse", x, params["w_in"])
+    xi, z = xz[..., :di], xz[..., di:]
+    xi, new_conv = _causal_conv(params, cfg, xi, conv_state)
+    xi_p = _pad_chunks(cfg, xi)
+    y, h = _scan_seq(cfg, _selective_params(params, cfg, xi_p), x.shape[1],
+                     h0)
     return _gate_out(params, y, xi, z, x.dtype), new_conv, h
 
 
@@ -205,6 +232,44 @@ def mamba_step(params: Params, cfg: MambaConfig, x: torch.Tensor,
     return out, {"conv": conv_state.to(state["conv"].dtype), "ssm": h}
 
 
+def mamba_shards(shards, cfg: MambaConfig, x: torch.Tensor, states,
+                 mode: str, all_reduce):
+    """Mamba over the local model shards in lockstep (prefill from a zero
+    state, or one decode step). ``shards`` holds each shard's layer params:
+    channels ``[s*di/tp, (s+1)*di/tp)`` of every channel-indexed leaf,
+    ``w_in`` as ``[d, 2, di/tp]``: the shard's block of x's columns and
+    the matching block of z's. ``states`` holds
+    each shard's state views. ``xi @ w_bcdt`` contracts over ``d_inner``:
+    each shard's f32 partial goes to ``all_reduce`` (the shards' list ->
+    their sum) and the sum is cast once to the compute dtype, as one
+    device rounds its single product, before B, C and dt are split off.
+    Returns each shard's output partial (its rows of ``w_out``; the caller
+    reduces them) and new state."""
+    seq = mode == "prefill"
+    ins = []
+    for p, st in zip(shards, states):
+        xi = torch.einsum("bsd,de->bse", x, p["w_in"][:, 0])
+        z = torch.einsum("bsd,de->bse", x, p["w_in"][:, 1])
+        xi, conv = _causal_conv(p, cfg, xi, None if seq else st["conv"])
+        ins.append((xi, z, conv, _pad_chunks(cfg, xi) if seq else xi))
+    bcdt = all_reduce([torch.einsum("bsd,de->bse", xs.float(),
+                                    p["w_bcdt"].float())
+                       for p, (_, _, _, xs) in zip(shards, ins)]
+                      ).to(x.dtype)
+    outs, new = [], []
+    for p, st, (xi, z, conv, xs) in zip(shards, states, ins):
+        sel = _selective_params(p, cfg, xs, bcdt)
+        if seq:
+            y, h = _scan_seq(cfg, sel, x.shape[1], None)
+        else:
+            dA, dBx, c_sel = sel
+            h = dA[:, 0] * st["ssm"] + dBx[:, 0]
+            y = torch.einsum("bdn,bn->bd", h, c_sel[:, 0])[:, None]
+        outs.append(_gate_out(p, y, xi, z, x.dtype))
+        new.append({"conv": conv, "ssm": h})
+    return outs, new
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 (Finch): data-dependent decay linear attention
 # ---------------------------------------------------------------------------
@@ -219,6 +284,11 @@ class RWKV6Config:
     @property
     def num_heads(self) -> int:
         return self.d_model // self.head_dim
+
+
+def _one(parts):
+    """The collectives of a single shard: its own part."""
+    return parts[0]
 
 
 def _lora_init(gen, d: int, rank: int, out: int, dtype, device, L: int):
@@ -285,31 +355,63 @@ def _rwkv_inputs(params: Params, x: torch.Tensor, x_prev: torch.Tensor):
     return r, k, v, decay, g
 
 
-def rwkv6_time_mix(params: Params, cfg: RWKV6Config, x: torch.Tensor,
-                   x_prev_last: torch.Tensor, wkv_state: torch.Tensor):
-    """Full-sequence pass, a loop over time. x: [b, s, d]; x_prev_last
-    [b, d] the previous segment's last token; wkv_state [b, h, k, v].
-    Returns (out [b, s, d], new x_last [b, d], new state)."""
-    b, s, d = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+def _time_heads(params: Params, x: torch.Tensor, x_prev_last: torch.Tensor,
+                wkv_state: torch.Tensor, bonus: torch.Tensor):
+    """The token-shift inputs and the loop over time for the heads of
+    ``bonus`` [h, hd]: (out [b, s, h * hd] f32, g, new state)."""
+    b, s, _ = x.shape
+    h, hd = bonus.shape
     x_prev = torch.cat([x_prev_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
     r, k, v, decay, g = _rwkv_inputs(params, x, x_prev)
     rh = r.reshape(b, s, h, hd).float()
     kh = k.reshape(b, s, h, hd).float()
     vh = v.reshape(b, s, h, hd).float()
     dh = decay.reshape(b, s, h, hd)
-    u = params["bonus"][None, :, :, None]                     # [1, h, hd, 1]
+    u = bonus[None, :, :, None]                               # [1, h, hd, 1]
     state = wkv_state
     outs = []
     for t in range(s):
         kv = torch.einsum("bhk,bhv->bhkv", kh[:, t], vh[:, t])
         outs.append(torch.einsum("bhk,bhkv->bhv", rh[:, t], state + u * kv))
         state = dh[:, t][..., None] * state + kv
-    out = torch.stack(outs, dim=1).reshape(b, s, d)
-    out = layers.layernorm(params["ln_out"], out.to(x.dtype))
-    out = (out.float() * g).to(x.dtype)
-    out = torch.einsum("bsd,de->bse", out, params["w_o"])
-    return out, x[:, -1], state
+    return torch.stack(outs, dim=1).reshape(b, s, h * hd), g, state
+
+
+def rwkv6_time_mix_shards(shards, cfg: RWKV6Config, ids, x: torch.Tensor,
+                          x_prev_last: torch.Tensor, states, all_gather):
+    """The time mix over the local model shards in lockstep: shard ``s``
+    of ``ids`` holds heads ``[s*n, (s+1)*n)`` (``n`` from its ``w_r``'s
+    width) of ``w_r``/``w_k``/``w_v``/``w_g``, ``decay_lora.b`` and
+    ``decay_base``, and its rows of ``w_o``; ``bonus`` and ``ln_out`` are
+    whole, and each shard takes its heads of ``bonus``. ``ln_out``
+    normalises over all of ``d``, so the shards' head outputs are
+    gathered along it (``all_gather``: the shards' list -> their
+    concatenation) and the one-device layernorm runs on the whole row;
+    each shard gates its block and applies its ``w_o`` rows. Returns
+    (each shard's output partial, for the caller to reduce; the new
+    x_last; each shard's new state)."""
+    n = shards[0]["w_r"].shape[-1] // cfg.head_dim
+    heads = [_time_heads(p, x, x_prev_last, st,
+                         p["bonus"].narrow(0, s * n, n))
+             for p, s, st in zip(shards, ids, states)]
+    normed = layers.layernorm(shards[0]["ln_out"],
+                              all_gather([o.to(x.dtype) for o, _, _ in heads]))
+    w = n * cfg.head_dim
+    outs = [torch.einsum("bsd,de->bse",
+                         (normed[..., s * w:(s + 1) * w].float() * g
+                          ).to(x.dtype), p["w_o"])
+            for p, s, (_, g, _) in zip(shards, ids, heads)]
+    return outs, x[:, -1], [st for _, _, st in heads]
+
+
+def rwkv6_time_mix(params: Params, cfg: RWKV6Config, x: torch.Tensor,
+                   x_prev_last: torch.Tensor, wkv_state: torch.Tensor):
+    """Full-sequence pass, a loop over time. x: [b, s, d]; x_prev_last
+    [b, d] the previous segment's last token; wkv_state [b, h, k, v].
+    Returns (out [b, s, d], new x_last [b, d], new state)."""
+    outs, x_last, states = rwkv6_time_mix_shards(
+        [params], cfg, [0], x, x_prev_last, [wkv_state], _one)
+    return outs[0], x_last, states[0]
 
 
 def init_rwkv6_channel_mix(gen: torch.Generator, cfg: RWKV6Config,
@@ -325,15 +427,32 @@ def init_rwkv6_channel_mix(gen: torch.Generator, cfg: RWKV6Config,
     }
 
 
-def rwkv6_channel_mix(params: Params, cfg: RWKV6Config, x: torch.Tensor,
-                      x_prev_last: torch.Tensor):
+def rwkv6_channel_mix_shards(shards, x: torch.Tensor,
+                             x_prev_last: torch.Tensor, all_reduce,
+                             all_gather):
+    """The channel mix over the local model shards in lockstep: each shard
+    holds a ``d_ff`` block of ``w_k``'s columns and ``w_v``'s rows (its
+    ``vv`` is a partial, reduced by ``all_reduce``) and a ``d`` block of
+    ``w_r``'s columns (its receptance block, gathered in f32 by
+    ``all_gather`` before ``rr * vv``). Returns (out [b, s, d], whole on
+    every shard; the new x_last)."""
     x_prev = torch.cat([x_prev_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
-    mix = params["mix"]
+    mix = shards[0]["mix"]
     xk = _shift_mix(x, x_prev, mix, 0)
     xr = _shift_mix(x, x_prev, mix, 1)
-    kk = torch.einsum("bsd,df->bsf", xk, params["w_k"])
-    kk = torch.square(F.relu(kk.float())).to(x.dtype)
-    vv = torch.einsum("bsf,fd->bsd", kk, params["w_v"])
-    rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr,
-                                    params["w_r"]).float())
+    parts, rrs = [], []
+    for p in shards:
+        kk = torch.einsum("bsd,df->bsf", xk, p["w_k"])
+        kk = torch.square(F.relu(kk.float())).to(x.dtype)
+        parts.append(torch.einsum("bsf,fd->bsd", kk, p["w_v"]))
+        rrs.append(torch.sigmoid(torch.einsum("bsd,de->bse", xr,
+                                              p["w_r"]).float()))
+    vv = all_reduce(parts)
+    rr = all_gather(rrs)
     return (rr * vv.float()).to(x.dtype), x[:, -1]
+
+
+def rwkv6_channel_mix(params: Params, cfg: RWKV6Config, x: torch.Tensor,
+                      x_prev_last: torch.Tensor):
+    """The channel mix: (out [b, s, d], new x_last [b, d])."""
+    return rwkv6_channel_mix_shards([params], x, x_prev_last, _one, _one)

@@ -217,9 +217,11 @@ class Engine:
         observed (or ``step_time_hint_s``) step time. ``mesh``
         (``"dp=N,tp=M"``) spans the engine over a mesh of logical shards on
         its device, or over the ranks of an initialized process group (see
-        the module docstring); ``tp > 1`` on the hybrid, ssm or encdec
-        family raises ``NotImplementedError``. Equivalently pass a ready plan as
-        ``plan``."""
+        the module docstring); ``tp > 1`` runs every decoder family (dense,
+        vlm, moe, jamba's hybrid and rwkv6's ssm: Mamba channels, rwkv6
+        heads and their recurrent state split over ``model``), and on the
+        encdec family raises ``NotImplementedError``. Equivalently pass a
+        ready plan as ``plan``."""
         if plan is not None and mesh is not None:
             raise ValueError("pass mesh= or plan=, not both")
         self.device = resolve_device(device)

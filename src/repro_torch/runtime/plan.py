@@ -303,10 +303,14 @@ class ShardedPlan(ComputePlan):
         are the single-device engine's (cuBLAS picks its kernel by the row
         count), and a MoE model's expert capacity is reckoned over the
         global batch as the reference's SPMD program reckons it. With
-        ``tp > 1``, or over ranks, the attention families'
+        ``tp > 1``, or over ranks, the decoder families'
         :class:`~repro_torch.distributed.tensor_parallel.TensorParallel`
         compute runs instead: each data shard steps its rows, each model
-        shard its heads, ``d_ff`` block or experts, reduced over ``model``;
+        shard its heads, ``d_ff`` block, experts, Mamba channels or rwkv6
+        heads, reduced over ``model``. A rank's block of Mamba's ``w_in``
+        is its x columns followed by the matching z columns
+        (:meth:`_rank_slice`); every other leaf's is its ``param_specs``
+        block;
       - the **KV cache** follows ``cache_specs`` (:meth:`place_dense_cache`,
         :meth:`kv_dims`): one copy on logical shards, whose model shards
         take views of their heads (or position blocks); on a rank its own
@@ -315,7 +319,12 @@ class ShardedPlan(ComputePlan):
         logical shards; on a rank it is the rank's KV heads of every page,
         or the whole pool where the heads do not divide ``tp`` and for the
         latent, as the reference replicates its pool
-        (:meth:`place_paged_cache`).
+        (:meth:`place_paged_cache`). The recurrent state (Mamba's ``conv``
+        and ``ssm``, rwkv6's ``wkv``) is slot-dense on either backend: on a
+        rank its channels or heads of every row, ``tmix_x``/``cmix_x``
+        whole; a preempted row's state is gathered over ``model`` and
+        sealed once, whole, under the logical run's names
+        (``kvcache.RankSealer``).
 
     Each decode step counts ``collective_bytes_per_step``, the bytes moved
     into one shard: ``(dp - 1) / dp`` of the shard's part of every leaf
@@ -389,16 +398,21 @@ class ShardedPlan(ComputePlan):
         return take_all(self._groups())
 
     # -- placement ----------------------------------------------------------
-    def _rank_slice(self, leaf: torch.Tensor, spec) -> torch.Tensor:
-        """A rank's own block of ``leaf`` over ``model`` (a copy)."""
-        from repro_torch.distributed import sharding
-        from repro_torch.distributed.tensor_parallel import model_dim
+    def _rank_slice(self, leaf: torch.Tensor, spec, names) -> torch.Tensor:
+        """A rank's own block of ``leaf`` (at key path ``names``) over
+        ``model``, a copy in ``leaf``'s rank
+        (:func:`~repro_torch.distributed.tensor_parallel.shard_leaf`: of
+        Mamba's ``w_in`` its block of x's columns, then the matching block
+        of z's)."""
+        from repro_torch.distributed.tensor_parallel import shard_leaf
 
-        dim = model_dim(spec)
-        if dim < 0 or self.tp == 1:
+        if self.tp == 1:
             return leaf
-        only = tuple("model" if i == dim else None for i in range(len(spec)))
-        return sharding.block(leaf, only, self.mesh, self.mesh.coords).clone()
+        block = shard_leaf(leaf, spec, names, self.tp, self.mesh.coords[1])
+        if block is leaf:
+            return leaf
+        return (block.flatten(-2).contiguous() if block.dim() > leaf.dim()
+                else block.clone())
 
     @torch.inference_mode()
     def place_params(self, params: Params) -> ShardedWeights:
@@ -420,12 +434,12 @@ class ShardedPlan(ComputePlan):
         placed: Dict[str, sharding.Placed] = {}
         split: Dict[str, int] = {}
 
-        def place(node, spec, path):
+        def place(node, spec, path, names=()):
             if isinstance(node, dict):
-                return {k: place(v, spec[k], f"{path}[{k!r}]")
+                return {k: place(v, spec[k], f"{path}[{k!r}]", names + (k,))
                         for k, v in node.items()}
             if self.ranks:
-                node = self._rank_slice(node, spec)
+                node = self._rank_slice(node, spec, names)
             if self.dp == 1 or "data" not in spec:
                 return node
             only = tuple(a if a == "data" else None for a in spec)
@@ -446,17 +460,19 @@ class ShardedPlan(ComputePlan):
         self.collective_bytes_per_step = self._gather_bytes
         tpd = self.tensor_parallel
         if tpd is not None:
-            shards = ([weights.full] if self.ranks else
-                      [shard_views(weights.full, specs, self.tp, m)
-                       for m in self.mesh.groups["model"].local])
+            # a rank's tree is its own block already: its one shard
+            shards = ([shard_views(weights.full, specs, 1, 0)] if self.ranks
+                      else [shard_views(weights.full, specs, self.tp, m)
+                            for m in self.mesh.groups["model"].local])
             weights.compute = tpd.layer_params(shards)
         return weights
 
     def kv_dims(self, cache: Cache) -> Dict[str, int]:
         """On a rank: the dim ``cache_specs`` shards over ``model`` for
-        each leaf, except MLA's latent (whole on every model shard) and,
-        when the backend is paged, the sequence dim of sequence-parallel
-        KV (a pool's pages hold any positions, so a rank keeps them all).
+        each leaf (the recurrent state's channels or heads included),
+        except MLA's latent (whole on every model shard) and, when the
+        backend is paged, the sequence dim of sequence-parallel ``k``/``v``
+        (a pool's pages hold any positions, so a rank keeps them all).
         Logical shards hold every leaf whole."""
         if not self.ranks or self.tp == 1:
             return super().kv_dims(cache)
@@ -468,7 +484,8 @@ class ShardedPlan(ComputePlan):
         for path, spec in tree_leaves_with_names(specs):
             dim = model_dim(spec)
             if (path.endswith(("['ckv']", "['krope']"))
-                    or (self._whole_seq and dim == 2)):
+                    or (self._whole_seq and path.endswith(("['k']", "['v']"))
+                        and dim == 2)):
                 dim = -1
             dims[path] = dim
         return dims

@@ -164,7 +164,7 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh,
         raise NotImplementedError(
             f"{model.cfg.family} couples a call's rows (expert capacity, aux "
             f"loss), so its batch does not split over a mesh yet "
-            f"(ROADMAP.md queue A item 21 part 3b)")
+            f"(ROADMAP.md queue A item 21 part 3c)")
     groups = (mesh.groups["data"], mesh.groups["model"], mesh.flat)
 
     def reduce(parts):

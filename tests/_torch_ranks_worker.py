@@ -3,7 +3,8 @@ ranks) and tests/test_torch_gpu.py (ranks sharing the card), and what the
 parent runs on logical shards to compare: the port's engine (one of
 ``RUNS``: smoke deepseek-7b on the slot backend, or on the paged backend
 with prefix sharing, or with one KV head (sequence parallelism), smoke
-dbrx-132b or deepseek-v3-671b paged) through two waves of
+dbrx-132b, deepseek-v3-671b or jamba-v0.1-52b paged, smoke rwkv6-3b on
+the slot backend) through two waves of
 sampled requests, the second preempting, with every seal's names and
 ciphertext and every step's page table recorded; and the ring collective
 matmuls over the mesh's ``model`` group. Imports torch and repro_torch
@@ -23,12 +24,16 @@ RING_SHAPES = dict(x=(64, 32), w=(32, 48), xk=(64, 128), wk=(128, 48))
 PAGED = dict(kv_backend="paged", page_size=8)
 # run name -> (arch, engine overrides, a shared prompt pair in the low
 # wave, config overrides): "sp" has one KV head, which tp=2 does not
-# divide, so each rank keeps the whole pool; "mla" keeps the latent whole
+# divide, so each rank keeps the whole pool; "mla" keeps the latent whole;
+# "jamba" keeps each rank's Mamba channels of every row slot-dense beside
+# its KV heads of every page; "rwkv" each rank's wkv heads of every row
 RUNS = {"slot": ("deepseek-7b", {}, False, {}),
         "paged": ("deepseek-7b", dict(PAGED, prefix_sharing=True), True, {}),
         "dbrx": ("dbrx-132b", PAGED, False, {}),
         "sp": ("deepseek-7b", PAGED, False, dict(num_kv_heads=1)),
-        "mla": ("deepseek-v3-671b", PAGED, False, {})}
+        "mla": ("deepseek-v3-671b", PAGED, False, {}),
+        "jamba": ("jamba-v0.1-52b", PAGED, False, {}),
+        "rwkv": ("rwkv6-3b", {}, False, {})}
 
 
 def specs(shared=False):

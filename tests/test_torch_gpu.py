@@ -978,6 +978,52 @@ def test_paged_ranks_on_card_equal_logical(card, tmp_path):
     assert names <= set(ranks[0]["own"]) and not ranks[1]["own"]
 
 
+def test_tp_jamba_engine_on_card_equals_cpu(card):
+    """A smoke f32 jamba-v0.1-52b engine on tp=2 logical shards on the
+    card (each shard its half of the Mamba channels, KV heads and
+    experts) serves the CPU tp=2 engine's tokens through the sampled waves
+    and a preemption, on the paged backend with gather decode."""
+    cfg = smoke_config("jamba-v0.1-52b")
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(seed=3)
+    kv = dict(kv_backend="paged", page_size=8)
+    got, eng, names = _serve_mesh(card, build_model(cfg, device=card),
+                                  tree_map(lambda t: t.to(card), params),
+                                  "tp=2", **kv)
+    want, _, _ = _serve_mesh(torch.device("cpu"), cpu, params, "tp=2", **kv)
+    assert got == want
+    assert names and all(n.endswith("/s0") for n in names)
+    assert any("['ssm']" in n for n in names)
+    # each shard: 64 of the 128 Mamba channels, w_in as its x and z blocks
+    mamba = [m for *_, m, _ in eng.plan.tensor_parallel.slots].index("mamba")
+    for lp in eng.params.compute:
+        mb = lp["layers"][mamba]["mamba"]
+        assert mb["conv_w"].shape[-1] == 64
+        assert mb["w_in"].shape[-2:] == (2, 64)
+
+
+def test_jamba_paged_ranks_on_card_equal_logical(card, tmp_path):
+    """Two ranks sharing the card serve smoke jamba-v0.1-52b paged at tp=2
+    (each rank its KV heads of every page and its Mamba channels of every
+    row) with a logical tp=2 run's tokens, page tables after every step
+    and blob bytes; rank 0 alone seals, each name once."""
+    import _torch_ranks_worker as W
+
+    want = W.serve("tp=2", "cuda", "jamba")
+    ranks = [got["jamba"] for got in W.spawn(
+        "tp=2", 2, tmp_path, device="cuda", runs=("jamba",))]
+    assert want["seals"] and want["preemptions"] > 0
+    for got in ranks:
+        assert got["tokens"] == want["tokens"]
+        assert got["seals"] == want["seals"]
+        assert len(got["tables"]) == len(want["tables"])
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(got["tables"], want["tables"]))
+    names = {n for s in want["seals"] for n in s}
+    assert len(set(ranks[0]["own"])) == len(ranks[0]["own"])
+    assert names <= set(ranks[0]["own"]) and not ranks[1]["own"]
+
+
 def test_sharded_train_step_on_card_matches_one_device(card):
     """Two sharded steps over a logical dp=2,tp=2 mesh on the card (FSDP
     over data, 2 microbatches) against the one-device step on the card:

@@ -179,15 +179,14 @@ def test_tp1_mesh_is_bit_equal_to_one_device():
         assert torch.equal(t, runs[1][1][n]), n
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b",
-                                  "whisper-small"])
+@pytest.mark.parametrize("arch", ["whisper-small"])
 def test_other_families_refuse_tp(arch):
-    """tp > 1 on the hybrid, ssm and encdec families names ROADMAP item 21
-    part 3b (the attention families are served:
-    tests/test_torch_tp_families.py)."""
+    """tp > 1 on the encdec family names ROADMAP item 21 part 3c (the
+    decoder families are served: tests/test_torch_tp_families.py,
+    tests/test_torch_tp_jamba.py, tests/test_torch_tp_rwkv.py)."""
     model = tbuild(tsmoke(arch), device="cpu")
     side = Side(True, models(2))
-    with pytest.raises(NotImplementedError, match="item 21 part 3b"):
+    with pytest.raises(NotImplementedError, match="item 21 part 3c"):
         side.Engine(model, None, mesh="tp=2", device="cpu")
 
 
