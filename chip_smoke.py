@@ -156,11 +156,22 @@ Phases, each fatal on failure:
      and a FailureInjector kill, restored onto data=1, model=2 by
      restore_checkpoint(shardings=) with every leaf bit-equal to the saved
      one, its next loss within the tolerance of the uninterrupted run's;
-     two gloo ranks on the card training a 1-layer cut, every block and
-     loss equal to a logical dp=2 run's (deterministic algorithms on);
-     GPipe over a LocalGroup(4), one Llama2-7B block a stage, output and
-     gradient against the sequential stages; the launcher with
-     --data-mesh 2 --model-mesh 2 in a subprocess;
+     the tensor-parallel training path: the same cut on model=2 and
+     data=2, model=2 logical shards (each shard's forward and backward on
+     its heads and d_ff block), every loss and each leaf's update against
+     the one-device run, the bytes a step equal to train_step_bytes' with
+     tp, and the 2 x 2 state sealed (B1) and restored onto data=2, model=1
+     bit for bit; two gloo ranks on the card training a 1-layer cut on
+     dp=2 and on tp=2, every block and loss equal to a logical run's
+     (deterministic algorithms on); GPipe over a LocalGroup(4), one
+     Llama2-7B block a stage, output and gradient against the sequential
+     stages; the launcher with --data-mesh 2 --model-mesh 2 in a
+     subprocess; then dbrx at published width (1 of 40 layers, bf16
+     moments) on data=2, model=2 with the batch split over data at
+     capacity factor 1.0 (tokens dropped, each MoE layer routing the
+     global batch) and whisper-small at full size on model=2 (bf16, and an
+     f32 witness), each against one device with its params kept on the
+     host;
   8. int8 weight path: the same model's weights quantized on the card
      (quant.quantize_params), sealed, attested and unsealed bit for bit,
      then ops.qmm (B5) on layer 0's unsealed w_gate, w_up and w_down (and
@@ -3685,8 +3696,27 @@ ELASTIC_MESH = (1, 2)
 SHARD_LOSS_TOL = 1e-4
 SHARD_STEP_TOL = 7e-3
 SHARD_UPDATE_TOL = 0.25
+# the tensor-parallel training path: the same cut, batches and one-device
+# run on model=2 and on data=2, model=2 logical shards, SHARD_STEPS steps
+# each from the sharded path's initial state; the 2 x 2 state sealed and
+# restored onto data=2, model=1. Limits set from the roundings before the
+# first run (PERF.md §6): each half's bf16 partials are summed in bf16, so
+# the forward is not one device's bits even at the first step: a logit
+# moves by about 1 % of max |logit| (the bf16 tp=2 serving paths measured
+# 0.62-0.99 %), which over 16,384 tokens moves the mean loss by about 5e-4
+# (random and unbiased); after an update the bf16 rounding of the updates
+# adds the dp path's 6.9e-4. So every loss is held within the dp path's
+# later-step limit, 7e-3, the first too; each leaf's update within the dp
+# path's 0.25 (its gap 0.026 came from bf16 gradients' sign noise, which
+# the partial sums of the cotangents add to). The resumed step on data=1,
+# model=2 below is tensor-parallel now and held to the same loss limit.
+TP_TRAIN_MESHES = [(1, 2), (2, 2)]
+TP_CKPT_MESH = (2, 1)
+TP_LOSS_TOL = 7e-3
+TP_UPDATE_TOL = SHARD_UPDATE_TOL
 # two gloo ranks on the card: 1 of 32 layers at full width, 4 x 1,024
-# tokens in 2 microbatches (one row a shard), 2 steps
+# tokens in 2 microbatches (one row a shard), 2 steps, on dp=2 and on tp=2
+RANKS_TRAIN_SHAPES = [(2, 1), (1, 2)]
 RANKS_TRAIN_LAYERS = 1
 RANKS_TRAIN_BATCH = 4
 RANKS_TRAIN_MICRO = 2
@@ -3703,22 +3733,31 @@ SHARD_LAUNCHER = ["--arch", "deepseek-7b", "--smoke", "--steps", "4",
                   "--data-mesh", "2", "--model-mesh", "2"]
 
 
-def train_step_bytes(cfg, dp: int) -> int:
-    """What one sharded step's collectives move into a shard on a dp x 1
-    FSDP mesh, written down before the run: the gather of every weight
-    matrix sharded over data (the tied embedding table and each layer's 4
-    attention and 3 FFN matrices; the norms stay whole), (dp - 1) / dp of
-    its bytes (bf16 here); the all-reduce of the f32 gradients of every param,
-    (dp - 1) x 4 B each; and the loss with its two metrics, (dp - 1) x 12
-    B."""
+def train_step_bytes(cfg, dp: int, tp: int = 1, tokens: int = 0) -> int:
+    """What one sharded step's collectives move into a shard on a dp x tp
+    FSDP mesh, written down before the run: the gather over data of every
+    weight matrix sharded over data (the tied embedding table and each
+    layer's 4 attention and 3 FFN matrices; the norms stay whole), (dp - 1)
+    / dp of the shard's model block of it, 1 / tp of the matrix (bf16
+    here); the all-reduce over data of the f32 gradients of the shard's
+    blocks, (dp - 1) x 4 B an element; and the loss with its two metrics,
+    (dp - 1) x 12 B. On tp > 1, per a data shard's ``tokens`` a step (its
+    rows x seq over the microbatches), (tp - 1) x: the embedding's
+    reduction, each layer's two forward reductions, their rerun in remat's
+    recompute and the two all-reduces of the normed rows' cotangents (bf16
+    [tokens, d] each); the final rows' f32 cotangents ([tokens, d]) and the
+    f32 logits' vocabulary gather ([tokens, vocab / tp]); and the norm's
+    partial sums, 4 B for each of the 8 split leaves."""
     d, layers, vocab, ff = cfg.d_model, cfg.num_layers, cfg.vocab_size, \
         cfg.d_ff
     attn = 2 * d * cfg.head_dim_ * (cfg.num_heads + cfg.num_kv_heads)
     matrices = vocab * d + layers * (attn + 3 * d * ff)
-    n_params = matrices + layers * 2 * d + d
+    norms = layers * 2 * d + d
     width = {"bfloat16": 2, "float32": 4}[cfg.dtype]
-    return (matrices * width * (dp - 1) // dp + (dp - 1) * 4 * n_params
-            + (dp - 1) * 12)
+    return (matrices // tp * width * (dp - 1) // dp
+            + (dp - 1) * 4 * (matrices // tp + norms) + (dp - 1) * 12
+            + (tp - 1) * (tokens * d * (width * (1 + 6 * layers) + 4)
+                          + tokens * (vocab // tp) * 4 + 4 * 8))
 
 
 def shard_data(cursor, batch, seq):
@@ -3728,6 +3767,162 @@ def shard_data(cursor, batch, seq):
     for _ in range(cursor):
         next(it)
     return it
+
+
+def timed_steps(torch, step, state, data, n: int):
+    """``n`` steps of ``step`` from ``state`` on batches drawn from
+    ``data``, CUDA events around each: (state, {"losses", "nbytes",
+    "coll_s", "step_ms", "peak"}), the collectives' bytes and seconds (0
+    for a one-device step) and the peak device memory since the first
+    step. A caller that passes its only reference to ``state`` lets each
+    step's old state go once the next exists."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, rec = [], {"losses": [], "nbytes": [], "coll_s": []}
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, next(data))
+        e1.record()
+        events.append((e0, e1))
+        rec["losses"].append(float(m["loss"]))
+        rec["nbytes"].append(m.get("collective_bytes", 0))
+        rec["coll_s"].append(m.get("collective_s", 0.0))
+    torch.cuda.synchronize()
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["step_ms"] = [a.elapsed_time(b) for a, b in events]
+    return state, rec
+
+
+GAP_CHUNK = 1 << 26
+
+
+def update_gaps(torch, placed, after, before) -> dict:
+    """{leaf: |placed - after| / |after - before|} (Frobenius norms), the
+    placed params' update against one device's (``after`` and ``before``,
+    on the card or the host): each leaf gathered whole, the norms summed in
+    f32 a chunk of GAP_CHUNK elements at a time on the card."""
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.distributed import sharding
+    gaps = {}
+    for (n, p), (_, a), (_, b) in zip(tree_leaves_with_names(placed),
+                                      tree_leaves_with_names(after),
+                                      tree_leaves_with_names(before)):
+        got = sharding.gather_leaf(p).reshape(-1)
+        a, b = a.reshape(-1), b.reshape(-1)
+        num = den = 0.0
+        for i in range(0, got.numel(), GAP_CHUNK):
+            g = got[i:i + GAP_CHUNK].float()
+            w = a[i:i + GAP_CHUNK].to(g.device).float()
+            w0 = b[i:i + GAP_CHUNK].to(g.device).float()
+            num += float((g - w).square().sum())
+            den += float((w - w0).square().sum())
+        gaps[n] = (num / max(den, 1e-60)) ** 0.5
+        del got
+    return gaps
+
+
+def tp_llama(torch, np, model, cfg, opt, batch, placed0, params0,
+             params_one, losses_one) -> dict:
+    """The tensor-parallel training path: Llama2-7B's training cut on each
+    of TP_TRAIN_MESHES (logical shards), SHARD_STEPS steps from the sharded
+    path's initial state on its global batches: every loss and each leaf's
+    update against the one-device run's, CUDA events a step, the
+    collective bytes a step against train_step_bytes with tp; then the
+    last mesh's state sealed, restored onto TP_CKPT_MESH and every leaf
+    checked bit-equal to the saved one. Returns {shape: record} and the
+    checkpoint's record under "ckpt"."""
+    from repro_torch.core import TrustDomain
+    from repro_torch.core.sealing import tree_leaves_with_names
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.train_loop import (abstract_train_state,
+                                              make_sharded_train_step)
+
+    def named_for(shape):
+        mesh = make_host_mesh(*shape)
+        sspecs = sharding.state_specs(cfg, abstract_train_state(model, opt),
+                                      mesh)
+        return mesh, sspecs, sharding.to_named(mesh, sspecs)
+
+    out = {}
+    for shape in TP_TRAIN_MESHES:
+        mesh, sspecs, named = named_for(shape)
+        step = make_sharded_train_step(
+            model, opt, mesh, sspecs, sharding.batch_specs(cfg, batch, mesh),
+            microbatches=cfg.parallel.microbatches)
+        state, rec = timed_steps(torch, step, sharding.place(placed0, named),
+                                 shard_data(0, SHARD_BATCH, SHARD_SEQ),
+                                 SHARD_STEPS)
+        gaps = update_gaps(torch, state.params, params_one, params0)
+        rec["worst"] = max(gaps, key=gaps.get)
+        rec["update_gap"] = gaps[rec["worst"]]
+        rec["loss_gaps"] = [abs(a - b) for a, b in zip(rec["losses"],
+                                                       losses_one)]
+        rec["expect_b"] = train_step_bytes(
+            cfg, shape[0], shape[1], SHARD_BATCH * SHARD_SEQ // shape[0])
+        rec["state_bytes"] = sharding.shard_nbytes(state, (0, 0))
+        rec["med_ms"] = float(np.median(rec["step_ms"][1:]))
+        label = f"data={shape[0]}, model={shape[1]}"
+        check(all(np.isfinite(rec["losses"]))
+              and max(rec["loss_gaps"]) <= TP_LOSS_TOL,
+              f"the {label} losses {rec['losses']} are within "
+              f"{TP_LOSS_TOL} of one device's {losses_one}")
+        check(rec["update_gap"] <= TP_UPDATE_TOL,
+              f"every leaf's update over {SHARD_STEPS} steps on {label} is "
+              f"within {TP_UPDATE_TOL} of one device's, relative to its "
+              f"norm (worst {rec['worst']}: {rec['update_gap']:.3g})")
+        check(all(b == rec["expect_b"] for b in rec["nbytes"]),
+              f"{rec['nbytes']} collective B a step on {label} == "
+              f"train_step_bytes' {rec['expect_b']}")
+        out[shape] = rec
+        del step
+        if shape != TP_TRAIN_MESHES[-1]:
+            del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the last mesh's state sealed and restored onto TP_CKPT_MESH
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "tp_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(ckpt_dir, keep_n=1,
+                            trust_domain=TrustDomain("tdx"))
+    saved = {n: fingerprint(torch, sharding.gather_leaf(x))
+             for n, x in tree_leaves_with_names(state)}
+    b1_before = C.launches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mgr.save(SHARD_STEPS, state)
+    save_s = time.perf_counter() - t
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, named_b = named_for(TP_CKPT_MESH)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    at, restored = mgr.resume(abstract_train_state(model, opt),
+                              shardings=named_b)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    b1 = C.launches - b1_before
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(at == SHARD_STEPS and sharding.placement(restored) == named_b,
+          f"the tensor-parallel state restored at step {at} onto "
+          f"data={TP_CKPT_MESH[0]}, model={TP_CKPT_MESH[1]}")
+    for n, x in tree_leaves_with_names(restored):
+        check(fingerprint(torch, sharding.gather_leaf(x)) == saved[n],
+              f"the restored {n} equals the tensor-parallel state's "
+              f"(fingerprint)")
+    check(b1 > 0, "the tensor-parallel checkpoint launched the ChaCha20 "
+          "kernel")
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ckpt"] = dict(save_s=save_s, resume_s=resume_s, b1=b1)
+    return out
 
 
 def block_prints(torch, tree, coords) -> dict:
@@ -3785,9 +3980,9 @@ def ranks_train(torch, mesh, device):
 
 def train_rank_worker(rank, world, init_file, out_dir):
     """One rank of the sharded training ranks path (spawned): join the
-    gloo world, train the ranks' cut over a dp=world mesh spanning the
-    ranks, and save the losses, gloo's seconds a step and the
-    fingerprints of this rank's blocks."""
+    gloo world, train the ranks' cut over each of RANKS_TRAIN_SHAPES
+    spanning the ranks, and save each run's losses, gloo's seconds a step
+    and the fingerprints of this rank's blocks."""
     from datetime import timedelta
 
     import torch
@@ -3798,11 +3993,13 @@ def train_rank_worker(rank, world, init_file, out_dir):
                             timeout=timedelta(seconds=RANKS_TIMEOUT_S))
     try:
         from repro_torch.launch.mesh import make_host_mesh
-        mesh = make_host_mesh(world, 1, device="cuda")
-        losses, secs, nbytes, prints = ranks_train(torch, mesh, "cuda")
-        torch.save(dict(losses=losses, secs=secs, bytes=nbytes,
-                        prints=prints, describe=mesh.describe(),
-                        peak=torch.cuda.max_memory_allocated()),
+        runs = {}
+        for shape in RANKS_TRAIN_SHAPES:
+            mesh = make_host_mesh(*shape, device="cuda")
+            losses, secs, nbytes, prints = ranks_train(torch, mesh, "cuda")
+            runs[shape] = dict(losses=losses, secs=secs, bytes=nbytes,
+                               prints=prints, describe=mesh.describe())
+        torch.save(dict(runs=runs, peak=torch.cuda.max_memory_allocated()),
                    f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -3942,33 +4139,20 @@ def phase_sharded_train(torch, np) -> dict:
     expect_b = train_step_bytes(cfg, SHARD_MESH[0])
 
     # the uninterrupted run
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    events, losses, nbytes, coll_s = [], [], [], []
-    state, data = placed0, shard_data(0, SHARD_BATCH, SHARD_SEQ)
-    for _ in range(SHARD_STEPS):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        state, m = step_a(state, next(data))
-        e1.record()
-        events.append((e0, e1))
-        losses.append(float(m["loss"]))
-        nbytes.append(m["collective_bytes"])
-        coll_s.append(m["collective_s"])
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = [a.elapsed_time(b) for a, b in events]
-    gaps = {}
-    for (n, got), (_, want), (_, before) in zip(
-            tree_leaves_with_names(sharding.gather(state.params)),
-            tree_leaves_with_names(params_one),
-            tree_leaves_with_names(params0)):
-        moved = want.float() - before.float()
-        gaps[n] = float((got.float() - want.float()).norm()
-                        / moved.norm().clamp_min(1e-30))
+    state, rec = timed_steps(torch, step_a, placed0,
+                             shard_data(0, SHARD_BATCH, SHARD_SEQ),
+                             SHARD_STEPS)
+    losses, nbytes, coll_s = rec["losses"], rec["nbytes"], rec["coll_s"]
+    peak, step_ms = rec["peak"], rec["step_ms"]
+    gaps = update_gaps(torch, state.params, params_one, params0)
     worst = max(gaps, key=gaps.get)
-    del state, params0, params_one, got, want, before, moved
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the tensor-parallel training path on the same batches
+    tp = tp_llama(torch, np, model, cfg, opt, batch, placed0, params0,
+                  params_one, losses_one)
+    del params0, params_one
     gc.collect()
     torch.cuda.empty_cache()
     loss_gaps = [abs(a - b) for a, b in zip(losses, losses_one)]
@@ -4039,9 +4223,9 @@ def phase_sharded_train(torch, np) -> dict:
               f"the restored {n} equals the saved one (fingerprint)")
     _, m = step_b(restored, next(shard_data(at, SHARD_BATCH, SHARD_SEQ)))
     resumed_loss = float(m["loss"])
-    check(abs(resumed_loss - losses[at]) <= SHARD_LOSS_TOL,
-          f"the resumed loss at step {at} on data=1, model=2 "
-          f"({resumed_loss:.6f}) is within {SHARD_LOSS_TOL} of the "
+    check(abs(resumed_loss - losses[at]) <= TP_LOSS_TOL,
+          f"the resumed (tensor-parallel) loss at step {at} on data=1, "
+          f"model=2 ({resumed_loss:.6f}) is within {TP_LOSS_TOL} of the "
           f"uninterrupted run's ({losses[at]:.6f})")
     check(b1 > 0, "the sealed save and restore launched the ChaCha20 kernel")
     del restored, m, step_a, step_b
@@ -4051,9 +4235,11 @@ def phase_sharded_train(torch, np) -> dict:
 
     # two gloo ranks on the card against logical shards
     t0 = time.perf_counter()
-    want = ranks_train(torch, make_host_mesh(RANKS, 1), "cuda")
-    gc.collect()
-    torch.cuda.empty_cache()
+    want = {}
+    for shape in RANKS_TRAIN_SHAPES:
+        want[shape] = ranks_train(torch, make_host_mesh(*shape), "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
     work = Path(__file__).resolve().parent / "build" / "train_ranks"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -4064,12 +4250,16 @@ def phase_sharded_train(torch, np) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     ranks_s = time.perf_counter() - t0
     for r, got in enumerate(ranks):
-        check(got["losses"] == want[0], f"rank {r}'s losses equal the "
-              f"logical dp=2 run's ({got['losses']} vs {want[0]})")
-        check(got["prints"][(r, 0)] == want[3][(r, 0)],
-              f"rank {r}'s updated state blocks equal the logical run's")
-        check(got["bytes"] == want[2], f"rank {r}'s collective bytes equal "
-              f"the logical run's")
+        for shape, w in want.items():
+            g, label = got["runs"][shape], f"data={shape[0]}, model={shape[1]}"
+            coords = (r // shape[1], r % shape[1])
+            check(g["losses"] == w[0], f"rank {r}'s losses on {label} equal "
+                  f"the logical run's ({g['losses']} vs {w[0]})")
+            check(g["prints"][coords] == w[3][coords],
+                  f"rank {r}'s updated state blocks on {label} equal the "
+                  f"logical run's")
+            check(g["bytes"] == w[2], f"rank {r}'s collective bytes on "
+                  f"{label} equal the logical run's")
 
     gp = phase_gpipe(torch, np)
     gc.collect()
@@ -4095,9 +4285,10 @@ def phase_sharded_train(torch, np) -> dict:
         "mesh: {'data': 2, 'model': 2}"] and "restarts: 1" in lines,
         f"the launcher ran its failure drill on a 2 x 2 mesh (rc "
         f"{proc.returncode}): {proc.stdout[-400:]} {proc.stderr[-800:]}")
-    check(launches["chacha20_xor_blocked"] == b1 and sum(
-        launches.values()) == b1, f"B1 is the only kernel the sharded "
-        f"training path launched, all of it in the checkpoint: {launches}")
+    ckpt_b1 = b1 + tp["ckpt"]["b1"]
+    check(launches["chacha20_xor_blocked"] == ckpt_b1 and sum(
+        launches.values()) == ckpt_b1, f"B1 is the only kernel the sharded "
+        f"training path launched, all of it in the checkpoints: {launches}")
     med_ms = float(np.median(step_ms[1:]))
     return dict(launches=launches, losses=losses, losses_one=losses_one,
                 loss_gaps=loss_gaps, update_gap=gaps[worst],
@@ -4108,7 +4299,7 @@ def phase_sharded_train(torch, np) -> dict:
                 state_bytes=state_bytes, peak=peak, save_s=times["save"],
                 resume_s=times["resume"], sealed_bytes=sealed_bytes, b1=b1,
                 resumed_loss=resumed_loss, at=at, ranks=ranks,
-                ranks_want=want, ranks_s=ranks_s, gpipe=gp,
+                ranks_want=want, ranks_s=ranks_s, gpipe=gp, tp=tp,
                 launch_s=launch_s, launcher=lines,
                 path_s=time.perf_counter() - t_path)
 
@@ -4140,19 +4331,48 @@ def print_sharded(r, smi) -> None:
           f"bit-equal); B1 launches {r['b1']}; the resumed loss "
           f"{r['resumed_loss']:.6f} vs the uninterrupted "
           f"{r['losses'][r['at']]:.6f} {card}")
-    g0 = r["ranks"][0]
-    print(f"    ranks: {RANKS} gloo processes on the card "
-          f"({g0['describe']}), {RANKS_TRAIN_LAYERS} layer at full width, "
-          f"{RANKS_TRAIN_BATCH} x {TRAIN_SEQ} tokens, {RANKS_TRAIN_STEPS} "
-          f"steps: losses {r['ranks_want'][0]} and every block equal to "
-          f"the logical dp={RANKS} run's; {g0['bytes'][-1]} collective B a "
-          f"step; gloo seconds a step (host clock, through host memory) "
-          + "; ".join(f"rank {i} " + ", ".join(f"{x:.3f}" for x in
-                                                got["secs"])
-                      for i, got in enumerate(r["ranks"]))
-          + f"; logical run's device seconds "
-          + ", ".join(f"{x:.3f}" for x in r["ranks_want"][1])
-          + f"; {r['ranks_s']:.1f} s with the spawn {card}")
+    for shape in TP_TRAIN_MESHES:
+        t = r["tp"][shape]
+        med = t["med_ms"]
+        print(f"    tensor-parallel training, data={shape[0]}, "
+              f"model={shape[1]} logical shards: losses "
+              f"{', '.join(f'{x:.6f}' for x in t['losses'])} (gaps "
+              f"{', '.join(f'{x:.3g}' for x in t['loss_gaps'])} to one "
+              f"device's, limit {TP_LOSS_TOL}); each leaf's update within "
+              f"{t['update_gap']:.3g} of one device's (worst {t['worst']}, "
+              f"limit {TP_UPDATE_TOL}); step (CUDA events, median of steps "
+              f"2-{SHARD_STEPS}) {med:.2f} ms ("
+              + ", ".join(f"{x:.2f}" for x in t["step_ms"])
+              + f" ms), {r['tokens'] / (med / 1e3):.0f} tokens/s; "
+                f"collectives {t['nbytes'][-1]} B a step (train_step_bytes "
+                f"{t['expect_b']} B), "
+              + ", ".join(f"{x * 1e3:.2f}" for x in t["coll_s"])
+              + f" ms a step (CUDA events: copies and sums in HBM, one "
+                f"card, no link); state bytes of shard (0, 0) "
+                f"{t['state_bytes']}; peak device memory {t['peak']} B "
+                f"{card}")
+    ck = r["tp"]["ckpt"]
+    print(f"    the data={TP_TRAIN_MESHES[-1][0]}, "
+          f"model={TP_TRAIN_MESHES[-1][1]} state sealed in "
+          f"{ck['save_s']:.2f} s and restored onto data={TP_CKPT_MESH[0]}, "
+          f"model={TP_CKPT_MESH[1]} in {ck['resume_s']:.2f} s, every leaf "
+          f"bit-equal; B1 launches {ck['b1']} {card}")
+    for shape in RANKS_TRAIN_SHAPES:
+        g0, w = r["ranks"][0]["runs"][shape], r["ranks_want"][shape]
+        print(f"    ranks on data={shape[0]}, model={shape[1]}: {RANKS} "
+              f"gloo processes on the card ({g0['describe']}), "
+              f"{RANKS_TRAIN_LAYERS} layer at full width, "
+              f"{RANKS_TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+              f"{RANKS_TRAIN_STEPS} steps: losses {w[0]} and every block "
+              f"equal to the logical run's; {g0['bytes'][-1]} collective B "
+              f"a step; gloo seconds a step (host clock, through host "
+              f"memory) "
+              + "; ".join(f"rank {i} " + ", ".join(
+                  f"{x:.3f}" for x in got["runs"][shape]["secs"])
+                  for i, got in enumerate(r["ranks"]))
+              + f"; logical run's device seconds "
+              + ", ".join(f"{x:.3f}" for x in w[1]) + f" {card}")
+    print(f"    ranks: {r['ranks_s']:.1f} s with the spawn {card}")
     gp = r["gpipe"]
     print(f"    GPipe over a LocalGroup({GPIPE_STAGES}), one Llama2-7B block "
           f"a stage (f32), {GPIPE_MICRO} microbatches of [1, {GPIPE_SEQ}]: "
@@ -4163,6 +4383,189 @@ def print_sharded(r, smi) -> None:
     print(f"    launcher subprocess {r['launch_s']:.2f} s "
           f"({'; '.join(r['launcher'])}); the path {r['path_s']:.2f} s; "
           f"launches {r['launches']} {card}")
+
+
+# the tensor-parallel training of the other families, each against one
+# device on the same batches from the same seed-0 state, the one device's
+# params before and after kept on the host. dbrx at published width, 1 of
+# 40 layers: 3.88 G params, so bf16 params (7.75 GB), their bf16 gradients
+# and the functional update's new params and moments beside the old fit
+# the card only with bf16 moments (the config's optimizer_dtype knob; f32
+# moments would take 31 GB a copy); on data=2, model=2 with the batch split
+# over data at capacity factor 1.0, 4 x 512 tokens a step (2 rows a data
+# shard), so an expert's queue overflows and each MoE layer routes the
+# global batch. whisper-small at full size (12 + 12 layers) on model=2, 2
+# rows of 1,500 frames and 448 target tokens, in bf16 and, as a witness,
+# in f32 (where the two runs differ only by the f32 sums' order).
+TP_DBRX_LAYERS = 1
+TP_DBRX_MESH = (2, 2)
+TP_DBRX_BATCH, TP_DBRX_SEQ = 4, 512
+TP_DBRX_CAPACITY = 1.0
+TP_WHISPER_MESH = (1, 2)
+TP_WHISPER_BATCH = 2
+TP_FAMILY_STEPS = 2
+TP_FAMILY_OPT = dict(lr=3e-5, warmup_steps=1, total_steps=TP_FAMILY_STEPS)
+# Limits set from the roundings before the first run (PERF.md §6). dbrx:
+# besides the bf16 partial sums (the Llama path's 7e-3), the router's f32
+# logits come from rows that differ in bf16 rounding, so a few of 2,048
+# tokens whose 4th and 5th expert scores lie within that rounding pick
+# another expert; each moves its expert's queue by one at the capacity
+# edge, changing about 1-3 tokens' kept pairs and their CE by about 0.2:
+# ~30 tokens move the mean loss by ~3e-3. Limit 2e-2 for the loss, 0.5 for
+# each leaf's update (an expert's gradient loses or gains a few of its 512
+# kept tokens). whisper in bf16: 24 layers of bf16 partial sums, so the
+# Llama loss limit x about 3, 2e-2; a leaf's update gap is 2 x the square
+# root of the share of its elements whose bf16 gradient changes sign, and
+# a small leaf whose gradient sits near bf16 noise (a smoke rehearsal on
+# the CPU measured 0.236 on enc_final_norm's bias) can take much of 0.5,
+# so 1.0 (a third of the elements flipped), the f32 witness carrying the
+# tight check. whisper in f32: the sums' order alone (the CPU tests' 1e-4
+# and 1e-2).
+TP_DBRX_LOSS_TOL, TP_DBRX_UPDATE_TOL = 2e-2, 0.5
+TP_WHISPER_LOSS_TOL, TP_WHISPER_UPDATE_TOL = 2e-2, 1.0
+TP_F32_LOSS_TOL, TP_F32_UPDATE_TOL = 1e-4, 1e-2
+
+
+def tp_against_one(torch, np, cfg, shape, batches) -> dict:
+    """``cfg``'s model trained on the card for len(``batches``) steps on
+    one device and on a logical ``shape`` mesh from the same seed-0 state,
+    the one device's params before and after kept on the host: the
+    losses, each leaf's update gap (:func:`update_gaps`), CUDA events a
+    step, the collective bytes and the peak device memory of each run."""
+    from repro_torch.core.sealing import tree_map
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (abstract_train_state,
+                                              init_train_state,
+                                              make_sharded_train_step,
+                                              make_train_step)
+    model = build_model(cfg)
+    opt = AdamWConfig(**TP_FAMILY_OPT,
+                      moment_dtype=cfg.parallel.optimizer_dtype)
+    # timed_steps gets the only reference to a state, so a step's old
+    # state is freed once the next one exists (three bf16 dbrx states do
+    # not fit the card)
+    held = [init_train_state(model, opt, seed=0)]
+    params0 = tree_map(lambda t: t.cpu(), held[0].params)
+    state, one = timed_steps(torch, make_train_step(model, opt), held.pop(),
+                             iter(batches), len(batches))
+    params_one = tree_map(lambda t: t.cpu(), state.params)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh(*shape)
+    sspecs = sharding.state_specs(cfg, abstract_train_state(model, opt), mesh)
+    step = make_sharded_train_step(model, opt, mesh, sspecs,
+                                   sharding.batch_specs(cfg, batches[0], mesh))
+    placed, rec = timed_steps(
+        torch, step, sharding.place(init_train_state(model, opt, seed=0),
+                                    sharding.to_named(mesh, sspecs)),
+        iter(batches), len(batches))
+    gaps = update_gaps(torch, placed.params, params_one, params0)
+    del placed, step, params0, params_one
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["worst"] = max(gaps, key=gaps.get)
+    rec.update(update_gap=gaps[rec["worst"]], one=one,
+               loss_gaps=[abs(a - b) for a, b in zip(rec["losses"],
+                                                      one["losses"])])
+    return rec
+
+
+def phase_tp_train(torch, np) -> dict:
+    """The other families' tensor-parallel training, every kernel count set
+    to 0 just before and read just after: dbrx's cut on data=2, model=2
+    with the split batch at capacity factor 1.0, and whisper-small on
+    model=2 in bf16 and in f32, each against one device on the same
+    batches (:func:`tp_against_one`), within the limits above. No kernel
+    runs here (nothing is sealed)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import chacha20 as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import qmatmul as Q
+
+    reset_counts(C, P, Q, FA)
+    t_path = time.perf_counter()
+    out = {}
+    cfg = get_config("dbrx-132b")
+    cfg = dataclasses.replace(
+        cfg, num_layers=TP_DBRX_LAYERS,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=TP_DBRX_CAPACITY),
+        parallel=dataclasses.replace(cfg.parallel,
+                                     optimizer_dtype="bfloat16"))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batches = [{k: torch.randint(lo, cfg.vocab_size,
+                                 (TP_DBRX_BATCH, TP_DBRX_SEQ), device="cuda",
+                                 generator=gen, dtype=torch.int32)
+                for k, lo in (("tokens", 0), ("labels", -1))}
+               for _ in range(TP_FAMILY_STEPS)]
+    runs = [("dbrx-132b", cfg, TP_DBRX_MESH, batches, TP_DBRX_LOSS_TOL,
+             TP_DBRX_UPDATE_TOL)]
+    wcfg = get_config("whisper-small")
+    for dtype, tols in (("bfloat16", (TP_WHISPER_LOSS_TOL,
+                                      TP_WHISPER_UPDATE_TOL)),
+                        ("float32", (TP_F32_LOSS_TOL, TP_F32_UPDATE_TOL))):
+        c = dataclasses.replace(wcfg, dtype=dtype)
+        wb = [{"frames": torch.randn(
+                   TP_WHISPER_BATCH, WHISPER_FRAMES, c.d_model,
+                   device="cuda", generator=gen).to(c.torch_dtype),
+               **{k: torch.randint(lo, c.vocab_size,
+                                   (TP_WHISPER_BATCH, c.max_target_len),
+                                   device="cuda", generator=gen,
+                                   dtype=torch.int32)
+                  for k, lo in (("tokens", 0), ("labels", -1))}}
+              for _ in range(TP_FAMILY_STEPS)]
+        runs.append((f"whisper-small {dtype}", c, TP_WHISPER_MESH, wb,
+                     *tols))
+    for name, c, shape, b, loss_tol, update_tol in runs:
+        r = tp_against_one(torch, np, c, shape, b)
+        label = f"{name} on data={shape[0]}, model={shape[1]}"
+        check(all(np.isfinite(r["losses"]))
+              and max(r["loss_gaps"]) <= loss_tol,
+              f"the {label} losses {r['losses']} are within {loss_tol} of "
+              f"one device's {r['one']['losses']}")
+        check(r["update_gap"] <= update_tol,
+              f"every leaf's update on {label} is within {update_tol} of "
+              f"one device's, relative to its norm (worst {r['worst']}: "
+              f"{r['update_gap']:.3g})")
+        check(all(x > 0 for x in r["nbytes"]), f"the {label} step's "
+              f"collectives moved bytes ({r['nbytes']})")
+        r.update(shape=shape, loss_tol=loss_tol, update_tol=update_tol,
+                 params=c.params_count()[0])
+        out[name] = r
+    launches = path_launches()
+    check(sum(launches.values()) == 0,
+          f"no kernel ran on the families' tensor-parallel training: "
+          f"{launches}")
+    return dict(runs=out, launches=launches,
+                path_s=time.perf_counter() - t_path)
+
+
+def print_tp_train(r, smi) -> None:
+    card = f"[{smi}]"
+    for name, t in r["runs"].items():
+        one = t["one"]
+        print(f"  tensor-parallel training, {name} ({t['params']} params) on "
+              f"data={t['shape'][0]}, model={t['shape'][1]} logical shards: "
+              f"losses {', '.join(f'{x:.6f}' for x in t['losses'])} vs one "
+              f"device's {', '.join(f'{x:.6f}' for x in one['losses'])} "
+              f"(gaps {', '.join(f'{x:.3g}' for x in t['loss_gaps'])}, limit "
+              f"{t['loss_tol']}); each leaf's update within "
+              f"{t['update_gap']:.3g} of one device's (worst {t['worst']}, "
+              f"limit {t['update_tol']}); step (CUDA events) "
+              + ", ".join(f"{x:.2f}" for x in t["step_ms"])
+              + " ms vs one device's "
+              + ", ".join(f"{x:.2f}" for x in one["step_ms"])
+              + f" ms; collectives {t['nbytes'][-1]} B a step, "
+              + ", ".join(f"{x * 1e3:.2f}" for x in t["coll_s"])
+              + f" ms a step; peak device memory {t['peak']} B (one device "
+                f"{one['peak']} B) {card}")
+    print(f"    the path {r['path_s']:.2f} s; launches {r['launches']} "
+          f"{card}")
 
 
 def phase_quant(torch, np) -> dict:
@@ -4489,6 +4892,15 @@ def main() -> int:
     phase_t["sharded training"] = time.perf_counter() - t_phase
     print_sharded(sh_tr, smi)
     t_phase = time.perf_counter()
+    print(f"  tensor-parallel training of the other families: dbrx-132b, "
+          f"{TP_DBRX_LAYERS} of 40 layers at published width, on data="
+          f"{TP_DBRX_MESH[0]}, model={TP_DBRX_MESH[1]} at capacity factor "
+          f"{TP_DBRX_CAPACITY}; whisper-small at full size on model="
+          f"{TP_WHISPER_MESH[1]}, bf16 and f32")
+    tp_tr = phase_tp_train(torch, np)
+    phase_t["tensor-parallel training"] = time.perf_counter() - t_phase
+    print_tp_train(tp_tr, smi)
+    t_phase = time.perf_counter()
     print(f"[8/9] int8 weight path: llama2-7b at full width, {QUANT_LAYERS} "
           f"of 32 layers deep, quantized, sealed, unsealed; "
           "ops.qmm and ops.mha_flash on layer 0")
@@ -4727,12 +5139,13 @@ def main() -> int:
     b1_launches = (sv["launches"] + pl["chacha20_xor_blocked"]
                    + tr["launches"]["chacha20_xor_blocked"]
                    + sh_tr["launches"]["chacha20_xor_blocked"]
+                   + tp_tr["launches"]["chacha20_xor_blocked"]
                    + qp["launches"]["chacha20_xor_blocked"]
                    + rk["launches"] + rkp["launches"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
           f"{b1_launches} (slot, paged, sharing, store, two-phase, fleet, "
           f"RAG, mesh, TP, ranks, paged ranks, families, families on tp=2, "
-          f"training, sharded training, int8), B3 {pl['paged_attention']} (paged, "
+          f"training, sharded and tensor-parallel training, int8), B3 {pl['paged_attention']} (paged, "
           f"sharing, store, two-phase, fleet, RAG, chameleon) and B4 "
           f"{pl['paged_attention_unseal']} (paged, sharing, store, "
           f"two-phase, fleet, chameleon)")

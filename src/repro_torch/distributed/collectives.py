@@ -22,10 +22,31 @@ every rank holds identical values. Each group counts the bytes it moves
 into one shard and times every collective (CUDA events on the card, the
 host clock on the CPU and around gloo's host staging); :meth:`Group.take`
 hands the records over and clears them.
+
+Three differentiable collectives carry tensor-parallel training (the
+Megatron operators), each giving the same gradient on logical shards and
+on ranks:
+
+  * :func:`copy_to` -- a replicated tensor handed to every local shard:
+    the identity going forward; going backward the shards' cotangents
+    summed in rank order (the all-reduce). Every replicated value that
+    feeds per-shard compute goes through it: were the shards to share the
+    tensor, autograd would sum their cotangents in an order of its own on
+    logical shards, and a rank would keep only its own part;
+  * :func:`psum` -- the all-reduce going forward, the identity going
+    backward;
+  * :func:`all_gather` -- the shards' blocks concatenated going forward;
+    going backward each shard takes its own block of the (replicated)
+    cotangent.
+
+A backward collective counts its bytes as its forward call was counted.
+Over ranks every rank builds the same graph, so the backward pass (remat's
+recompute included) issues its gloo calls in one order everywhere.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -100,6 +121,15 @@ class Group:
         out = fn()
         self._record(nbytes, time.perf_counter() - t0)
         return out
+
+    @contextlib.contextmanager
+    def counted(self, on: bool):
+        """Count this group's bytes (or not) inside the block."""
+        was, self.counting = self.counting, on
+        try:
+            yield
+        finally:
+            self.counting = was
 
     def take(self) -> Tuple[int, List[Any]]:
         """(bytes moved into one shard, time marks) since the last take."""
@@ -340,6 +370,38 @@ class _PSum(torch.autograd.Function):
         return (None, *[grad] * ctx.n)
 
 
+class _CopyTo(torch.autograd.Function):
+    """A replicated tensor as one tensor a local shard; the gradient is
+    the shards' cotangents all-reduced (summed in rank order)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group, ctx.counting = group, group.counting
+        return tuple(x.view_as(x) for _ in group.local)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with ctx.group.counted(ctx.counting):
+            return None, ctx.group.all_reduce([g.contiguous() for g in grads])
+
+
+class _AllGather(torch.autograd.Function):
+    """``group.all_gather`` along ``dim``; each local part's gradient is
+    its own block of the result's."""
+
+    @staticmethod
+    def forward(ctx, group, dim, *parts):
+        ctx.group, ctx.dim = group, dim
+        out = group.all_gather(list(parts), dim)
+        return out.view_as(out) if out is parts[0] else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[ctx.dim] // ctx.group.size
+        return (None, None, *[grad.narrow(ctx.dim, i * n, n)
+                              for i in ctx.group.local])
+
+
 def ppermute(parts: Parts, group: Group, perm) -> Parts:
     """Shard ``dst`` receives shard ``src``'s tensor for each ``(src,
     dst)``; differentiable: the gradient travels the reverse permutation
@@ -356,7 +418,18 @@ def psum(parts: Parts, group: Group) -> torch.Tensor:
 
 
 def all_gather(parts: Parts, group: Group, dim: int = 0) -> torch.Tensor:
-    return group.all_gather(parts, dim)
+    """Every shard's tensor concatenated along ``dim``, in rank order;
+    differentiable, each local part's gradient being its block of the
+    result's (whose cotangent is replicated: what follows the gather runs
+    alike on every shard)."""
+    return _AllGather.apply(group, dim, *parts)
+
+
+def copy_to(x: torch.Tensor, group: Group) -> Parts:
+    """The replicated ``x`` once a local shard, for per-shard compute:
+    the identity going forward; going backward the local shards'
+    cotangents all-reduced into ``x``'s (Megatron's "f")."""
+    return list(_CopyTo.apply(group, x))
 
 
 def split(x: torch.Tensor, group: Group, dim: Optional[int]) -> Parts:

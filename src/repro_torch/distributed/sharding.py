@@ -377,16 +377,15 @@ def place_leaf(leaf, named: "NamedSharding") -> Placed:
     return Placed(named, leaf.shape, leaf.dtype, blocks)
 
 
-@torch.no_grad()
-def gather_leaf(x: Placed, out: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-    """The whole leaf: each sharded dim all-gathered over its axis's group
-    in turn (on logical shards a concatenation, on ranks the groups'
-    all-gather), the last one into ``out`` when given (a buffer refilled
-    at every gather). The bytes into one shard are counted once (a logical
-    mesh concatenates the same dim for every block of the others)."""
+def _merge(x: Placed, dims, out: Optional[torch.Tensor] = None
+           ) -> Dict[Tuple[int, ...], torch.Tensor]:
+    """``x``'s blocks merged along ``dims`` (each all-gathered over its
+    axis's group in turn; on logical shards a concatenation, on ranks the
+    group's all-gather), the last one into ``out`` when given: {block key
+    with those dims at 0: merged block}. The bytes into one shard are
+    counted once (a logical mesh concatenates the same dim for every block
+    of the others)."""
     mesh, spec = x.named.mesh, tuple(x.named.spec)
-    dims = [d for d, axis in enumerate(spec) if axis is not None]
     blocks = x.blocks
     for dim in dims:
         group = mesh.group(spec[dim])
@@ -403,10 +402,33 @@ def gather_leaf(x: Placed, out: Optional[torch.Tensor] = None
         finally:
             group.counting = counting
         blocks = merged
-    (whole,) = blocks.values()
+    return blocks
+
+
+@torch.no_grad()
+def gather_leaf(x: Placed, out: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """The whole leaf: every sharded dim merged (:func:`_merge`), the last
+    one into ``out`` when given (a buffer refilled at every gather)."""
+    (whole,) = _merge(x, [d for d, axis in enumerate(x.named.spec)
+                          if axis is not None], out).values()
     if out is not None and whole is not out:
         out.copy_(whole)
     return whole if out is None else out
+
+
+@torch.no_grad()
+def gather_over(x: Placed, axis: str) -> Dict[int, torch.Tensor]:
+    """``x`` gathered over ``axis`` alone, by its block index along the
+    dim sharded over the other axis (0 where none is): on a mesh's
+    ``data`` axis each local model shard's block whole over ``data``.
+    Every spec entry of ``x`` names one axis at most."""
+    spec = tuple(x.named.spec)
+    if any(isinstance(a, tuple) for a in spec):
+        raise ValueError(f"gather_over takes one axis a dim, not {spec}")
+    other = [d for d, a in enumerate(spec) if a not in (None, axis)]
+    merged = _merge(x, [d for d, a in enumerate(spec) if a == axis])
+    return {(k[other[0]] if other else 0): t for k, t in merged.items()}
 
 
 def place(tree: Params, named: Params) -> Params:

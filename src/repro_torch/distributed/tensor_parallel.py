@@ -1,7 +1,9 @@
-"""Tensor-parallel compute for the decoder families (dense, vlm, moe with
-attention or MLA, hybrid: jamba's Mamba + attention + MoE, and ssm: rwkv6)
-over a mesh's ``model`` axis (the reference has no such file: XLA
-partitions its program by the specs and inserts the collectives).
+"""Tensor-parallel compute over a mesh's ``model`` axis: serving the
+decoder families (dense, vlm, moe with attention or MLA, hybrid: jamba's
+Mamba + attention + MoE, and ssm: rwkv6; :class:`TensorParallel`) and
+training every family, whisper included (:class:`TensorParallelLoss`).
+The reference has no such file: XLA partitions its program by the specs
+and inserts the collectives.
 
 Each model shard holds the slices :func:`~repro_torch.distributed.sharding.
 param_specs` gives it over ``model``: query heads ``[s*h/tp, (s+1)*h/tp)``
@@ -94,23 +96,56 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.distributed import sharding
-from repro_torch.models import layers, moe, ssm
-from repro_torch.models.transformer import (_layer, _mamba_cfg, _moe_cfg,
-                                            _rwkv_cfg, _store)
+from torch.utils import checkpoint as torch_checkpoint
+
+from repro_torch.distributed import collectives, sharding
+from repro_torch.models import layers, mla, moe, ssm, transformer
+from repro_torch.models.transformer import (_layer, _mamba_cfg, _mla_cfg,
+                                            _moe_cfg, _rwkv_cfg, _store)
 
 Params = Any
 
 
 def refuse_family(cfg) -> None:
-    """Tensor-parallel compute covers the decoder families: dense, vlm, moe
-    (attention or MLA), hybrid and ssm."""
+    """A serving mesh covers the decoder families: dense, vlm, moe
+    (attention or MLA), hybrid and ssm. The encoder-decoder trains on a
+    mesh (:class:`TensorParallelLoss`) but is served on none."""
     if cfg.family == "encdec" or cfg.embedding_inputs:
         raise NotImplementedError(
-            f"tensor-parallel compute (or a mesh over ranks) for the "
-            f"{cfg.family} family ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md queue A item 21 part 3c); the dense, vlm, moe, "
+            f"serving the {cfg.family} family ({cfg.name}) on a mesh: "
+            f"neither package serves this family (both serving launchers "
+            f"refuse it), so a serving mesh takes the dense, vlm, moe, "
             f"hybrid and ssm families only")
+
+
+def check_divides(cfg, tp: int, kinds) -> None:
+    """Raise unless ``tp`` divides every count the layer kinds ``kinds``
+    split over ``model``."""
+    need = {}
+    if kinds & {"attn", "mla"}:
+        need["query heads"] = cfg.num_heads
+    if kinds & {"swiglu", "cmix", "gelu"}:
+        need["d_ff"] = cfg.d_ff
+    if "moe" in kinds:
+        need["experts"] = cfg.moe.num_experts
+        if cfg.moe.num_shared_experts:
+            need["shared experts' d_ff"] = (cfg.moe.d_ff_expert
+                                            * cfg.moe.num_shared_experts)
+    if "mamba" in kinds:
+        need["Mamba's d_inner"] = _mamba_cfg(cfg).d_inner
+    if "rwkv" in kinds:
+        need["rwkv heads"] = _rwkv_cfg(cfg).num_heads
+    bad = {k: v for k, v in need.items() if v % tp}
+    if bad:
+        raise ValueError(
+            f"tp={tp} must divide the "
+            + " and ".join(f"{k} ({v})" for k, v in bad.items())
+            + f" of {cfg.name}")
+
+
+def layer_kinds(impl) -> set:
+    """The mixer and FFN kinds of a decoder's layer slots."""
+    return {k for _, _, slots in impl.blocks for pair in slots for k in pair}
 
 
 def model_dim(spec) -> int:
@@ -168,28 +203,9 @@ class TensorParallel:
         self.slots = [(name, j, f"slot_{i}", m, f)
                       for name, n, slots in self.impl.blocks
                       for j in range(n) for i, (m, f) in enumerate(slots)]
-        kinds = {m for *_, m, _ in self.slots} | {f for *_, f in self.slots}
+        kinds = layer_kinds(self.impl)
         h, hk = cfg.num_heads, cfg.num_kv_heads
-        need = {}
-        if kinds & {"attn", "mla"}:
-            need["query heads"] = h
-        if "swiglu" in kinds or "cmix" in kinds:
-            need["d_ff"] = cfg.d_ff
-        if "moe" in kinds:
-            need["experts"] = cfg.moe.num_experts
-            if cfg.moe.num_shared_experts:
-                need["shared experts' d_ff"] = (cfg.moe.d_ff_expert
-                                                * cfg.moe.num_shared_experts)
-        if "mamba" in kinds:
-            need["Mamba's d_inner"] = _mamba_cfg(cfg).d_inner
-        if "rwkv" in kinds:
-            need["rwkv heads"] = _rwkv_cfg(cfg).num_heads
-        bad = {k: v for k, v in need.items() if v % self.tp}
-        if bad:
-            raise ValueError(
-                f"tp={self.tp} must divide the "
-                + " and ".join(f"{k} ({v})" for k, v in bad.items())
-                + f" of {cfg.name}")
+        check_divides(cfg, self.tp, kinds)
         self.sp = "attn" in kinds and hk % self.tp != 0
         self.heads = h // self.tp
         self.acfg = dataclasses.replace(
@@ -252,16 +268,8 @@ class TensorParallel:
         if not self.vocab_split or self.tp == 1:
             x = layers.embed({"table": lps[0]["embedding"]}, tokens)
         else:
-            parts = []
-            for lp, s in zip(lps, self.mg.local):
-                table = lp["embedding"]
-                n = table.shape[0]
-                idx = tokens.long() - s * n
-                inside = (idx >= 0) & (idx < n)
-                rows = table[idx.clamp(0, n - 1)]
-                parts.append(torch.where(inside[..., None], rows,
-                                         rows.new_zeros(())))
-            x = self.mg.all_reduce(parts)
+            x = self.mg.all_reduce(lookup_parts(
+                [lp["embedding"] for lp in lps], self.mg.local, tokens))
         if self.cfg.family == "ssm":
             x = layers.layernorm(lps[0]["ln0"], x, self.cfg.norm_eps)
         return x
@@ -297,7 +305,8 @@ class TensorParallel:
         views = [self._cache_shard(cl, s) for s in self.mg.local]
         outs, states = ssm.mamba_shards(
             [lp["layers"][li]["mamba"] for lp in lps], _mamba_cfg(self.cfg),
-            h, views, mode, self.mg.all_reduce)
+            [h] * len(lps), views, mode,
+            lambda parts: [self.mg.all_reduce(parts)] * len(parts))
         for view, st in zip(views, states):
             _store(view, st)
         return self.mg.all_reduce(outs)
@@ -310,7 +319,8 @@ class TensorParallel:
         views = [self._cache_shard(cl, s) for s in self.mg.local]
         outs, x_last, states = ssm.rwkv6_time_mix_shards(
             [lp["layers"][li]["tmix"] for lp in lps], _rwkv_cfg(self.cfg),
-            self.mg.local, h, cl["tmix_x"], [v["wkv"] for v in views],
+            self.mg.local, [h] * len(lps), cl["tmix_x"],
+            [v["wkv"] for v in views],
             lambda parts: self.mg.all_gather(parts, dim=-1))
         for view, st in zip(views, states):
             view["wkv"].copy_(st)
@@ -506,6 +516,309 @@ class TensorParallel:
         (x,) = self._run(lps, [x], [positions], [cache], "prefill")
         cache["pos"].fill_(s)
         return self._unembed(lps, x[:, -1:, :])[:, 0], cache
+
+
+def lookup_parts(tables, ids, tokens: torch.Tensor) -> List[torch.Tensor]:
+    """Each shard's part of the embedding: the rows of ``tokens`` that fall
+    in its vocabulary block (shard ``s`` of ``ids`` holds block ``s``),
+    zeros elsewhere; their sum is the lookup."""
+    parts = []
+    for table, s in zip(tables, ids):
+        n = table.shape[0]
+        idx = tokens.long() - s * n
+        inside = (idx >= 0) & (idx < n)
+        rows = table[idx.clamp(0, n - 1)]
+        parts.append(torch.where(inside[..., None], rows, rows.new_zeros(())))
+    return parts
+
+
+# the replicated leaves (key paths) a layer kind's shards compute with:
+# each shard takes its copy through copy_to, so their gradients sum the
+# shards' parts
+SHARD_COPIED = {
+    "attn": [("q_norm", "scale"), ("k_norm", "scale")],
+    "mla": [("w_dq",), ("q_norm", "scale"), ("w_dkv",),
+            ("kv_norm", "scale")],
+    "tmix": [("mix",), ("decay_lora", "a"), ("bonus",)],
+}
+
+
+def _dicts(tree):
+    """``tree`` with its dicts copied and its leaves shared."""
+    return ({k: _dicts(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree)
+
+
+class TensorParallelLoss:
+    """The training loss over a mesh's ``model`` shards, cache-free: the
+    counterpart of :meth:`~repro_torch.models.transformer.DecoderLM.loss`
+    (and ``EncDecLM.loss``) that each shard computes on its blocks of the
+    split leaves, with :mod:`~repro_torch.distributed.collectives`'
+    differentiable operators between them, so the backward pass reduces
+    what the forward pass split.
+
+    Each layer kind keeps its serving split (the module docstring):
+    replicated compute (norms, residual adds, routing, the loss) runs once
+    on each shard's identical values, and where a replicated value feeds
+    per-shard compute it goes through ``copy_to`` (the normed row, the
+    routing weights, the replicated leaves of :data:`SHARD_COPIED`, Mamba's
+    reduced ``bcdt``, rwkv6's ``ln_out`` row, the channel mix's shifted
+    rows), so its gradient sums the shards' parts in rank order. The
+    partials are reduced by ``psum``; the vocabulary-split logits (f32) and
+    rwkv6's head outputs and receptance are gathered by ``all_gather``.
+    Mamba's ``w_in`` rests in contiguous column blocks over ``model`` (the
+    reference's spec), so it is gathered whole and each shard takes its x
+    and z blocks (:func:`shard_leaf`). Each repeat of a block runs under
+    ``parallel.remat`` as ``DecoderLM._run`` does, its recompute rerunning
+    every forward collective (early stop off).
+
+    ``bg`` is the batch group when a MoE model's batch splits over it: the
+    local batch shards then run in lockstep and at each MoE layer their
+    normed rows are gathered over ``bg`` and routed together, so capacity
+    and drops are one device's, and each batch shard keeps its rows (the
+    gather's gradient sums over ``bg`` before each shard takes its block);
+    each batch shard's aux loss is then the global batch's."""
+
+    def __init__(self, model, mg, bg=None):
+        cfg = model.cfg
+        self.cfg, self.impl, self.mg, self.bg = cfg, model._impl, mg, bg
+        self.tp = mg.size
+        self.encdec = cfg.family == "encdec"
+        kinds = {"attn", "gelu"} if self.encdec else layer_kinds(self.impl)
+        check_divides(cfg, self.tp, kinds)
+        if "attn" in kinds and cfg.num_kv_heads % self.tp:
+            raise ValueError(
+                f"tp={self.tp} must divide the KV heads ({cfg.num_kv_heads})"
+                f" of {cfg.name} to train it: the training step splits "
+                f"attention by heads only")
+        self.heads = dict(num_heads=cfg.num_heads // self.tp,
+                          num_kv_heads=cfg.num_kv_heads // self.tp)
+        if not self.encdec:
+            self.acfg = dataclasses.replace(self.impl.acfg, **self.heads)
+        self.mcfg = _moe_cfg(cfg) if cfg.moe is not None else None
+        self.vocab_split = self.tp > 1 and cfg.vocab_size % self.tp == 0
+
+    # -- the collectives, over model -------------------------------------------
+    def copy(self, x: torch.Tensor) -> List[torch.Tensor]:
+        return collectives.copy_to(x, self.mg)
+
+    def psum(self, parts) -> torch.Tensor:
+        return collectives.psum(parts, self.mg)
+
+    def gather(self, parts, dim: int = -1) -> torch.Tensor:
+        return collectives.all_gather(parts, self.mg, dim)
+
+    def _count(self, i: int) -> None:
+        """Bytes count into one shard: one batch shard's reductions."""
+        self.mg.counting = i == 0
+
+    def _copied(self, subs, kind: str):
+        """The shards' subtrees with the replicated leaves of
+        :data:`SHARD_COPIED` handed to each through ``copy_to``."""
+        subs = [_dicts(t) for t in subs]
+        for path in SHARD_COPIED.get(kind, ()):
+            node = subs[0]
+            for k in path:
+                node = node.get(k) if isinstance(node, dict) else None
+            if node is None:
+                continue
+            for t, c in zip(subs, self.copy(node)):
+                for k in path[:-1]:
+                    t = t[k]
+                t[path[-1]] = c
+        return subs
+
+    # -- embedding / logits ------------------------------------------------------
+    def lookup(self, lps, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embedding: each shard's masked lookup, reduced, when
+        the vocabulary splits; else the whole table's."""
+        if not self.vocab_split:
+            return layers.embed(lps[0]["embedding"], tokens)
+        return self.psum(lookup_parts([lp["embedding"]["table"] for lp in lps],
+                                      self.mg.local, tokens))
+
+    def logits(self, lps, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the normed rows ``x``: each shard's vocabulary
+        block, gathered, when the vocabulary splits."""
+        if not self.vocab_split:
+            return layers.unembed(lps[0]["embedding"], x)
+        return self.gather([layers.unembed(lp["embedding"], xf)
+                            for lp, xf in zip(lps, self.copy(x.float()))])
+
+    # -- the layer kinds ---------------------------------------------------------
+    def _mix(self, lps, mixer: str, h: torch.Tensor,
+             positions: torch.Tensor) -> torch.Tensor:
+        """A layer's mixer half on the normed ``h``: the shards' partials
+        on their copies of ``h``, reduced."""
+        cfg, hs = self.cfg, self.copy(h)
+        if mixer == "attn":
+            parts = [layers.attention_forward(p, self.acfg, x, positions)
+                     for p, x in zip(self._copied(
+                         [lp["attn"] for lp in lps], "attn"), hs)]
+        elif mixer == "mla":
+            parts = [mla.mla_forward(p, _mla_cfg(cfg), x)
+                     for p, x in zip(self._copied(
+                         [lp["mla"] for lp in lps], "mla"), hs)]
+        elif mixer == "mamba":
+            parts, _ = ssm.mamba_shards(
+                self._mamba_params([lp["mamba"] for lp in lps]),
+                _mamba_cfg(cfg), hs, None, "train",
+                lambda p: self.copy(self.psum(p)))
+        elif mixer == "rwkv":
+            rcfg = _rwkv_cfg(cfg)
+            b, n = h.shape[0], rcfg.num_heads // self.tp
+            state = torch.zeros((b, n, rcfg.head_dim, rcfg.head_dim),
+                                dtype=torch.float32, device=h.device)
+            parts, _, _ = ssm.rwkv6_time_mix_shards(
+                self._copied([lp["tmix"] for lp in lps], "tmix"), rcfg,
+                self.mg.local, hs, h.new_zeros((b, cfg.d_model)),
+                [state] * len(lps), self.gather, self.copy)
+        else:
+            raise ValueError(mixer)
+        return self.psum(parts)
+
+    def _mamba_params(self, subs):
+        """Each shard's Mamba params with ``w_in`` as :func:`shard_leaf`'s
+        x and z blocks: the stored contiguous blocks gathered whole and
+        handed to every shard through ``copy_to``."""
+        whole = self.copy(self.gather([p["w_in"] for p in subs]))
+        return [dict(p, w_in=shard_leaf(w, (None, "model"), ("mamba", "w_in"),
+                                        self.tp, s))
+                for p, w, s in zip(subs, whole, self.mg.local)]
+
+    def _ffn(self, lps, ffn: str, h: torch.Tensor):
+        """A layer's FFN half on the normed ``h``: (the reduced output, the
+        MoE aux loss or None). A MoE routes ``h``'s tokens once with the
+        replicated f32 router and hands each shard the weights."""
+        if ffn == "cmix":
+            out, _ = ssm.rwkv6_channel_mix_shards(
+                [lp["cmix"] for lp in lps], h,
+                h.new_zeros((h.shape[0], self.cfg.d_model)), self.psum,
+                self.gather, self.copy)
+            return out, None
+        hs = self.copy(h)
+        if ffn == "swiglu":
+            return self.psum([layers.swiglu(lp["ffn"], x)
+                              for lp, x in zip(lps, hs)]), None
+        b, s, d = h.shape
+        weights, indices, aux = moe.route(lps[0]["moe"], self.mcfg,
+                                          h.reshape(b * s, d))
+        n = self.mcfg.num_experts // self.tp
+        parts = [moe.moe_forward(lp["moe"], self.mcfg, x,
+                                 experts=(m * n, (m + 1) * n),
+                                 routing=(w, indices, aux))[0]
+                 for lp, x, w, m in zip(lps, hs, self.copy(weights),
+                                        self.mg.local)]
+        return self.psum(parts), aux
+
+    def _unit(self, layer, slots, positions, xs, auxes):
+        """One repeat of a block (every slot) over the local batch shards:
+        ``layer[i][m]`` is batch shard ``i``'s model shard ``m``'s params of
+        the repeat. Returns (xs, auxes). Leaves the byte counting as it
+        found it (remat reruns it inside the backward pass)."""
+        with self.mg.counted(self.mg.counting):
+            return self._slots(layer, slots, positions, xs, auxes)
+
+    def _slots(self, layer, slots, positions, xs, auxes):
+        eps = self.cfg.norm_eps
+        for si, (mixer, ffn) in enumerate(slots):
+            lpss = [[lp[f"slot_{si}"] for lp in lps] for lps in layer]
+            norm = layers.layernorm if mixer == "rwkv" else layers.rmsnorm
+            for i, lps in enumerate(lpss):
+                self._count(i)
+                h = norm(lps[0]["pre_norm"], xs[i], eps)
+                xs[i] = xs[i] + self._mix(lps, mixer, h, positions)
+            hs = [norm(lps[0]["post_norm"], x, eps)
+                  for lps, x in zip(lpss, xs)]
+            if ffn == "moe" and self.bg is not None:
+                rows = hs[0].shape[0]
+                whole = collectives.copy_to(
+                    collectives.all_gather(hs, self.bg, 0), self.bg)
+                outs = []
+                for i, (lps, g) in enumerate(zip(lpss, whole)):
+                    self._count(i)
+                    out, a = self._ffn(lps, ffn, g)
+                    k = self.bg.local[i]
+                    outs.append((out[k * rows:(k + 1) * rows], a))
+            else:
+                outs = []
+                for i, (lps, h) in enumerate(zip(lpss, hs)):
+                    self._count(i)
+                    outs.append(self._ffn(lps, ffn, h))
+            for i, (out, a) in enumerate(outs):
+                xs[i] = xs[i] + out
+                if a is not None:
+                    auxes[i] = a if auxes[i] is None else auxes[i] + a
+        return xs, auxes
+
+    # -- the loss ------------------------------------------------------------------
+    def loss(self, trees, batches):
+        """``trees[i][m]``: local batch shard ``i``'s params of local model
+        shard ``m`` (its blocks of the split leaves, the replicated leaves
+        whole); ``batches[i]`` the batch shard's rows. Returns, per local
+        batch shard, (loss, ce_loss, aux_loss) of its rows, as
+        ``Model.loss`` gives them."""
+        try:
+            with torch_checkpoint.set_checkpoint_early_stop(False):
+                if self.encdec:
+                    out = []
+                    for i, (lps, batch) in enumerate(zip(trees, batches)):
+                        self._count(i)
+                        out.append(self.impl.loss_shards(lps, batch, self))
+                    return out
+                return self._decoder_loss(trees, batches)
+        finally:
+            self._count(0)
+
+    def _decoder_loss(self, trees, batches):
+        cfg = self.cfg
+        xs = []
+        for i, (lps, batch) in enumerate(zip(trees, batches)):
+            self._count(i)
+            tokens = batch["tokens"]
+            x = tokens if cfg.embedding_inputs else self.lookup(lps, tokens)
+            if cfg.family == "ssm":
+                x = layers.layernorm(lps[0]["ln0"], x, cfg.norm_eps)
+            xs.append(x)
+        b, s = batches[0]["labels"].shape
+        positions = torch.arange(s, device=xs[0].device)[None, :].expand(b, s)
+        policy = cfg.parallel.remat if torch.is_grad_enabled() else "none"
+        auxes = [None] * len(xs)
+        n = len(xs)
+        for name, reps, slots in self.impl.blocks:
+            for j in range(reps):
+                layer = [[_layer(t[name], j) for t in lps] for lps in trees]
+
+                def body(*args, layer=layer, slots=slots):
+                    xs, auxes = self._unit(layer, slots, positions,
+                                           list(args[:n]), list(args[n:]))
+                    return tuple(xs) + tuple(auxes)
+
+                out = transformer.remat(body, policy)(*xs, *auxes)
+                xs, auxes = list(out[:n]), list(out[n:])
+        out = []
+        for i, (lps, batch, x) in enumerate(zip(trees, batches, xs)):
+            self._count(i)
+            loss = self._ce(lps, x, batch["labels"])
+            aux = auxes[i] if auxes[i] is not None else torch.zeros(
+                (), dtype=torch.float32, device=x.device)
+            out.append((loss + aux, loss, aux))
+        return out
+
+    def _ce(self, lps, x: torch.Tensor, labels: torch.Tensor):
+        """``DecoderLM.loss``'s mean masked NLL, ``parallel.loss_chunk`` at
+        a time."""
+        cfg = self.cfg
+        norm = layers.layernorm if cfg.family == "ssm" else layers.rmsnorm
+        chunk, s = cfg.parallel.loss_chunk, x.shape[1]
+        tot = cnt = None
+        for start in range(0, s, chunk if chunk and s > chunk else s):
+            end = min(start + (chunk or s), s)
+            logits = self.logits(lps, norm(lps[0]["final_norm"],
+                                           x[:, start:end], cfg.norm_eps))
+            t, c = transformer.masked_nll(logits, labels[:, start:end])
+            tot, cnt = (t, c) if tot is None else (tot + t, cnt + c)
+        return tot / cnt.clamp(min=1.0)
 
 
 def _rows(cache: Params, lo: int, hi: int) -> Params:

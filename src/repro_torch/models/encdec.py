@@ -16,13 +16,15 @@ layer in the backward pass of a training pass, as the reference's
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
-from repro_torch.models.transformer import _layer, generator, remat
+from repro_torch.models.transformer import (_layer, generator, masked_nll,
+                                            remat)
 
 Params = Any
 
@@ -137,13 +139,84 @@ class EncDecLM:
         """Teacher-forced cross-entropy of ``batch["labels"]`` (labels < 0
         masked out): (loss, {"ce_loss", "aux_loss"})."""
         logits, aux = self.forward(params, batch["frames"], batch["tokens"])
-        labels = batch["labels"]
-        mask = (labels >= 0).float()
-        safe = labels.long().clamp(min=0)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-        loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        tot, cnt = masked_nll(logits, batch["labels"])
+        loss = tot / cnt.clamp(min=1.0)
         return loss + aux, {"ce_loss": loss, "aux_loss": aux}
+
+    # -- tensor-parallel training ----------------------------------------------
+    def _mlp_shards(self, lps, h: torch.Tensor, tp) -> torch.Tensor:
+        """The GELU MLP over the shards' ``d_ff`` blocks: the partials
+        reduced, ``b_out`` added once."""
+        return tp.psum([layers.gelu_mlp(lp["mlp"], x, out_bias=False)
+                        for lp, x in zip(lps, tp.copy(h))]) \
+            + lps[0]["mlp"]["b_out"]
+
+    def loss_shards(self, shards, batch: Dict[str, torch.Tensor], tp):
+        """``loss`` over tensor-parallel shards: ``shards`` holds each local
+        model shard's params (its heads of every attention, its ``d_ff``
+        block of each MLP, its vocabulary block when the vocabulary splits;
+        norms and ``b_out`` whole), ``tp`` the
+        :class:`~repro_torch.distributed.tensor_parallel.TensorParallelLoss`
+        whose collectives join them. The frames are replicated; each
+        attention and MLP half runs on the shards' copies of its normed
+        input and its partials are reduced; every decoder layer's
+        cross-attention projects its own copy of the encoder output.
+        Returns (loss, ce_loss, aux_loss)."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
+        counting = tp.mg.counting    # remat's recompute counts bytes so
+        enc_cfg = dataclasses.replace(self.enc_cfg, **tp.heads)
+        dec_cfg = dataclasses.replace(self.dec_cfg, **tp.heads)
+        frames, tokens = batch["frames"], batch["tokens"]
+
+        def attend(lps, key, acfg, h, positions):
+            return tp.psum([layers.attention_forward(lp[key], acfg, x,
+                                                     positions)
+                            for lp, x in zip(lps, tp.copy(h))])
+
+        b, s, _ = frames.shape
+        positions = torch.arange(s, device=frames.device)[None, :].expand(b,
+                                                                          s)
+
+        def enc_body(x, lps):
+            with tp.mg.counted(counting):
+                h = layers.layernorm(lps[0]["pre_norm"], x, eps)
+                x = x + attend(lps, "attn", enc_cfg, h, positions)
+                h = layers.layernorm(lps[0]["post_norm"], x, eps)
+                return x + self._mlp_shards(lps, h, tp)
+
+        x = frames
+        for j in range(cfg.encoder_layers):
+            x = self._remat(enc_body)(x, [_layer(t["enc_layers"], j)
+                                          for t in shards])
+        enc_out = layers.layernorm(shards[0]["enc_final_norm"], x, eps)
+
+        b, t = tokens.shape
+        dec_pos = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
+
+        def dec_body(x, lps):
+            with tp.mg.counted(counting):
+                h = layers.layernorm(lps[0]["norm1"], x, eps)
+                x = x + attend(lps, "self_attn", dec_cfg, h, dec_pos)
+                h = layers.layernorm(lps[0]["norm2"], x, eps)
+                parts = []
+                for lp, hx, enc in zip(lps, tp.copy(h), tp.copy(enc_out)):
+                    ek, ev = layers.encode_kv(lp["cross_attn"], enc)
+                    parts.append(layers.cross_attention(
+                        lp["cross_attn"], enc_cfg, hx, ek, ev))
+                x = x + tp.psum(parts)
+                h = layers.layernorm(lps[0]["norm3"], x, eps)
+                return x + self._mlp_shards(lps, h, tp)
+
+        x = tp.lookup(shards, tokens)
+        for j in range(cfg.decoder_layers):
+            x = self._remat(dec_body)(x, [_layer(t["dec_layers"], j)
+                                          for t in shards])
+        logits = tp.logits(shards, layers.layernorm(
+            shards[0]["dec_final_norm"], x, eps))
+        tot, cnt = masked_nll(logits, batch["labels"])
+        loss = tot / cnt.clamp(min=1.0)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return loss + aux, loss, aux
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, enc_len: int, device) -> Params:

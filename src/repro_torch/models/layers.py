@@ -315,12 +315,17 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(params: Params, x: torch.Tensor,
+             out_bias: bool = True) -> torch.Tensor:
     """GELU in f32 with the tanh approximation (``jax.nn.gelu``'s
-    default)."""
+    default). A tensor-parallel shard holds a ``d_ff`` block of ``w_in``,
+    ``b_in`` and ``w_out``'s rows and passes ``out_bias=False``: its
+    product is a partial, and ``b_out`` is added once after the
+    reduction."""
     h = torch.einsum("bsd,df->bsf", x, params["w_in"]) + params["b_in"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return torch.einsum("bsf,fd->bsd", h, params["w_out"]) + params["b_out"]
+    out = torch.einsum("bsf,fd->bsd", h, params["w_out"])
+    return out + params["b_out"] if out_bias else out
 
 
 # ---------------------------------------------------------------------------

@@ -104,15 +104,19 @@ def route(params: Params, cfg: MoEConfig, x: torch.Tensor):
 
 
 def moe_ffn_tokens(params: Params, cfg: MoEConfig, xf: torch.Tensor,
-                   experts: Optional[Tuple[int, int]] = None):
+                   experts: Optional[Tuple[int, int]] = None,
+                   routing=None):
     """MoE over flat tokens xf: [t, d] -> ([t, d], aux). With ``experts=(lo,
     hi)``, ``params["experts"]`` holds experts ``[lo, hi)`` only and the
-    output is their part of the sum (see the module docstring)."""
+    output is their part of the sum (see the module docstring).
+    ``routing`` is :func:`route`'s result for ``xf`` when the caller made
+    it (a tensor-parallel training shard: the tokens are routed once, on
+    replicated values)."""
     t, d = xf.shape
     e, k = cfg.num_experts, cfg.top_k
     lo, hi = experts or (0, e)
     n = hi - lo
-    weights, indices, aux = route(params, cfg, xf)
+    weights, indices, aux = routing or route(params, cfg, xf)
 
     tk = t * k
     capacity = max(1, int(cfg.capacity_factor * tk / e))
@@ -165,12 +169,14 @@ def moe_ffn_tokens(params: Params, cfg: MoEConfig, xf: torch.Tensor,
 
 
 def moe_forward(params: Params, cfg: MoEConfig, x: torch.Tensor,
-                experts: Optional[Tuple[int, int]] = None):
+                experts: Optional[Tuple[int, int]] = None, routing=None):
     """x: [b, s, d] -> ([b, s, d], aux_loss); with ``experts`` a shard's
     part (its expert range and, given its ``d_ff`` block of them, its part
-    of the shared experts)."""
+    of the shared experts), with ``routing`` the flat tokens' routing
+    (:func:`moe_ffn_tokens`)."""
     b, s, d = x.shape
-    out, aux = moe_ffn_tokens(params, cfg, x.reshape(b * s, d), experts)
+    out, aux = moe_ffn_tokens(params, cfg, x.reshape(b * s, d), experts,
+                              routing)
     out = out.reshape(b, s, d)
     if cfg.num_shared_experts:
         out = out + layers.swiglu(params["shared"], x)

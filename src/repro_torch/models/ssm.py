@@ -15,11 +15,12 @@ axis); the functions take one layer's slice. Mamba's state is
 RWKV6's ``tmix_x``/``cmix_x`` ``[b, d]`` and ``wkv`` ``[b, h, hd, hd]``
 f32.
 
-The ``*_shards`` functions are the tensor-parallel forms
-(``distributed/tensor_parallel.py``): they take the local model shards'
-params in a list, run the shards in lockstep and call the collectives they
-are handed where a product contracts over the split dim; their sizes
-come from the shards' params. A Mamba shard holds a block of ``d_inner``
+The ``*_shards`` functions are the tensor-parallel forms, for serving and
+training (``distributed/tensor_parallel.py``): they take the local model
+shards' params in a list, run the shards in lockstep and call the
+collectives they are handed where a product contracts over the split dim
+(and, in training, where a replicated value feeds each shard); their
+sizes come from the shards' params. A Mamba shard holds a block of ``d_inner``
 channels, an RWKV6 shard a block of heads and of the channel mix's
 ``d_ff``. Mamba's one-device functions keep their own operations (a shard
 splits ``w_in``'s product and sums ``bcdt`` in f32); RWKV6's one-device
@@ -232,33 +233,34 @@ def mamba_step(params: Params, cfg: MambaConfig, x: torch.Tensor,
     return out, {"conv": conv_state.to(state["conv"].dtype), "ssm": h}
 
 
-def mamba_shards(shards, cfg: MambaConfig, x: torch.Tensor, states,
-                 mode: str, all_reduce):
-    """Mamba over the local model shards in lockstep (prefill from a zero
-    state, or one decode step). ``shards`` holds each shard's layer params:
-    channels ``[s*di/tp, (s+1)*di/tp)`` of every channel-indexed leaf,
-    ``w_in`` as ``[d, 2, di/tp]``: the shard's block of x's columns and
-    the matching block of z's. ``states`` holds
-    each shard's state views. ``xi @ w_bcdt`` contracts over ``d_inner``:
-    each shard's f32 partial goes to ``all_reduce`` (the shards' list ->
-    their sum) and the sum is cast once to the compute dtype, as one
-    device rounds its single product, before B, C and dt are split off.
-    Returns each shard's output partial (its rows of ``w_out``; the caller
-    reduces them) and new state."""
-    seq = mode == "prefill"
+def mamba_shards(shards, cfg: MambaConfig, xs, states, mode: str, reduce):
+    """Mamba over the local model shards in lockstep: a training pass or a
+    prefill from a zero state, or one decode step. ``shards`` holds each
+    shard's layer params: channels ``[s*di/tp, (s+1)*di/tp)`` of every
+    channel-indexed leaf, ``w_in`` as ``[d, 2, di/tp]``: the shard's block
+    of x's columns and the matching block of z's; ``xs`` each shard's input
+    (one replicated tensor); ``states`` each shard's state views (None in
+    training). ``xi @ w_bcdt`` contracts over ``d_inner``: each shard's f32
+    partial goes to ``reduce`` (the shards' list -> their sum, once a
+    shard) and the sum is cast once to the compute dtype, as one device
+    rounds its single product, before B, C and dt are split off. Returns
+    each shard's output partial (its rows of ``w_out``; the caller reduces
+    them) and new state (None in training)."""
+    seq = mode in ("prefill", "train")
+    states = states if states is not None else [None] * len(shards)
+    x = xs[0]
     ins = []
-    for p, st in zip(shards, states):
-        xi = torch.einsum("bsd,de->bse", x, p["w_in"][:, 0])
-        z = torch.einsum("bsd,de->bse", x, p["w_in"][:, 1])
+    for p, st, xp in zip(shards, states, xs):
+        xi = torch.einsum("bsd,de->bse", xp, p["w_in"][:, 0])
+        z = torch.einsum("bsd,de->bse", xp, p["w_in"][:, 1])
         xi, conv = _causal_conv(p, cfg, xi, None if seq else st["conv"])
         ins.append((xi, z, conv, _pad_chunks(cfg, xi) if seq else xi))
-    bcdt = all_reduce([torch.einsum("bsd,de->bse", xs.float(),
-                                    p["w_bcdt"].float())
-                       for p, (_, _, _, xs) in zip(shards, ins)]
-                      ).to(x.dtype)
+    bcdts = reduce([torch.einsum("bsd,de->bse", xsel.float(),
+                                 p["w_bcdt"].float())
+                    for p, (_, _, _, xsel) in zip(shards, ins)])
     outs, new = [], []
-    for p, st, (xi, z, conv, xs) in zip(shards, states, ins):
-        sel = _selective_params(p, cfg, xs, bcdt)
+    for p, st, bcdt, (xi, z, conv, xsel) in zip(shards, states, bcdts, ins):
+        sel = _selective_params(p, cfg, xsel, bcdt.to(x.dtype))
         if seq:
             y, h = _scan_seq(cfg, sel, x.shape[1], None)
         else:
@@ -266,7 +268,7 @@ def mamba_shards(shards, cfg: MambaConfig, x: torch.Tensor, states,
             h = dA[:, 0] * st["ssm"] + dBx[:, 0]
             y = torch.einsum("bdn,bn->bd", h, c_sel[:, 0])[:, None]
         outs.append(_gate_out(p, y, xi, z, x.dtype))
-        new.append({"conv": conv, "ssm": h})
+        new.append(None if mode == "train" else {"conv": conv, "ssm": h})
     return outs, new
 
 
@@ -377,30 +379,34 @@ def _time_heads(params: Params, x: torch.Tensor, x_prev_last: torch.Tensor,
     return torch.stack(outs, dim=1).reshape(b, s, h * hd), g, state
 
 
-def rwkv6_time_mix_shards(shards, cfg: RWKV6Config, ids, x: torch.Tensor,
-                          x_prev_last: torch.Tensor, states, all_gather):
+def rwkv6_time_mix_shards(shards, cfg: RWKV6Config, ids, xs,
+                          x_prev_last: torch.Tensor, states, all_gather,
+                          copy=None):
     """The time mix over the local model shards in lockstep: shard ``s``
     of ``ids`` holds heads ``[s*n, (s+1)*n)`` (``n`` from its ``w_r``'s
     width) of ``w_r``/``w_k``/``w_v``/``w_g``, ``decay_lora.b`` and
     ``decay_base``, and its rows of ``w_o``; ``bonus`` and ``ln_out`` are
-    whole, and each shard takes its heads of ``bonus``. ``ln_out``
-    normalises over all of ``d``, so the shards' head outputs are
-    gathered along it (``all_gather``: the shards' list -> their
-    concatenation) and the one-device layernorm runs on the whole row;
-    each shard gates its block and applies its ``w_o`` rows. Returns
-    (each shard's output partial, for the caller to reduce; the new
-    x_last; each shard's new state)."""
+    whole, and each shard takes its heads of ``bonus``. ``xs`` is each
+    shard's input (one replicated tensor). ``ln_out`` normalises over all
+    of ``d``, so the shards' head outputs are gathered along it
+    (``all_gather``: the shards' list -> their concatenation) and the
+    one-device layernorm runs on the whole row; ``copy`` hands the normed
+    row to each shard (the row itself when None), which gates its block
+    and applies its ``w_o`` rows. Returns (each shard's output partial,
+    for the caller to reduce; the new x_last; each shard's new state)."""
     n = shards[0]["w_r"].shape[-1] // cfg.head_dim
     heads = [_time_heads(p, x, x_prev_last, st,
                          p["bonus"].narrow(0, s * n, n))
-             for p, s, st in zip(shards, ids, states)]
+             for p, s, st, x in zip(shards, ids, states, xs)]
+    x = xs[0]
     normed = layers.layernorm(shards[0]["ln_out"],
                               all_gather([o.to(x.dtype) for o, _, _ in heads]))
+    normed = copy(normed) if copy else [normed] * len(shards)
     w = n * cfg.head_dim
     outs = [torch.einsum("bsd,de->bse",
-                         (normed[..., s * w:(s + 1) * w].float() * g
+                         (nd[..., s * w:(s + 1) * w].float() * g
                           ).to(x.dtype), p["w_o"])
-            for p, s, (_, g, _) in zip(shards, ids, heads)]
+            for p, s, nd, (_, g, _) in zip(shards, ids, normed, heads)]
     return outs, x[:, -1], [st for _, _, st in heads]
 
 
@@ -410,7 +416,7 @@ def rwkv6_time_mix(params: Params, cfg: RWKV6Config, x: torch.Tensor,
     [b, d] the previous segment's last token; wkv_state [b, h, k, v].
     Returns (out [b, s, d], new x_last [b, d], new state)."""
     outs, x_last, states = rwkv6_time_mix_shards(
-        [params], cfg, [0], x, x_prev_last, [wkv_state], _one)
+        [params], cfg, [0], [x], x_prev_last, [wkv_state], _one)
     return outs[0], x_last, states[0]
 
 
@@ -429,19 +435,22 @@ def init_rwkv6_channel_mix(gen: torch.Generator, cfg: RWKV6Config,
 
 def rwkv6_channel_mix_shards(shards, x: torch.Tensor,
                              x_prev_last: torch.Tensor, all_reduce,
-                             all_gather):
+                             all_gather, copy=None):
     """The channel mix over the local model shards in lockstep: each shard
     holds a ``d_ff`` block of ``w_k``'s columns and ``w_v``'s rows (its
     ``vv`` is a partial, reduced by ``all_reduce``) and a ``d`` block of
     ``w_r``'s columns (its receptance block, gathered in f32 by
-    ``all_gather`` before ``rr * vv``). Returns (out [b, s, d], whole on
-    every shard; the new x_last)."""
+    ``all_gather`` before ``rr * vv``). The token-shift mixes run once on
+    the replicated ``x``; ``copy`` hands each to every shard (the mix
+    itself when None). Returns (out [b, s, d], whole on every shard; the
+    new x_last)."""
     x_prev = torch.cat([x_prev_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
     mix = shards[0]["mix"]
-    xk = _shift_mix(x, x_prev, mix, 0)
-    xr = _shift_mix(x, x_prev, mix, 1)
+    copy = copy or (lambda t: [t] * len(shards))
+    xks = copy(_shift_mix(x, x_prev, mix, 0))
+    xrs = copy(_shift_mix(x, x_prev, mix, 1))
     parts, rrs = [], []
-    for p in shards:
+    for p, xk, xr in zip(shards, xks, xrs):
         kk = torch.einsum("bsd,df->bsf", xk, p["w_k"])
         kk = torch.square(F.relu(kk.float())).to(x.dtype)
         parts.append(torch.einsum("bsf,fd->bsd", kk, p["w_v"]))

@@ -148,6 +148,16 @@ def generator(seed: int, device) -> Optional[torch.Generator]:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor):
+    """(summed NLL of ``labels`` under the f32 ``logits``, their count);
+    labels < 0 are masked out."""
+    mask = (labels >= 0).float()
+    safe = labels.long().clamp(min=0)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * mask).sum(), mask.sum()
+
+
 def _layer(tree: Params, j: int) -> Params:
     """Layer ``j``'s slice of a layer-stacked tree (views, no copies)."""
     if isinstance(tree, dict):
@@ -416,12 +426,7 @@ class DecoderLM:
                   labels: torch.Tensor):
         """Summed masked NLL and token count over a hidden-state chunk
         (labels < 0 are masked out)."""
-        logits = self._unembed(params, x)
-        mask = (labels >= 0).float()
-        safe = labels.long().clamp(min=0)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-        return (nll * mask).sum(), mask.sum()
+        return masked_nll(self._unembed(params, x), labels)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
         """Next-token cross-entropy over ``batch["tokens"]`` and

@@ -89,9 +89,28 @@ def adamw_scalars(cfg: AdamWConfig, step: torch.Tensor):
     return lr, bc1, bc2
 
 
+# elements a chunk of a leaf's update: bounds its f32 temporaries (a
+# 1 G-element expert stack would otherwise hold about 20 GB of them)
+ADAMW_CHUNK = 1 << 26
+
+
 def adamw_leaf(cfg: AdamWConfig, scalars, p, g, m, v):
     """One leaf's (or any slice of it: the update is element by element)
-    new (param, m, v), computed in f32 and cast back."""
+    new (param, m, v), computed in f32 and cast back, ADAMW_CHUNK elements
+    at a time; the chunks change no bit."""
+    if p.numel() <= ADAMW_CHUNK:
+        return _adamw(cfg, scalars, p, g, m, v)
+    outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            for t in (p, m, v)]
+    flat = [t.reshape(-1) for t in (p, g, m, v)]
+    for i in range(0, p.numel(), ADAMW_CHUNK):
+        for out, part in zip(outs, _adamw(
+                cfg, scalars, *(t[i:i + ADAMW_CHUNK] for t in flat))):
+            out.view(-1)[i:i + ADAMW_CHUNK] = part
+    return tuple(outs)
+
+
+def _adamw(cfg: AdamWConfig, scalars, p, g, m, v):
     lr, bc1, bc2 = scalars
     gf = g.float()
     mf = m.float() * cfg.b1 + gf * (1 - cfg.b1)

@@ -17,6 +17,7 @@ reference's ``lax.scan`` over microbatches is a Python loop here
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -27,7 +28,7 @@ from repro_torch.core.sealing import (tree_leaves_with_names, tree_map,
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_leaf,
                                          adamw_scalars, adamw_update,
-                                         clip_by_global_norm, init_opt_state)
+                                         init_opt_state)
 
 Params = Any
 
@@ -119,118 +120,198 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh,
     """train_step(state, batch) -> (state, metrics) over ``mesh`` (logical
     shards or ranks, :func:`repro_torch.launch.mesh.make_host_mesh`): the
     counterpart of the reference's ``jax.jit(step, in_shardings=(sspecs,
-    bspecs), out_shardings=(sspecs, None))``.
+    bspecs), out_shardings=(sspecs, None))``, where XLA splits the compute
+    by the specs.
 
     ``state`` rests in the shards of ``sspecs``
     (:func:`repro_torch.distributed.sharding.place`) and the step returns
     it so. ``batch`` is the global batch, the same on every rank. A step:
 
-      - gathers the whole params (each rank its own copy);
+      - gathers the params over ``data`` only (FSDP): each model shard
+        keeps its blocks of the leaves split over ``model`` and every
+        replicated leaf whole;
       - gives every batch shard of ``bspecs`` (its leading dim's axes:
         ``data``, or ``data`` x ``model`` under ``dp_over_model``) its rows
         of each microbatch: microbatch ``i`` is rows ``i*B/mb ..`` of the
-        global batch, split over the batch shards. Shards of one batch
-        block (ranks of one ``model`` group) compute the same rows; logical
-        shards compute them once;
-      - weighs each shard's loss and gradients by its share of the
-        microbatch's unmasked labels over the microbatches (f32), so their
-        sum is the reference's mean; sums them over the batch shards with
-        the group's all-reduce (an all-gather and a sum in rank order: the
-        same bits on logical shards and ranks, every rank alike);
-      - clips the whole reduced gradients by their global norm, so every
-        shard uses one norm;
+        global batch, split over the batch shards;
+      - runs the tensor-parallel loss
+        (:class:`~repro_torch.distributed.tensor_parallel.TensorParallelLoss`)
+        of each model shard on its batch shard's rows, forward and
+        backward touching only the shard's blocks of the split leaves;
+        the local batch shards run in lockstep. A MoE model whose batch
+        splits routes each layer's tokens over the whole batch group
+        (expert capacity and drops are one device's) and its aux loss is
+        the global batch's;
+      - weighs each batch shard's loss by its share of the microbatch's
+        unmasked labels over the microbatches (f32) inside the graph, so
+        the shards' gradients sum to the reference's mean (the aux loss,
+        alike on every batch shard, once); accumulates the gradients of
+        each shard's blocks in f32 and sums them over the batch shards
+        with the group's all-reduce (an all-gather and a sum in rank
+        order: the same bits on logical shards and ranks, every rank
+        alike);
+      - clips the reduced gradients by their global norm, each element
+        counted once: a split leaf's squares summed over ``model``, a
+        replicated leaf's taken once;
       - updates each shard's own slices of params, ``m`` and ``v`` with
-        AdamW, element by element; under ``zero1`` (params laid out unlike
-        their moments) the updated slices are all-gathered and placed by
-        the params' specs.
+        AdamW, element by element (under ``zero1``, where a moment is laid
+        out unlike its param, from the param and gradient gathered
+        whole); the updated slices are placed by the params' specs.
 
-    Unlike :func:`make_train_step` the gradients accumulate in f32 at one
-    microbatch too. Tensor-parallel compute is not part of it: every shard
-    runs the whole model on its rows. A model whose rows are coupled (MoE
-    expert capacity and its aux loss are reckoned over the call's tokens)
-    refuses a split batch. metrics: ``loss``, ``ce_loss`` and ``aux_loss``
-    (the last microbatch's) over the global batch, ``grad_norm``, ``lr``,
-    and ``collective_bytes``/``collective_s``, what the step's gathers and
-    reductions moved into one shard and their measured seconds."""
+    Under ``dp_over_model`` the specs drop ``model`` and the step is
+    data-parallel over both axes. metrics: ``loss``, ``ce_loss`` and
+    ``aux_loss`` (the last microbatch's) over the global batch,
+    ``grad_norm``, ``lr``, and ``collective_bytes``/``collective_s``:
+    what the step's collectives moved into one shard, and their measured
+    seconds. The bytes count the params' gather over ``data``; in the
+    forward pass the reductions of the embedding, of each mixer and FFN
+    half and of Mamba's ``bcdt``, and the gathers of the vocabulary-split
+    logits, of rwkv6's heads and receptance, of Mamba's ``w_in`` and of a
+    split MoE batch's rows; the same again in remat's recompute; in the
+    backward pass the all-reduce of every ``copy_to``'s cotangents; then
+    the gradients' all-reduce over the batch shards, the norm's over
+    ``model`` and the three metrics'."""
     from repro_torch.distributed import sharding
-    from repro_torch.distributed.collectives import mark_seconds, take_all
+    from repro_torch.distributed.collectives import (LocalGroup,
+                                                     mark_seconds, take_all)
+    from repro_torch.distributed.tensor_parallel import (TensorParallelLoss,
+                                                         model_dim)
 
     named = sharding.to_named(mesh, sspecs)
     axis = next(iter(bspecs.values()))[0]
-    group = mesh.group(axis) if axis is not None else None
-    shards = list(group.local) if group is not None else [0]
-    n = group.size if group is not None else 1
-    if n > 1 and model.rows_coupled:
-        raise NotImplementedError(
-            f"{model.cfg.family} couples a call's rows (expert capacity, aux "
-            f"loss), so its batch does not split over a mesh yet "
-            f"(ROADMAP.md queue A item 21 part 3c)")
+    bg = mesh.group(axis) if axis is not None else LocalGroup(1, mesh.device)
+    tp = 1 if model.cfg.parallel.dp_over_model else mesh.shape["model"]
+    mg = mesh.groups["model"] if tp > 1 else LocalGroup(1, mesh.device)
+    fwd = TensorParallelLoss(model, mg, bg if model.rows_coupled
+                             and bg.size > 1 else None)
+    pspecs = dict(tree_leaves_with_names(sspecs.params))
+    split = {n: tp > 1 and model_dim(sp) >= 0 for n, sp in pspecs.items()}
     groups = (mesh.groups["data"], mesh.groups["model"], mesh.flat)
+    bl, ml = list(bg.local), list(mg.local)
 
-    def reduce(parts):
-        return parts[0] if group is None else group.all_reduce(parts)
+    def blocks_of(name, x):
+        """{local model shard: its block gathered over data}, or {None:
+        the whole leaf} for a leaf not split over model."""
+        if split[name]:
+            return sharding.gather_over(x, "data")
+        return {None: sharding.gather_leaf(x)}
 
     def train_step(state: TrainState, batch):
         take_all(groups)
         device = mesh.device
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         rows = next(iter(batch.values())).shape[0]
-        if rows % (microbatches * n):
+        if rows % (microbatches * bg.size):
             raise ValueError(f"a batch of {rows} rows does not split into "
-                             f"{microbatches} microbatches over {n} shards")
-        per_mb, per_shard = rows // microbatches, rows // microbatches // n
-        params = sharding.gather(state.params)
-        acc = {s: tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=device), params)
-            for s in shards}
-        stats = {s: torch.zeros(3, dtype=torch.float32, device=device)
-                 for s in shards}
-        for i in range(microbatches):
-            lo = i * per_mb
+                             f"{microbatches} microbatches over {bg.size} "
+                             f"shards")
+        per_mb = rows // microbatches
+        per_shard = per_mb // bg.size
+        blocks = {n: blocks_of(n, x)
+                  for n, x in tree_leaves_with_names(state.params)}
+        # an autograd leaf per (name, batch shard, model shard or None)
+        leaves: Dict[tuple, torch.Tensor] = {}
+
+        def leaf(i, m, name, _):
+            key = (name, i, m if split[name] else None)
+            if key not in leaves:
+                leaves[key] = blocks[name][key[2]].detach().requires_grad_()
+            return leaves[key]
+
+        trees = [[tree_map_with_names(functools.partial(leaf, i, m),
+                                      state.params) for m in ml]
+                 for i in range(len(bl))]
+        keys = list(leaves)
+        acc = {}          # the weighted gradients, f32 over microbatches
+        stats = [torch.zeros(3, dtype=torch.float32, device=device)
+                 for _ in bl]
+        for mb in range(microbatches):
+            lo = mb * per_mb
             count = (batch["labels"][lo:lo + per_mb] >= 0).sum().clamp(min=1)
-            for s in shards:
-                part = {k: v[lo + s * per_shard:lo + (s + 1) * per_shard]
-                        for k, v in batch.items()}
-                share = (part["labels"] >= 0).sum() / count
-                loss, metrics, grads = value_and_grad(model, params, part)
-                w = share / microbatches
-                tree_map(lambda a, g: a.add_(g.float() * w), acc[s], grads)
-                del grads
-                stats[s][0] += loss.float() * w
-                if i == microbatches - 1:
-                    stats[s][1:] = torch.stack([metrics["ce_loss"].float(),
-                                                metrics["aux_loss"].float()
-                                                ]) * share
+            parts = [{k: v[lo + s * per_shard:lo + (s + 1) * per_shard]
+                      for k, v in batch.items()} for s in bl]
+            shares = [(p["labels"] >= 0).sum() / count for p in parts]
+            with torch.enable_grad():
+                outs = fwd.loss(trees, parts)
+                terms = [loss * (share / microbatches)
+                         for (loss, _, _), share in zip(outs, shares)]
+                grads = torch.autograd.grad(
+                    terms, [leaves[k] for k in keys], allow_unused=True,
+                    materialize_grads=True)
+            for k, g in zip(keys, grads):
+                if microbatches == 1:
+                    acc[k] = g          # made f32 as it is reduced
+                elif k in acc:
+                    acc[k].add_(g.float())
+                else:
+                    acc[k] = g.float()
+            del grads
+            for i, ((loss, ce, aux), share) in enumerate(zip(outs, shares)):
+                stats[i][0] += loss.detach().float() * share / microbatches
+                if mb == microbatches - 1:
+                    stats[i][1:] = torch.stack([ce.detach().float(),
+                                                aux.detach().float()]) * share
+            del outs, terms
+        names = list(blocks)
+        del trees, leaves, blocks
         with torch.no_grad():
-            grads = tree_map(lambda *parts: reduce(list(parts)),
-                             *[acc[s] for s in shards])
-            del acc
-            loss, ce, aux = reduce([stats[s] for s in shards])
-            grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+            grads = {}
+            for n in names:
+                for j, m in enumerate(ml if split[n] else [None]):
+                    with bg.counted(bg.counting and j == 0):
+                        # contiguous, as a rank's gathered parts are: a
+                        # sum's order follows the layout
+                        grads[n, m] = bg.all_reduce(
+                            [acc.pop((n, i, m)).float().contiguous()
+                             for i in range(len(bl))])
+            loss, ce, aux = bg.all_reduce(stats)
+            gnorm = _global_norm(grads, names, split, mg, ml)
+            scale = torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+            for g in grads.values():
+                g.mul_(scale)
             step = sharding.gather_leaf(state.opt.step) + 1
             scalars = adamw_scalars(opt_cfg, step)
 
-            def update(p, g, m, v, p_named):
+            def update(name, p, m, v, p_named):
                 """New placed (param, m, v): each block of the moments
-                updates the same region of the param."""
-                mspec = m.named.spec
+                updates the same region of the param: the param's own
+                block, or under ``zero1`` (moments laid out unlike the
+                param) a region of the param gathered whole."""
+                mspec, pspec = tuple(m.named.spec), tuple(p_named.spec)
+                mdim = model_dim(pspec)
+                same = pspec == mspec
+                if not same:
+                    whole_p = sharding.gather_leaf(p)
+                    whole_g = (mg.all_gather([grads[name, k] for k in ml],
+                                             mdim) if split[name]
+                               else grads[name, None])
                 new_p, new_m, new_v = {}, {}, {}
                 for key, m_block in m.blocks.items():
-                    region = lambda t: sharding.narrow(t, mspec, mesh, key)
+                    if not same:
+                        pr, gr = (sharding.narrow(t, mspec, mesh, key)
+                                  for t in (whole_p, whole_g))
+                    elif split[name]:
+                        pr, gr = p.blocks[key], sharding.narrow(
+                            grads[name, key[mdim]], tuple(
+                                None if a == "model" else a for a in mspec),
+                            mesh, key)
+                    else:
+                        pr = p.blocks[key]
+                        gr = sharding.narrow(grads[name, None], mspec, mesh,
+                                             key)
                     new_p[key], new_m[key], new_v[key] = adamw_leaf(
-                        opt_cfg, scalars, region(p), region(g), m_block,
-                        v.blocks[key])
+                        opt_cfg, scalars, pr, gr, m_block, v.blocks[key])
                 moments = (sharding.Placed(m.named, m.shape, m.dtype, new_m),
                            sharding.Placed(v.named, v.shape, v.dtype, new_v))
                 placed = sharding.Placed(m.named, p.shape, p.dtype, new_p)
-                if tuple(p_named.spec) != tuple(mspec):
+                if not same:
                     placed = sharding.place_leaf(placed, p_named)
                 else:
                     placed.named = p_named
                 return (placed,) + moments
 
-            out = tree_map(update, params, grads, state.opt.m, state.opt.v,
-                           named.params)
+            out = tree_map_with_names(update, state.params, state.opt.m,
+                                      state.opt.v, named.params)
             new_p, new_m, new_v = (tree_map(lambda o: o[j], out)
                                    for j in range(3))
             new_state = TrainState(new_p, OptState(
@@ -242,6 +323,24 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh,
                            "collective_s": sum(map(mark_seconds, marks))}
 
     return train_step
+
+
+def _global_norm(grads, names, split, mg, ml) -> torch.Tensor:
+    """The global norm of the reduced gradients ``grads[name, model
+    shard]`` with every element counted once: each split leaf's squares
+    summed over ``model`` (one all-reduce of the leaves' partial sums), a
+    replicated leaf's squares taken once; the leaves summed in the
+    reference's order (:func:`~repro_torch.train.optimizer.global_norm`'s
+    sum on one device)."""
+    sums = {}
+    cut = [n for n in names if split[n]]
+    if cut:
+        sums.update(zip(cut, mg.all_reduce([torch.stack(
+            [grads[n, m].square().sum() for n in cut]) for m in ml])))
+    for n in names:
+        if not split[n]:
+            sums[n] = grads[n, None].square().sum()
+    return torch.stack([sums[n] for n in names]).sum().sqrt()
 
 
 @dataclasses.dataclass

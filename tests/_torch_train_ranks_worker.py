@@ -2,8 +2,10 @@
 (CPU ranks), and what the parent runs on logical shards to compare: the
 port's sharded train step on smoke deepseek-7b over a ``data x model``
 mesh, a sealed checkpoint of the placed state saved and restored, one more
-step; and GPipe over the mesh's ``model`` group. Imports torch and
-repro_torch only, so a spawned rank starts quickly."""
+step; on the 2 x 2 mesh also smoke dbrx and jamba with their batch split
+over ``data`` at a capacity factor that drops; and GPipe over the mesh's
+``model`` group. Imports torch and repro_torch only, so a spawned rank
+starts quickly."""
 
 from datetime import timedelta
 
@@ -15,6 +17,10 @@ import torch
 BATCH, SEQ, MICROBATCHES = 8, 16, 2
 STEPS = 2
 KEY = b"train-ranks"
+# MoE archs trained on the 2 x 2 mesh, at a capacity factor that drops
+MOE_ARCHS = ("dbrx-132b", "jamba-v0.1-52b")
+MOE_SHAPE = (2, 2)
+MOE_CAPACITY = 1.0
 
 
 def batches():
@@ -80,6 +86,42 @@ def train(shape, ckpt_dir, device="cpu"):
                     mesh, sspecs))
 
 
+def moe_train(arch, shape, device="cpu"):
+    """STEPS sharded steps of smoke ``arch`` at MOE_CAPACITY over a
+    ``shape`` mesh, its batch split over ``data``: the whole final state,
+    the losses and the last step's collective bytes."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (abstract_train_state,
+                                              init_train_state,
+                                              make_sharded_train_step)
+
+    cfg = smoke_config(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_CAPACITY))
+    model = build_model(cfg, device=device)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    mesh = make_host_mesh(*shape, device=device)
+    sspecs = sharding.state_specs(cfg, abstract_train_state(model, opt), mesh)
+    data = list(batches())
+    state = sharding.place(init_train_state(model, opt, seed=0),
+                           sharding.to_named(mesh, sspecs))
+    step = make_sharded_train_step(
+        model, opt, mesh, sspecs, sharding.batch_specs(cfg, data[0], mesh),
+        microbatches=MICROBATCHES)
+    losses = []
+    for b in data[:STEPS]:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    return dict(final=_whole(state), losses=losses,
+                bytes=metrics["collective_bytes"])
+
+
 def gpipe_inputs(stages=2, d=16):
     rng = np.random.default_rng(5)
     ws = torch.from_numpy((rng.standard_normal((stages, d, d)) * 0.3
@@ -110,6 +152,8 @@ def rank_main(rank, world, init_file, shape, out_dir, with_gpipe):
                             timeout=timedelta(seconds=120))
     try:
         out = train(shape, f"{out_dir}/ckpt")
+        if tuple(shape) == MOE_SHAPE:
+            out["moe"] = {a: moe_train(a, shape) for a in MOE_ARCHS}
         if with_gpipe:
             from repro_torch.launch.mesh import make_host_mesh
             out["gpipe"] = gpipe(make_host_mesh(1, world,

@@ -180,12 +180,13 @@ def test_out_of_slice_options_raise(models):
     _, _, tm, tp = models
     kw = dict(CANONICAL_ENGINE, device="cpu")
     paged = dict(kv_backend="paged", page_size=8)
-    # dp and tp meshes are in the slice for the decoder families; tensor
-    # parallelism for the encdec family is not
+    # dp and tp meshes serve the decoder families; neither package serves
+    # the encdec family on a mesh
     assert TEngine(tm, tp, **kw,
                    mesh="dp=2,tp=2").plan.tensor_parallel.tp == 2
     encdec = tbuild(tsmoke("whisper-small"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 21"):
+    with pytest.raises(NotImplementedError,
+                       match="neither package serves this family"):
         TEngine(encdec, None, **kw, mesh="dp=2,tp=2")
     assert TEngine(tm, tp, **kw, mesh="dp=2").plan.dp == 2
     # the store and two-phase serving are in the slice

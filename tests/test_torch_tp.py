@@ -181,12 +181,14 @@ def test_tp1_mesh_is_bit_equal_to_one_device():
 
 @pytest.mark.parametrize("arch", ["whisper-small"])
 def test_other_families_refuse_tp(arch):
-    """tp > 1 on the encdec family names ROADMAP item 21 part 3c (the
+    """Serving the encdec family on a tp > 1 mesh raises: neither package
+    serves it (it trains on a mesh: tests/test_torch_tp_train.py; the
     decoder families are served: tests/test_torch_tp_families.py,
     tests/test_torch_tp_jamba.py, tests/test_torch_tp_rwkv.py)."""
     model = tbuild(tsmoke(arch), device="cpu")
     side = Side(True, models(2))
-    with pytest.raises(NotImplementedError, match="item 21 part 3c"):
+    with pytest.raises(NotImplementedError,
+                       match="neither package serves this family"):
         side.Engine(model, None, mesh="tp=2", device="cpu")
 
 

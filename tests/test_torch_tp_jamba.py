@@ -10,8 +10,8 @@ stats, the audit log, page tables and every sealed name; one decode step's
 logits are within a stated f32 tolerance of one device's, on tp=2 and on
 dp=2,tp=2 (whose canonical tokens are the port's one-device tokens); blobs
 (the recurrent rows with the pages) cross between the packages both ways.
-Training jamba with its batch split over ``data`` still raises, naming the
-part of ROADMAP item 21 that holds it.
+Training jamba with its batch split over ``data`` (each MoE layer routing
+the global batch) gives the one-device step's losses and updates.
 
 Planted faults fail these tests (each tried on a copy of the package):
 giving each shard a contiguous block of ``w_in``'s columns (shard 0 all of
@@ -145,19 +145,41 @@ def test_tp_jamba_blobs_cross_packages():
 
 def test_moe_split_batch_in_training_names_part_3c():
     """Training jamba (MoE: expert capacity and the aux loss couple a
-    call's rows) with its batch split over ``data`` still raises, naming
-    ROADMAP item 21 part 3c."""
+    call's rows) with its batch split over ``data`` at a capacity factor
+    that drops (1.0): two steps on data=2 give the one-device step's
+    losses and aux losses within 1e-4 and each leaf's update within 1e-2
+    of its norm (tests/test_torch_sharded_train.py's tolerances)."""
+    from repro_torch.core.sealing import tree_leaves_with_names
     from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import optimizer, train_loop
+    from test_torch_sharded_train import DELTA_TOL, OPT, STEP_LOSS_TOL
 
-    model = models(ARCH)[2]
-    opt = optimizer.AdamWConfig()
+    model, params = models(ARCH, capacity_factor=1.0)[2:]
+    opt = optimizer.AdamWConfig(**OPT)
+    state = train_loop.TrainState(params, optimizer.init_opt_state(opt,
+                                                                   params))
     mesh = make_host_mesh(2, 1, device="cpu")
     sspecs = sharding.state_specs(
         model.cfg, train_loop.abstract_train_state(model, opt), mesh)
-    batch = {k: torch.zeros((4, 8), dtype=torch.int32)
-             for k in ("tokens", "labels")}
-    bspecs = sharding.batch_specs(model.cfg, batch, mesh)
-    with pytest.raises(NotImplementedError, match="item 21 part 3c"):
-        train_loop.make_sharded_train_step(model, opt, mesh, sspecs, bspecs)
+    rng = np.random.default_rng(5)
+    batches = [{k: rng.integers(lo, 256, (4, 16)).astype(np.int32)
+                for k, lo in (("tokens", 0), ("labels", -1))}
+               for _ in range(2)]
+    step = train_loop.make_sharded_train_step(
+        model, opt, mesh, sspecs,
+        sharding.batch_specs(model.cfg, batches[0], mesh))
+    one_step = train_loop.make_train_step(model, opt)
+    placed = sharding.place(state, sharding.to_named(mesh, sspecs))
+    one = before = state
+    for b in batches:
+        placed, m = step(placed, b)
+        one, m1 = one_step(one, b)
+        for k in ("loss", "aux_loss"):
+            assert abs(float(m[k]) - float(m1[k])) < STEP_LOSS_TOL, k
+    got = sharding.gather(placed.params)
+    for (n, a), (_, w), (_, p) in zip(tree_leaves_with_names(got),
+                                      tree_leaves_with_names(one.params),
+                                      tree_leaves_with_names(before.params)):
+        moved = (w - p).norm()
+        assert float((a - w).norm() / moved.clamp_min(1e-30)) < DELTA_TOL, n

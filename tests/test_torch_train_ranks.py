@@ -8,7 +8,9 @@ On dp=2 over 2 ranks and dp=2,tp=2 over 4, every rank's state after the
 sharded steps, after a sealed save and restore onto its shards and after
 one more step equals the logical run's bit for bit, with the same losses
 and collective bytes; global rank 0 alone writes, and the files are the
-logical run's byte for byte. GPipe over 2 ranks equals a LocalGroup(2),
+logical run's byte for byte. On dp=2,tp=2 smoke dbrx and jamba, their
+batch split over ``data`` at capacity factor 1.0, equal the logical run's
+bit for bit too. GPipe over 2 ranks equals a LocalGroup(2),
 forward and gradient. The launcher under ``torchrun --nproc-per-node 4``
 with ``--data-mesh 2 --model-mesh 2`` prints the logical run's losses and
 writes its checkpoint files, which restore onto a (4, 1) mesh through
@@ -89,6 +91,19 @@ def test_sharded_training_ranks_equal_logical(name, tmp_path,
     step = f"step_{W.STEPS}"
     assert _files(ranks[0]["ckpt"] / step) == _files(tmp_path / "logical" /
                                                     step)
+
+
+@pytest.mark.parametrize("arch", W.MOE_ARCHS)
+def test_moe_split_batch_ranks_equal_logical(arch, tmp_path_factory):
+    """A MoE arch trained with its batch split over ``data`` on dp=2,tp=2:
+    every rank's whole state after the steps equals the logical run's bit
+    for bit (each MoE layer's rows gathered over ``data``, routed and
+    reduced in rank order on both), with the same losses and bytes."""
+    want = _one_thread(W.moe_train, arch, W.MOE_SHAPE)
+    for r, got in enumerate(_ranks("dp2tp2", tmp_path_factory)):
+        _same(got["moe"][arch]["final"], want["final"])
+        assert got["moe"][arch]["losses"] == want["losses"], r
+        assert got["moe"][arch]["bytes"] == want["bytes"] > 0
 
 
 def test_gpipe_over_ranks_matches_local_group(tmp_path_factory):
