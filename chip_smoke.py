@@ -171,7 +171,14 @@ Phases, each fatal on failure:
      capacity factor 1.0 (tokens dropped, each MoE layer routing the
      global batch) and whisper-small at full size on model=2 (bf16, and an
      f32 witness), each against one device with its params kept on the
-     host;
+     host. Beside these phases a subprocess runs the dry run
+     (launch/dryrun.py, fake tensors on the card's torch): the training
+     cut on 1 x 1, model=2 and 2 x 2 dry meshes, the TP path's tp=2 decode
+     step and deepseek-7b's production cells (DRY_CELLS); after phase 8
+     its counts are held to the runs above (phase_dryrun): collective
+     bytes equal to train_step_bytes, tp_step_bytes and the bytes counted,
+     FLOPs x n_chips equal to the real steps' FlopCounterMode counts, the
+     1 x 1 footprint within DRY_MEM_TOL of a 1 x 1 step's peak memory;
   8. int8 weight path: the same model's weights quantized on the card
      (quant.quantize_params), sealed, attested and unsealed bit for bit,
      then ops.qmm (B5) on layer 0's unsealed w_gate, w_up and w_down (and
@@ -203,6 +210,7 @@ Imports nothing of JAX or of the reference package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -3769,21 +3777,29 @@ def shard_data(cursor, batch, seq):
     return it
 
 
-def timed_steps(torch, step, state, data, n: int):
+def timed_steps(torch, step, state, data, n: int, flops: bool = False):
     """``n`` steps of ``step`` from ``state`` on batches drawn from
     ``data``, CUDA events around each: (state, {"losses", "nbytes",
     "coll_s", "step_ms", "peak"}), the collectives' bytes and seconds (0
     for a one-device step) and the peak device memory since the first
-    step. A caller that passes its only reference to ``state`` lets each
-    step's old state go once the next exists."""
+    step; with ``flops`` also "flops", the first step's FlopCounterMode
+    count (its time then holds the counter's host work: medians skip the
+    first step). A caller that passes its only reference to ``state`` lets
+    each step's old state go once the next exists."""
+    from torch.utils.flop_counter import FlopCounterMode
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events, rec = [], {"losses": [], "nbytes": [], "coll_s": []}
-    for _ in range(n):
+    for i in range(n):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        counter = (FlopCounterMode(display=False) if flops and i == 0
+                   else contextlib.nullcontext())
         e0.record()
-        state, m = step(state, next(data))
+        with counter:
+            state, m = step(state, next(data))
+        if flops and i == 0:
+            rec["flops"] = counter.get_total_flops()
         e1.record()
         events.append((e0, e1))
         rec["losses"].append(float(m["loss"]))
@@ -3856,7 +3872,7 @@ def tp_llama(torch, np, model, cfg, opt, batch, placed0, params0,
             microbatches=cfg.parallel.microbatches)
         state, rec = timed_steps(torch, step, sharding.place(placed0, named),
                                  shard_data(0, SHARD_BATCH, SHARD_SEQ),
-                                 SHARD_STEPS)
+                                 SHARD_STEPS, flops=True)
         gaps = update_gaps(torch, state.params, params_one, params0)
         rec["worst"] = max(gaps, key=gaps.get)
         rec["update_gap"] = gaps[rec["worst"]]
@@ -4109,14 +4125,19 @@ def phase_sharded_train(torch, np) -> dict:
     batch = next(shard_data(0, SHARD_BATCH, SHARD_SEQ))
 
     # one device on the same global batches (comparison only): each step's
-    # loss, and its params after the last step
+    # loss, and its params after the last step; the first step's FLOPs
+    from torch.utils.flop_counter import FlopCounterMode
     state0 = init_train_state(model, opt, seed=0)
     one_step = make_train_step(model, opt, microbatches=mb)
     one, losses_one = state0, []
     data = shard_data(0, SHARD_BATCH, SHARD_SEQ)
-    for _ in range(SHARD_STEPS):
-        one, m1 = one_step(one, next(data))
+    for i in range(SHARD_STEPS):
+        with FlopCounterMode(display=False) if i == 0 else \
+                contextlib.nullcontext() as fc:
+            one, m1 = one_step(one, next(data))
         losses_one.append(float(m1["loss"]))
+        if i == 0:
+            one_flops = fc.get_total_flops()
     params0, params_one = state0.params, one.params
     del one, m1, one_step
 
@@ -4128,6 +4149,24 @@ def phase_sharded_train(torch, np) -> dict:
             model, opt, mesh, sspecs, sharding.batch_specs(cfg, batch, mesh),
             microbatches=mb)
         return mesh, sspecs, sharding.to_named(mesh, sspecs), step
+
+    # the dry run's 1 x 1 cell (comparison only): one sharded step on a
+    # 1 x 1 mesh, its FLOPs and its peak device memory with its state
+    _, _, named_1, step_1 = build((1, 1))
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    placed_1 = sharding.place(state0, named_1)
+    with FlopCounterMode(display=False) as fc:
+        out_1 = step_1(placed_1, batch)
+        float(out_1[1]["loss"])
+    flops_1 = fc.get_total_flops()
+    torch.cuda.synchronize()
+    peak_1 = torch.cuda.max_memory_allocated() - before
+    del placed_1, out_1, step_1
+    gc.collect()
+    torch.cuda.empty_cache()
 
     mesh_a, _, named_a, step_a = build(SHARD_MESH)
     placed0 = sharding.place(state0, named_a)
@@ -4300,7 +4339,8 @@ def phase_sharded_train(torch, np) -> dict:
                 resume_s=times["resume"], sealed_bytes=sealed_bytes, b1=b1,
                 resumed_loss=resumed_loss, at=at, ranks=ranks,
                 ranks_want=want, ranks_s=ranks_s, gpipe=gp, tp=tp,
-                launch_s=launch_s, launcher=lines,
+                launch_s=launch_s, launcher=lines, one_flops=one_flops,
+                flops_1=flops_1, peak_1=peak_1,
                 path_s=time.perf_counter() - t_path)
 
 
@@ -4566,6 +4606,192 @@ def print_tp_train(r, smi) -> None:
                 f"{one['peak']} B) {card}")
     print(f"    the path {r['path_s']:.2f} s; launches {r['launches']} "
           f"{card}")
+
+
+# the dry run (launch/dryrun.py) held to runs the card makes. Its
+# lowerings run in a subprocess started before the training phases, on the
+# card's own torch, while those phases use the card: fake tensors name
+# cuda and nothing is allocated (indexing a fake CUDA tensor takes a device
+# guard, so the subprocess holds a CUDA context and no tensor). The
+# training cut
+# of phase_sharded_train (FSDP, SHARD_BATCH x SHARD_SEQ tokens, 8
+# microbatches) on each of DRY_TRAIN_MESHES, the TP path's tp=2 slot
+# decode step (ENGINE_KW's rows and cache), and DRY_CELLS at production
+# size. Written down before the first run (PERF.md §6): the collective
+# bytes equal train_step_bytes / tp_step_bytes and the bytes the real runs
+# counted, exactly; the FLOPs x n_chips equal the real logical-shard
+# step's FlopCounterMode count (on 1 x 1 the sharded step on a 1 x 1 mesh),
+# exactly, and on 1 x 1 also the one-device step's plus the one op the two
+# programs differ by (the sharded loss runs remat's recompute with early
+# stop off, so each layer's FFN down projection is recomputed, 2 x tokens
+# x d_ff x d a layer); the 1 x 1 footprint (argument + temporary + output
+# bytes) within DRY_MEM_TOL of that 1 x 1 step's max_memory_allocated with
+# its placed state, less what was allocated before it (the same program;
+# the card adds the allocator's 512 B rounding and cuBLAS's workspace)
+DRY_TRAIN_MESHES = [(1, 1), (1, 2), (2, 2)]
+DRY_MEM_TOL = 0.05
+DRY_CELLS = [("deepseek-7b", "train_4k", False),
+             ("deepseek-7b", "prefill_32k", False),
+             ("deepseek-7b", "decode_32k", False),
+             ("deepseek-7b", "decode_32k", True)]
+DRY_TIMEOUT_S = 900
+
+
+def dryrun_worker(out_path: str) -> int:
+    """The dry lowerings phase_dryrun checks (run as ``chip_smoke.py
+    --dryrun-worker OUT``; fake tensors, nothing on the card): a JSON
+    record of each, with its host seconds."""
+    import dataclasses
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_dry_mesh
+
+    t0 = time.perf_counter()
+    out = {"torch": torch.__version__, "train": {}, "cells": []}
+    cfg = train_config(fsdp=True)
+    shape = ShapeConfig("train", SHARD_SEQ, SHARD_BATCH, "train")
+    for dp, tp in DRY_TRAIN_MESHES:
+        low = D.lower_step(cfg, shape, make_dry_mesh({"data": dp,
+                                                      "model": tp}))
+        out["train"][f"{dp}x{tp}"] = dataclasses.asdict(low)
+    serve = ShapeConfig("decode", ENGINE_KW["max_len"],
+                        ENGINE_KW["max_slots"], "decode")
+    low = D.lower_step(get_config("llama2-7b"), serve,
+                       make_dry_mesh({"data": 1, "model": 2}))
+    out["serve"] = dataclasses.asdict(low)
+    for arch, shape_name, multi_pod in DRY_CELLS:
+        t = time.perf_counter()
+        rec = D.lower_cell(arch, shape_name, multi_pod=multi_pod,
+                           verbose=False).to_dict()
+        rec["compile_s"] = time.perf_counter() - t
+        out["cells"].append(rec)
+    out["seconds"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def start_dryrun():
+    """The dry run's subprocess and its output path."""
+    out = Path(__file__).resolve().parent / "build" / "dryrun_phase.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun-worker", str(out)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, out, time.perf_counter()
+
+
+def phase_dryrun(torch, proc, out_path, started, sh_tr, sv) -> dict:
+    """Wait for the dry run's subprocess and hold its records to the runs
+    the card made: the training cut on DRY_TRAIN_MESHES (bytes, FLOPs, the
+    1 x 1 footprint), the tp=2 decode step's bytes, the production
+    cells' terms."""
+    try:
+        stdout, stderr = proc.communicate(timeout=DRY_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"the dry run took over {DRY_TIMEOUT_S}s")
+    waited = time.perf_counter()
+    check(proc.returncode == 0 and out_path.exists(),
+          f"the dry run's subprocess ran (rc {proc.returncode}): "
+          f"{stdout[-400:]} {stderr[-1600:]}")
+    rec = json.loads(out_path.read_text())
+    cfg = train_config(fsdp=True)
+    tokens = SHARD_BATCH * SHARD_SEQ
+    measured = {(1, 1): dict(nbytes=0, flops=sh_tr["flops_1"])}
+    recompute = 2 * tokens * cfg.d_ff * cfg.d_model * cfg.num_layers
+    check(sh_tr["flops_1"] == sh_tr["one_flops"] + recompute,
+          f"the 1 x 1 sharded step's FLOPs ({sh_tr['flops_1']:.6g}) are the "
+          f"one-device step's ({sh_tr['one_flops']:.6g}) plus the FFN down "
+          f"projections remat recomputes with early stop off "
+          f"({recompute:.6g})")
+    for shape in TP_TRAIN_MESHES:
+        t = sh_tr["tp"][shape]
+        measured[shape] = dict(nbytes=t["nbytes"][0], flops=t["flops"])
+    train = {}
+    for (dp, tp), want in measured.items():
+        low = rec["train"][f"{dp}x{tp}"]
+        coll = sum(low["collectives"].values())
+        expect = train_step_bytes(cfg, dp, tp, tokens // dp)
+        check(coll == expect == want["nbytes"],
+              f"the dry run's {coll:.0f} collective B a step on {dp} x {tp} "
+              f"== train_step_bytes' {expect} == the real run's "
+              f"{want['nbytes']}")
+        check(low["flops"] * dp * tp == want["flops"],
+              f"the dry run's FLOPs x {dp * tp} on {dp} x {tp} "
+              f"({low['flops'] * dp * tp:.6g}) == the real step's "
+              f"FlopCounterMode count ({want['flops']:.6g})")
+        train[dp, tp] = dict(low, coll=coll, expect=expect,
+                             measured_b=want["nbytes"],
+                             measured_f=want["flops"])
+    one = rec["train"]["1x1"]
+    hbm = one["arg_bytes"] + one["temp_bytes"] + one["out_bytes"]
+    gap = abs(hbm - sh_tr["peak_1"]) / sh_tr["peak_1"]
+    check(gap <= DRY_MEM_TOL,
+          f"the dry run's 1 x 1 footprint {hbm} B is within {DRY_MEM_TOL} "
+          f"of the 1 x 1 step's peak with its state {sh_tr['peak_1']} B "
+          f"({gap:.4f})")
+    serve = rec["serve"]
+    coll = sum(serve["collectives"].values())
+    from repro_torch.configs import get_config
+    want = sv["tp"]["slot"]["per_step"]
+    expect = tp_step_bytes(get_config("llama2-7b"), ENGINE_KW["max_slots"], 2)
+    check(coll == expect == want,
+          f"the dry run's tp=2 decode step moves {coll:.0f} B == "
+          f"tp_step_bytes' {expect} == the TP path's {want}")
+    for c in rec["cells"]:
+        check(c["n_chips"] == (512 if c["mesh"] == "2x16x16" else 256)
+              and c["compute_s"] > 0 and c["memory_s"] > 0
+              and c["collective_s"] > 0,
+              f"the production cell {c['arch']} x {c['shape']} x "
+              f"{c['mesh']} lowered with every term positive")
+    return dict(rec=rec, train=train, hbm=hbm, mem_gap=gap, serve_b=coll,
+                peak_1=sh_tr["peak_1"], one_flops=sh_tr["one_flops"],
+                serve_expect=expect, waited=waited - started,
+                wait_s=time.perf_counter() - waited)
+
+
+def print_dryrun(r, smi) -> None:
+    card = f"[{smi}]"
+    rec = r["rec"]
+    for (dp, tp), t in r["train"].items():
+        print(f"  dry run, training cut on {dp} x {tp} (one fake rank, "
+              f"torch {rec['torch']}, {t['seconds']:.1f}s host): "
+              f"{t['coll']:.0f} collective B == train_step_bytes "
+              f"{t['expect']} == measured {t['measured_b']}; FLOPs x "
+              f"{dp * tp} {t['flops'] * dp * tp:.6g} == measured "
+              f"{t['measured_f']:.6g}"
+              + (f" (a 1 x 1 sharded step; the one-device step's "
+                 f"{r['one_flops']:.6g} plus the FFN down projections "
+                 f"remat recomputes)" if (dp, tp) == (1, 1) else "")
+              + f"; footprint args {t['arg_bytes']} + temp "
+                f"{t['temp_bytes']} + out {t['out_bytes']} B")
+    print(f"  dry run, 1 x 1 footprint {r['hbm']} B vs the 1 x 1 step's "
+          f"peak device memory with its state {r['peak_1']} B: "
+          f"{r['mem_gap']:.4f} apart (limit {DRY_MEM_TOL}) {card}")
+    print(f"  dry run, tp=2 slot decode step: {r['serve_b']:.0f} collective "
+          f"B == tp_step_bytes {r['serve_expect']} == the TP path's")
+    results = Path(__file__).resolve().parent / "results"
+    for c in rec["cells"]:
+        print("  dry run cell " + json.dumps(c))
+        name = ("torch_dryrun_multi_pod.json" if c["mesh"] == "2x16x16"
+                else "torch_dryrun_single_pod.json")
+        swept = ([r for r in json.loads((results / name).read_text())
+                  if (r["arch"], r["shape"]) == (c["arch"], c["shape"])]
+                 if (results / name).exists() else [])
+        if swept:
+            w = swept[0]
+            print(f"    against the committed CPU sweep ({name}): "
+                  + ", ".join(f"{k} {c[k] / w[k]:.6f}x" for k in (
+                      "flops_per_dev", "bytes_per_dev",
+                      "collective_bytes_per_dev", "hbm_bytes_per_dev")))
+    print(f"  dry run: subprocess {rec['seconds']:.1f}s host (beside the "
+          f"other phases), waited {r['wait_s']:.1f}s for it at the end")
 
 
 def phase_quant(torch, np) -> dict:
@@ -4874,6 +5100,7 @@ def main() -> int:
           "full size")
     fam = phase_families(torch, np)
     phase_t["families"] = time.perf_counter() - t_phase
+    dry = start_dryrun()     # fake tensors in a subprocess, beside the card
     t_phase = time.perf_counter()
     print(f"[7/9] training: llama2-7b at full width, {TRAIN_LAYERS} of 32 "
           f"layers, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
@@ -4906,6 +5133,15 @@ def main() -> int:
           "ops.qmm and ops.mha_flash on layer 0")
     qp = phase_quant(torch, np)
     phase_t["int8"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    print("  dry run (launch/dryrun.py): the training cut on "
+          + ", ".join(f"{d} x {m}" for d, m in DRY_TRAIN_MESHES)
+          + ", the tp=2 decode step and " + ", ".join(
+              f"{a} {s} on {'2x16x16' if mp else '16x16'}"
+              for a, s, mp in DRY_CELLS) + " under fake tensors")
+    dr = phase_dryrun(torch, *dry, sh_tr, sv)
+    phase_t["dry run (wait)"] = time.perf_counter() - t_phase
+    print_dryrun(dr, smi)
 
     st, ch = sv["stats"], sv["channel"]
     per_req = (sv["launches"] - sv["weight_launches"]) / sv["n_requests"]
@@ -5193,4 +5429,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-worker"]:
+        sys.exit(dryrun_worker(sys.argv[2]))
     sys.exit(main())

@@ -2,9 +2,9 @@
 ``repro.distributed.compat`` gives ``overlap.py`` and ``plan.py``:
 ``shard_map``, ``axis_size``, ``axis_index``, ``ppermute``, ``all_gather``).
 
-Two groups share one interface. A collective takes the list of per-shard
-tensors this process holds, in the order of ``group.local`` (the shard
-indices it computes), and returns what every one of them receives:
+Three groups share one interface. A collective takes the list of
+per-shard tensors this process holds, in the order of ``group.local`` (the
+shard indices it computes), and returns what every one of them receives:
 
   * :class:`LocalGroup` -- ``n`` logical shards in one process, on one
     device: ``local`` is every shard, and a collective is a sum or a
@@ -14,7 +14,13 @@ indices it computes), and returns what every one of them receives:
     NCCL when each rank has a card of its own and gloo otherwise (the CPU,
     or ranks sharing one card: NCCL refuses two ranks on one device);
     gloo's traffic is staged through host memory explicitly. A failed
-    collective raises; nothing falls back.
+    collective raises; nothing falls back;
+  * :class:`DryGroup` -- one rank's view of ``n`` ranks with nothing
+    behind the others (the dry run, ``launch/dryrun.py``): what the rank
+    receives is built from the shapes alone (an all-gather concatenates
+    ``n`` blocks, an all-reduce returns a tensor of its input's shape), in
+    the ops a :class:`RankGroup` runs, so fake tensors pass through it.
+    It counts bytes as :class:`RankGroup` does and times nothing.
 
 The all-reduce of both groups is an all-gather followed by a sum in rank
 order, so a result has the same bits whichever group computed it and
@@ -48,7 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -170,6 +176,77 @@ class Group:
     def measures(self) -> str:
         """What a collective's measured time is on this group."""
         raise NotImplementedError
+
+
+class DryGroup(Group):
+    """One rank's view of ``n`` ranks with no data behind the others: the
+    rank is shard ``index``, and every other shard's tensor is an empty
+    one of the rank's own shape and dtype. The results have the shapes and
+    the ops of :class:`RankGroup`'s (an all-reduce is an all-gather and a
+    sum in rank order), so a step under ``FakeTensorMode`` lowers to the
+    program a rank runs, and the bytes into one shard are counted alike,
+    and also by kind (``kinds``: all_gather, all_reduce, ppermute,
+    broadcast; cleared by the caller). Nothing is timed: a mark is 0
+    seconds."""
+
+    kind = "dry"
+
+    def __init__(self, n: int, device, index: int = 0):
+        super().__init__(device)
+        self.size = int(n)
+        self.local = [int(index)]
+        self.kinds: Dict[str, int] = {}
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        self._record(nbytes, 0.0)
+        if self.counting:
+            self.kinds[kind] = self.kinds.get(kind, 0) + nbytes
+
+    def _others(self, part: torch.Tensor, kind: str) -> Parts:
+        self._count(kind, (self.size - 1) * _nbytes(part))
+        return [part if i == self.local[0] else torch.empty_like(part)
+                for i in range(self.size)]
+
+    def all_gather_list(self, parts: Parts) -> Parts:
+        (part,) = parts
+        if self.size == 1:
+            return [part]
+        return self._others(part, "all_gather")
+
+    def all_gather(self, parts: Parts, dim: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.size == 1:
+            return parts[0] if out is None else out.copy_(parts[0])
+        return torch.cat(self.all_gather_list(parts), dim=dim, out=out)
+
+    def all_reduce(self, parts: Parts) -> torch.Tensor:
+        if self.size == 1:
+            return parts[0]
+        (part,) = parts
+        return rank_sum(self._others(part, "all_reduce"))
+
+    def ppermute(self, parts: Parts, perm) -> Parts:
+        (part,) = parts
+        got = sum(1 for _, dst in perm if dst == self.local[0])
+        self._count("ppermute", _nbytes(part) * got)
+        return [torch.zeros_like(part)]
+
+    def broadcast(self, t, src, shape, dtype):
+        self._count("broadcast", _numel(shape) * dtype.itemsize)
+        if self.local[0] == src:
+            return t
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    @property
+    def measures(self) -> str:
+        return "nothing: a dry run moves no data and times nothing"
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
 
 
 class LocalGroup(Group):

@@ -321,8 +321,8 @@ def block(leaf: torch.Tensor, spec: Spec, mesh, coords,
 
 
 def local_coords(mesh):
-    """The ``(data, model)`` coordinates this process computes: every
-    shard's on logical shards, the rank's own on a rank."""
+    """The coordinates (one index a mesh axis) this process computes:
+    every shard's on logical shards, the rank's own on a rank."""
     if mesh.spans_ranks:
         return [tuple(mesh.coords)]
     return [(d, m) for d in range(mesh.shape["data"])
@@ -375,6 +375,25 @@ def place_leaf(leaf, named: "NamedSharding") -> Placed:
             blocks[key] = narrow(leaf, spec, mesh, key).clone(
                 memory_format=torch.contiguous_format)
     return Placed(named, leaf.shape, leaf.dtype, blocks)
+
+
+def place_abstract(tree: Params, named: Params) -> Params:
+    """Every leaf of ``tree`` (shapes and dtypes: meta tensors) as a
+    :class:`Placed` leaf of empty blocks on the mesh's device, the blocks
+    of the shards this process computes (the dry run places its state so,
+    under fake tensors)."""
+    def one(leaf, nm):
+        mesh, spec = nm.mesh, tuple(nm.spec)
+        blocks: Dict[Tuple[int, ...], torch.Tensor] = {}
+        shape = [d // _axis_size(mesh, a) for d, a in zip(leaf.shape, spec)]
+        for coords in local_coords(mesh):
+            key = block_key(mesh, spec, coords)
+            if key not in blocks:
+                blocks[key] = torch.empty(shape, dtype=leaf.dtype,
+                                          device=mesh.device)
+        return Placed(nm, leaf.shape, leaf.dtype, blocks)
+
+    return tree_map(one, tree, named)
 
 
 def _merge(x: Placed, dims, out: Optional[torch.Tensor] = None

@@ -100,8 +100,9 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.distributed import collectives, sharding
 from repro_torch.models import layers, mla, moe, ssm, transformer
-from repro_torch.models.transformer import (_layer, _mamba_cfg, _mla_cfg,
-                                            _moe_cfg, _rwkv_cfg, _store)
+from repro_torch.models.transformer import (_layer, _layers, _mamba_cfg,
+                                            _mla_cfg, _moe_cfg, _rwkv_cfg,
+                                            _store)
 
 Params = Any
 
@@ -118,11 +119,30 @@ def refuse_family(cfg) -> None:
             f"hybrid and ssm families only")
 
 
+def replicated_kinds(cfg, tp: int, kinds) -> set:
+    """The layer kinds of ``kinds`` whose head count ``tp`` does not
+    divide: attention's query heads (whisper-small's 12 on ``model=16``)
+    or rwkv6's heads (rwkv6-3b's 40). As the reference's ``_fit`` leaves
+    such a dim whole, the part runs whole on every model shard: its leaves
+    that the spec still splits (rwkv6's ``d``-wide projections) are
+    gathered over ``model`` first, its output is not reduced, and in
+    training its gradients need no reduction over ``model``."""
+    out = set()
+    if kinds & {"attn", "mla"} and cfg.num_heads % tp:
+        out.add("attn")
+    if "rwkv" in kinds and _rwkv_cfg(cfg).num_heads % tp:
+        out.add("rwkv")
+    return out
+
+
 def check_divides(cfg, tp: int, kinds) -> None:
     """Raise unless ``tp`` divides every count the layer kinds ``kinds``
-    split over ``model``."""
+    split over ``model``; a kind of :func:`replicated_kinds` runs whole and
+    splits nothing."""
+    kinds = set(kinds)
+    rep = replicated_kinds(cfg, tp, kinds)
     need = {}
-    if kinds & {"attn", "mla"}:
+    if kinds & {"attn", "mla"} and "attn" not in rep:
         need["query heads"] = cfg.num_heads
     if kinds & {"swiglu", "cmix", "gelu"}:
         need["d_ff"] = cfg.d_ff
@@ -133,14 +153,30 @@ def check_divides(cfg, tp: int, kinds) -> None:
                                             * cfg.moe.num_shared_experts)
     if "mamba" in kinds:
         need["Mamba's d_inner"] = _mamba_cfg(cfg).d_inner
-    if "rwkv" in kinds:
-        need["rwkv heads"] = _rwkv_cfg(cfg).num_heads
     bad = {k: v for k, v in need.items() if v % tp}
     if bad:
         raise ValueError(
             f"tp={tp} must divide the "
             + " and ".join(f"{k} ({v})" for k, v in bad.items())
             + f" of {cfg.name}")
+
+
+def whole_leaves(subs, full, gather):
+    """A replicated part's params whole (:func:`replicated_kinds`): each
+    leaf of the local shards' subtrees ``subs`` that is a block over
+    ``model`` -- shorter on one dim than its ``full`` counterpart, a
+    layer-stacked meta tree -- gathered along that dim by ``gather(parts,
+    dim)``; a whole leaf is the first shard's."""
+    out = {}
+    for k, f in full.items():
+        if isinstance(f, dict):
+            out[k] = whole_leaves([t[k] for t in subs], f, gather)
+            continue
+        leaf, shape = subs[0][k], tuple(f.shape[1:])
+        diff = [i for i, (a, b) in enumerate(zip(leaf.shape, shape))
+                if a != b]
+        out[k] = gather([t[k] for t in subs], diff[0]) if diff else leaf
+    return out
 
 
 def layer_kinds(impl) -> set:
@@ -197,8 +233,12 @@ class TensorParallel:
         cfg = model.cfg
         refuse_family(cfg)
         self.cfg, self.impl = cfg, model._impl
-        self.tp, self.dp = mesh.shape["model"], mesh.shape["data"]
-        self.mg, self.dg = mesh.groups["model"], mesh.groups["data"]
+        self.tp = mesh.shape["model"]
+        # the batch's data shards: ``data``, led by ``pod`` on a multi-pod
+        # mesh
+        self.mg = mesh.groups["model"]
+        self.dg = mesh.group(sharding.dp_axes(mesh))
+        self.dp = self.dg.size
         # every layer in order: (block, repeat, slot key, mixer, ffn)
         self.slots = [(name, j, f"slot_{i}", m, f)
                       for name, n, slots in self.impl.blocks
@@ -206,6 +246,12 @@ class TensorParallel:
         kinds = layer_kinds(self.impl)
         h, hk = cfg.num_heads, cfg.num_kv_heads
         check_divides(cfg, self.tp, kinds)
+        self.replicated = replicated_kinds(cfg, self.tp, kinds)
+        if "attn" in self.replicated:
+            raise ValueError(f"tp={self.tp} must divide the query heads "
+                             f"({h}) of {cfg.name} to serve it")
+        # the layer-stacked meta params, for the replicated parts' shapes
+        self.full = model.abstract_params() if self.replicated else None
         self.sp = "attn" in kinds and hk % self.tp != 0
         self.heads = h // self.tp
         self.acfg = dataclasses.replace(
@@ -315,7 +361,19 @@ class TensorParallel:
         """rwkv6's time mix over the shards' heads (prefill and decode both
         continue the cached segment): the heads' outputs gathered for
         ``ln_out``, the ``w_o`` partials reduced; ``tmix_x`` written
-        once."""
+        once. When ``tp`` does not divide the heads the mix runs whole on
+        every shard (its split leaves gathered over ``model``) on the
+        whole ``wkv`` state."""
+        if "rwkv" in self.replicated:
+            name, _, slot = self.slots[li][:3]
+            p = whole_leaves(
+                [lp["layers"][li]["tmix"] for lp in lps],
+                self.full[name][slot]["tmix"],
+                lambda parts, dim: self.mg.all_gather(parts, dim=dim))
+            mix, x_last, state = ssm.rwkv6_time_mix(
+                p, _rwkv_cfg(self.cfg), h, cl["tmix_x"], cl["wkv"])
+            _store(cl, {"tmix_x": x_last, "wkv": state})
+            return mix
         views = [self._cache_shard(cl, s) for s in self.mg.local]
         outs, x_last, states = ssm.rwkv6_time_mix_shards(
             [lp["layers"][li]["tmix"] for lp in lps], _rwkv_cfg(self.cfg),
@@ -371,43 +429,14 @@ class TensorParallel:
         if not self.local_cache:
             for name, new in (("k", k), ("v", v)):
                 cl[name][rows, pos] = new[:, 0].to(cl[name].dtype)
-        hk, hd = k.shape[2], k.shape[3]
-        group = q.shape[2] // hk
-        qg = q.reshape(b, 1, hk, group, hd).float()
-        scale = 1.0 / np.sqrt(hd)
-        parts = []
+        kvs = []
         for shard in self.mg.local:
             cm = self._cache_shard(cl, shard)
             if self.local_cache:
-                idx = pos - shard * block
-                own = ((idx >= 0) & (idx < block))[:, None, None]
-                at = idx.clamp(0, block - 1)
-                for name, new in (("k", k), ("v", v)):
-                    leaf = cm[name]
-                    leaf[rows, at] = torch.where(
-                        own, new[:, 0].to(leaf.dtype), leaf[rows, at])
+                write_block(cm, k, v, rows, pos - shard * block, block)
             kv_pos = shard * block + torch.arange(block, device=q.device)
-            mask = kv_pos[None, :] <= pos[:, None]                # [b, blk]
-            logits = torch.einsum("bqhgk,bshk->bhgqs", qg,
-                                  cm["k"].float()) * scale
-            logits = torch.where(mask[:, None, None, None, :], logits,
-                                 torch.tensor(-1e30, dtype=torch.float32,
-                                              device=q.device))
-            mx = logits.amax(dim=-1, keepdim=True)               # [b,hk,g,1,1]
-            e = torch.exp(logits - mx)
-            o = torch.einsum("bhgqs,bshk->bhgqk", e, cm["v"].float())
-            parts.append(torch.cat([o, mx, e.sum(dim=-1, keepdim=True)],
-                                   dim=-1))
-        got = self.mg.all_gather_list(parts)
-        mx = torch.stack([g[..., hd:hd + 1] for g in got]).amax(dim=0)
-        num = den = None
-        for g in got:                                      # rank order
-            w = torch.exp(g[..., hd:hd + 1] - mx)
-            num = g[..., :hd] * w if num is None else num + g[..., :hd] * w
-            den = (g[..., hd + 1:] * w if den is None
-                   else den + g[..., hd + 1:] * w)
-        out = (num / den).permute(0, 3, 1, 2, 4)           # [b,1,hk,g,hd]
-        return out.reshape(b, 1, hk * group, hd).to(q.dtype)
+            kvs.append((cm["k"], cm["v"], kv_pos[None, :] <= pos[:, None]))
+        return split_softmax(self.mg, q, kvs)
 
     # -- FFNs ----------------------------------------------------------------------
     def _ffn(self, lps, li, ffn, h, cl) -> torch.Tensor:
@@ -473,13 +502,17 @@ class TensorParallel:
     def decode_step(self, lps, tokens: torch.Tensor, cache: Params):
         """tokens [b, 1] -> (logits [b, vocab] f32 for every row, cache):
         each local data shard steps its rows, the logits are gathered over
-        ``data``; every row's ``pos`` advances, as on one device."""
+        ``data``; every row's ``pos`` advances, as on one device. The
+        cache holds every row, or, on a rank, only its data shard's rows
+        (``cache_specs``' split of the batch, as the dry run holds it);
+        rows that do not split over ``data`` run whole on every shard."""
         b = tokens.shape[0]
         split = self.dp > 1 and b % self.dp == 0
         rows = b // self.dp if split else b
         spans = [(d * rows, (d + 1) * rows) if split else (0, b)
                  for d in (self.dg.local if split else self.dg.local[:1])]
-        subs = [_rows(cache, lo, hi) for lo, hi in spans]
+        subs = ([cache] if cache["pos"].shape[0] != b
+                else [_rows(cache, lo, hi) for lo, hi in spans])
         xs = []
         for i, (lo, hi) in enumerate(spans):
             self._count(i)
@@ -506,16 +539,272 @@ class TensorParallel:
         d = self.dg.local[0]
         return self.dg.all_gather([x[:, d * rows:(d + 1) * rows]], dim=1)
 
-    def prefill(self, lps, tokens: torch.Tensor, cache: Params):
+    def prefill(self, lps, tokens: torch.Tensor, cache: Params,
+                split_rows: bool = False):
         """tokens [b, s] -> (last-position logits [b, vocab] f32, cache),
         the cache filled in place and ``pos`` set to s, as
-        ``DecoderLM.prefill``."""
+        ``DecoderLM.prefill``. The call runs whole on every data shard, or
+        with ``split_rows`` each data shard prefills its rows as a decode
+        step steps them (the cache holding every row or the shard's own)
+        and the logits are gathered over ``data``."""
         b, s = tokens.shape[:2]
+        if split_rows and self.dp > 1 and b % self.dp == 0:
+            return self._prefill_rows(lps, tokens, cache)
         positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         x = self._embed(lps, tokens)
         (x,) = self._run(lps, [x], [positions], [cache], "prefill")
         cache["pos"].fill_(s)
         return self._unembed(lps, x[:, -1:, :])[:, 0], cache
+
+    def _prefill_rows(self, lps, tokens: torch.Tensor, cache: Params):
+        b, s = tokens.shape[:2]
+        rows = b // self.dp
+        spans = [(d * rows, (d + 1) * rows) for d in self.dg.local]
+        subs = ([cache] if cache["pos"].shape[0] != b
+                else [_rows(cache, lo, hi) for lo, hi in spans])
+        positions = torch.arange(s, device=tokens.device)[None, :].expand(
+            rows, s)
+        xs = []
+        for i, (lo, hi) in enumerate(spans):
+            self._count(i)
+            xs.append(self._embed(lps, tokens[lo:hi]))
+        xs = self._run(lps, xs, [positions] * len(xs), subs, "prefill", True)
+        outs = []
+        for i, (x, sub) in enumerate(zip(xs, subs)):
+            self._count(i)
+            sub["pos"].fill_(s)
+            outs.append(self._unembed(lps, x[:, -1:, :])[:, 0])
+        self._count(0)
+        return self.dg.all_gather(outs, dim=0), cache
+
+
+def gathered_shards(placed: Params, mesh) -> List[Params]:
+    """Each local model shard's params, from a tree at rest in the shards
+    of ``param_specs`` (:func:`~repro_torch.distributed.sharding.place`):
+    every leaf gathered over ``data`` (FSDP); a leaf split over ``model``
+    the shard's block (Mamba's ``w_in``: gathered over ``model`` too and
+    viewed as :func:`shard_leaf`'s x and z blocks), any other leaf whole.
+    The sharded serving steps (the dry run's prefill and decode) compute
+    on these."""
+    mg = mesh.groups["model"]
+    trees: List[Dict[str, Any]] = [{} for _ in mg.local]
+
+    def walk(node, outs, names):
+        for k, x in node.items():
+            if isinstance(x, dict):
+                subs = [{} for _ in outs]
+                walk(x, subs, names + (k,))
+                for o, sub in zip(outs, subs):
+                    o[k] = sub
+                continue
+            spec = tuple(x.named.spec)
+            dim = model_dim(spec)
+            if dim < 0:
+                parts = [sharding.gather_leaf(x)] * len(outs)
+            else:
+                blocks = sharding.gather_over(x, "data")
+                parts = [blocks[m] for m in mg.local]
+                if names[-1:] + (k,) == ("mamba", "w_in") and mg.size > 1:
+                    whole = mg.all_gather(parts, dim=dim)
+                    parts = [shard_leaf(whole, spec, names + (k,), mg.size,
+                                        m) for m in mg.local]
+            for o, part in zip(outs, parts):
+                o[k] = part
+
+    walk(placed, trees, ())
+    return trees
+
+
+class EncDecParallel:
+    """Whisper's prefill and decode step over a mesh's ``model`` (and
+    ``data``) shards (``EncDecLM.prefill_shards`` / ``decode_shards``).
+    No engine serves the encoder-decoder on a mesh (:func:`refuse_family`);
+    the dry run lowers these steps and the tests hold them to the
+    reference. Each model shard holds its heads of every attention and its
+    ``d_ff`` block of each MLP; when ``tp`` does not divide the heads
+    (whisper-small's 12 on ``model=16``) attention runs whole on every
+    shard and the caches split their positions over ``model``, as
+    ``cache_specs`` splits them (``sp``). The vocabulary splits when ``tp``
+    divides it. Over ``data`` each data shard computes its rows (when they
+    split) and the logits are gathered, as :class:`TensorParallel` does.
+    ``local_cache``: the cache handed in is this rank's block (else one
+    whole cache, each logical shard taking views)."""
+
+    def __init__(self, model, mesh, local_cache: bool):
+        cfg = model.cfg
+        self.cfg, self.impl = cfg, model._impl
+        self.tp = mesh.shape["model"]
+        self.mg = mesh.groups["model"]
+        self.dg = mesh.group(sharding.dp_axes(mesh))
+        self.dp = self.dg.size
+        check_divides(cfg, self.tp, {"attn", "gelu"})
+        self.replicated = replicated_kinds(cfg, self.tp, {"attn"})
+        self.sp = cfg.num_kv_heads % self.tp != 0
+        if self.sp != bool(self.replicated):
+            raise ValueError(
+                f"tp={self.tp} divides one of the query ({cfg.num_heads}) "
+                f"and KV ({cfg.num_kv_heads}) heads of {cfg.name} but not "
+                f"the other")
+        self.heads = (dict(num_heads=cfg.num_heads,
+                           num_kv_heads=cfg.num_kv_heads) if self.sp else
+                      dict(num_heads=cfg.num_heads // self.tp,
+                           num_kv_heads=cfg.num_kv_heads // self.tp))
+        self.vocab_split = self.tp > 1 and cfg.vocab_size % self.tp == 0
+        self.local_cache = local_cache
+
+    # -- the pieces the model's shard steps call ---------------------------
+    def embed(self, shards, tokens: torch.Tensor) -> torch.Tensor:
+        if not self.vocab_split:
+            return layers.embed(shards[0]["embedding"], tokens)
+        return self.mg.all_reduce(lookup_parts(
+            [t["embedding"]["table"] for t in shards], self.mg.local,
+            tokens))
+
+    def logits(self, shards, x: torch.Tensor) -> torch.Tensor:
+        if not self.vocab_split:
+            return layers.unembed(shards[0]["embedding"], x)
+        return self.mg.all_gather([layers.unembed(t["embedding"], x)
+                                   for t in shards], dim=-1)
+
+    @staticmethod
+    def layer_cache(cache: Params, j: int) -> Params:
+        return {k: v[j] for k, v in cache.items() if k != "pos"}
+
+    def store_block(self, cl: Params, key: str, new: torch.Tensor,
+                    shard: int) -> None:
+        """Write the positions of ``new`` ``[b, s, hk, hd]`` that fall in
+        shard ``shard``'s block of the cache view ``cl[key]``."""
+        block = cl[key].shape[1]
+        lo = shard * block
+        n = min(max(new.shape[1] - lo, 0), block)
+        if n:
+            cl[key][:, :n] = new[:, lo:lo + n].to(cl[key].dtype)
+
+    def attend_blocks(self, q: torch.Tensor, blocks, positions=None,
+                      new=None) -> torch.Tensor:
+        """One query row over the local shards' blocks of positions
+        ``blocks`` (each ``(k, v)``), merged over ``model``
+        (:func:`split_softmax`). Causal when ``positions`` is given: the
+        new row ``new`` is written into the block that owns its position
+        first, and each shard attends up to it."""
+        b = q.shape[0]
+        rows = torch.arange(b, device=q.device)
+        kvs = []
+        for shard, (k, v) in zip(self.mg.local, blocks):
+            block = k.shape[1]
+            if positions is None:
+                kvs.append((k, v, torch.ones((b, block), dtype=torch.bool,
+                                             device=q.device)))
+                continue
+            pos = positions[:, 0].long()
+            write_block({"k": k, "v": v}, *new, rows,
+                        pos.clamp(0, block * self.tp - 1) - shard * block,
+                        block)
+            kv_pos = shard * block + torch.arange(block, device=q.device)
+            kvs.append((k, v, kv_pos[None, :] <= pos[:, None]))
+        return split_softmax(self.mg, q, kvs)
+
+    def cache_views(self, cache: Params) -> List[Params]:
+        """Each local model shard's view of ``cache`` (one data shard's
+        rows): its heads, or its block of positions under ``sp``; a
+        rank's block as it is."""
+        if self.local_cache or self.tp == 1:
+            return [cache]
+        dim = 2 if self.sp else 3
+        views = []
+        for s in self.mg.local:
+            v = {}
+            for k, leaf in cache.items():
+                if k == "pos":
+                    v[k] = leaf
+                    continue
+                n = leaf.shape[dim] // self.tp
+                v[k] = leaf.narrow(dim, s * n, n)
+            views.append(v)
+        return views
+
+    # -- the steps -----------------------------------------------------------
+    def _spans(self, b: int, cache: Params):
+        split = self.dp > 1 and b % self.dp == 0
+        rows = b // self.dp if split else b
+        spans = [(d * rows, (d + 1) * rows) if split else (0, b)
+                 for d in (self.dg.local if split else self.dg.local[:1])]
+        subs = ([cache] if cache["pos"].shape[0] != b
+                else [_rows(cache, lo, hi) for lo, hi in spans])
+        return split, spans, subs
+
+    def _count(self, i: int) -> None:
+        self.mg.counting = i == 0
+
+    def prefill(self, shards, frames: torch.Tensor, tokens: torch.Tensor,
+                cache: Params):
+        """frames [b, s, d], tokens [b, t] -> (last-position logits [b,
+        vocab] f32, cache), each data shard prefilling its rows."""
+        split, spans, subs = self._spans(tokens.shape[0], cache)
+        outs = []
+        for i, ((lo, hi), sub) in enumerate(zip(spans, subs)):
+            self._count(i)
+            outs.append(self.impl.prefill_shards(
+                shards, frames[lo:hi], tokens[lo:hi], self.cache_views(sub),
+                self))
+        self._count(0)
+        return (self.dg.all_gather(outs, dim=0) if split else outs[0]), cache
+
+    def decode_step(self, shards, tokens: torch.Tensor, cache: Params):
+        """tokens [b, 1] -> (logits [b, vocab] f32, cache)."""
+        split, spans, subs = self._spans(tokens.shape[0], cache)
+        outs = []
+        for i, ((lo, hi), sub) in enumerate(zip(spans, subs)):
+            self._count(i)
+            outs.append(self.impl.decode_shards(
+                shards, tokens[lo:hi], self.cache_views(sub), self))
+        self._count(0)
+        return (self.dg.all_gather(outs, dim=0) if split else outs[0]), cache
+
+
+def write_block(cm, k, v, rows, idx, block: int) -> None:
+    """Write the new ``k``/``v`` row ``[b, 1, hk, hd]`` into a shard's
+    block of positions ``cm`` where its position ``idx`` (relative to the
+    block) falls inside it, leaving the block as it is elsewhere."""
+    own = ((idx >= 0) & (idx < block))[:, None, None]
+    at = idx.clamp(0, block - 1)
+    for name, new in (("k", k), ("v", v)):
+        leaf = cm[name]
+        leaf[rows, at] = torch.where(own, new[:, 0].to(leaf.dtype),
+                                     leaf[rows, at])
+
+
+def split_softmax(mg, q: torch.Tensor, kvs) -> torch.Tensor:
+    """One query row ``q`` ``[b, 1, h, hd]`` attended over the positions
+    split in blocks over ``mg`` (sequence parallelism): ``kvs`` holds each
+    local shard's ``(k, v, mask)``, ``k``/``v`` ``[b, blk, hk, hd]`` and
+    ``mask`` ``[b, blk]`` the positions attended. Each shard's f32 ``(o,
+    max, sum)`` is gathered and merged in rank order."""
+    b, hd = q.shape[0], q.shape[3]
+    hk = kvs[0][0].shape[2]
+    group = q.shape[2] // hk
+    qg = q.reshape(b, 1, hk, group, hd).float()
+    scale = 1.0 / np.sqrt(hd)
+    parts = []
+    for k, v, mask in kvs:
+        logits = torch.einsum("bqhgk,bshk->bhgqs", qg, k.float()) * scale
+        logits = torch.where(mask[:, None, None, None, :], logits,
+                             torch.tensor(-1e30, dtype=torch.float32,
+                                          device=q.device))
+        mx = logits.amax(dim=-1, keepdim=True)               # [b,hk,g,1,1]
+        e = torch.exp(logits - mx)
+        o = torch.einsum("bhgqs,bshk->bhgqk", e, v.float())
+        parts.append(torch.cat([o, mx, e.sum(dim=-1, keepdim=True)], dim=-1))
+    got = mg.all_gather_list(parts)
+    mx = torch.stack([g[..., hd:hd + 1] for g in got]).amax(dim=0)
+    num = den = None
+    for g in got:                                      # rank order
+        w = torch.exp(g[..., hd:hd + 1] - mx)
+        num = g[..., :hd] * w if num is None else num + g[..., :hd] * w
+        den = (g[..., hd + 1:] * w if den is None
+               else den + g[..., hd + 1:] * w)
+    out = (num / den).permute(0, 3, 1, 2, 4)           # [b,1,hk,g,hd]
+    return out.reshape(b, 1, hk * group, hd).to(q.dtype)
 
 
 def lookup_parts(tables, ids, tokens: torch.Tensor) -> List[torch.Tensor]:
@@ -586,13 +875,28 @@ class TensorParallelLoss:
         self.encdec = cfg.family == "encdec"
         kinds = {"attn", "gelu"} if self.encdec else layer_kinds(self.impl)
         check_divides(cfg, self.tp, kinds)
-        if "attn" in kinds and cfg.num_kv_heads % self.tp:
-            raise ValueError(
-                f"tp={self.tp} must divide the KV heads ({cfg.num_kv_heads})"
-                f" of {cfg.name} to train it: the training step splits "
-                f"attention by heads only")
-        self.heads = dict(num_heads=cfg.num_heads // self.tp,
-                          num_kv_heads=cfg.num_kv_heads // self.tp)
+        self.replicated = replicated_kinds(cfg, self.tp, kinds)
+        h, hk = cfg.num_heads, cfg.num_kv_heads
+        if "attn" in self.replicated and not self.encdec:
+            raise ValueError(f"tp={self.tp} must divide the query heads "
+                             f"({h}) of {cfg.name} to train it")
+        # the KV head each shard's query heads share when tp does not
+        # divide the KV heads (None: the KV heads split with the queries)
+        self.kv_head = None
+        if "attn" in kinds and "attn" not in self.replicated and hk % self.tp:
+            n, group = h // self.tp, h // hk
+            if group % n:
+                raise ValueError(
+                    f"tp={self.tp}: a shard's {n} query heads of {cfg.name} "
+                    f"span more than one of its {hk} KV heads")
+            self.kv_head = lambda m: m * n // group
+        self.heads = (dict(num_heads=h, num_kv_heads=hk)
+                      if "attn" in self.replicated else
+                      dict(num_heads=h // self.tp,
+                           num_kv_heads=1 if self.kv_head else hk // self.tp))
+        # the layer-stacked meta params, for the replicated parts' shapes
+        self.full = (model.abstract_params() if self.replicated - {"attn"}
+                     else None)
         if not self.encdec:
             self.acfg = dataclasses.replace(self.impl.acfg, **self.heads)
         self.mcfg = _moe_cfg(cfg) if cfg.moe is not None else None
@@ -647,14 +951,35 @@ class TensorParallelLoss:
 
     # -- the layer kinds ---------------------------------------------------------
     def _mix(self, lps, mixer: str, h: torch.Tensor,
-             positions: torch.Tensor) -> torch.Tensor:
+             positions: torch.Tensor, full=None) -> torch.Tensor:
         """A layer's mixer half on the normed ``h``: the shards' partials
-        on their copies of ``h``, reduced."""
-        cfg, hs = self.cfg, self.copy(h)
+        on their copies of ``h``, reduced; a replicated mixer
+        (:func:`replicated_kinds`) runs once on ``h``, its split leaves
+        gathered over ``model`` by their shapes in ``full`` (the slot's
+        meta params)."""
+        cfg = self.cfg
+        if mixer == "rwkv" and "rwkv" in self.replicated:
+            rcfg, b = _rwkv_cfg(cfg), h.shape[0]
+            p = whole_leaves([lp["tmix"] for lp in lps], full["tmix"],
+                             self.gather)
+            state = torch.zeros((b, rcfg.num_heads, rcfg.head_dim,
+                                 rcfg.head_dim), dtype=torch.float32,
+                                device=h.device)
+            mix, _, _ = ssm.rwkv6_time_mix(p, rcfg, h,
+                                           h.new_zeros((b, cfg.d_model)),
+                                           state)
+            return mix
+        hs = self.copy(h)
         if mixer == "attn":
+            subs = self._copied([lp["attn"] for lp in lps], "attn")
+            if self.kv_head is not None:
+                # the replicated KV projections, each shard's KV head
+                for name in ("wk", "wv"):
+                    for p, w, m in zip(subs, self.copy(lps[0]["attn"][name]),
+                                       self.mg.local):
+                        p[name] = w.narrow(1, self.kv_head(m), 1)
             parts = [layers.attention_forward(p, self.acfg, x, positions)
-                     for p, x in zip(self._copied(
-                         [lp["attn"] for lp in lps], "attn"), hs)]
+                     for p, x in zip(subs, hs)]
         elif mixer == "mla":
             parts = [mla.mla_forward(p, _mla_cfg(cfg), x)
                      for p, x in zip(self._copied(
@@ -711,23 +1036,25 @@ class TensorParallelLoss:
                                         self.mg.local)]
         return self.psum(parts), aux
 
-    def _unit(self, layer, slots, positions, xs, auxes):
+    def _unit(self, layer, slots, positions, xs, auxes, full=None):
         """One repeat of a block (every slot) over the local batch shards:
         ``layer[i][m]`` is batch shard ``i``'s model shard ``m``'s params of
-        the repeat. Returns (xs, auxes). Leaves the byte counting as it
-        found it (remat reruns it inside the backward pass)."""
+        the repeat, ``full`` the block's meta params. Returns (xs, auxes).
+        Leaves the byte counting as it found it (remat reruns it inside
+        the backward pass)."""
         with self.mg.counted(self.mg.counting):
-            return self._slots(layer, slots, positions, xs, auxes)
+            return self._slots(layer, slots, positions, xs, auxes, full)
 
-    def _slots(self, layer, slots, positions, xs, auxes):
+    def _slots(self, layer, slots, positions, xs, auxes, full=None):
         eps = self.cfg.norm_eps
         for si, (mixer, ffn) in enumerate(slots):
             lpss = [[lp[f"slot_{si}"] for lp in lps] for lps in layer]
             norm = layers.layernorm if mixer == "rwkv" else layers.rmsnorm
+            sfull = full[f"slot_{si}"] if full is not None else None
             for i, lps in enumerate(lpss):
                 self._count(i)
                 h = norm(lps[0]["pre_norm"], xs[i], eps)
-                xs[i] = xs[i] + self._mix(lps, mixer, h, positions)
+                xs[i] = xs[i] + self._mix(lps, mixer, h, positions, sfull)
             hs = [norm(lps[0]["post_norm"], x, eps)
                   for lps, x in zip(lpss, xs)]
             if ffn == "moe" and self.bg is not None:
@@ -786,12 +1113,15 @@ class TensorParallelLoss:
         auxes = [None] * len(xs)
         n = len(xs)
         for name, reps, slots in self.impl.blocks:
+            stacks = [[_layers(t[name], reps) for t in lps] for lps in trees]
             for j in range(reps):
-                layer = [[_layer(t[name], j) for t in lps] for lps in trees]
+                layer = [[s[j] for s in ss] for ss in stacks]
 
-                def body(*args, layer=layer, slots=slots):
+                def body(*args, layer=layer, slots=slots,
+                         full=self.full and self.full[name]):
                     xs, auxes = self._unit(layer, slots, positions,
-                                           list(args[:n]), list(args[n:]))
+                                           list(args[:n]), list(args[n:]),
+                                           full)
                     return tuple(xs) + tuple(auxes)
 
                 out = transformer.remat(body, policy)(*xs, *auxes)

@@ -15,66 +15,82 @@ collective group for each axis (:mod:`repro_torch.distributed.collectives`):
     over the rank's row (``model``) and column (``data``). The backend is
     NCCL when every rank has a card of its own, gloo otherwise.
 
+  * **a dry mesh** (:func:`make_dry_mesh`, :func:`make_production_mesh`):
+    one rank's view of a mesh that does not exist here, its groups
+    :class:`~repro_torch.distributed.collectives.DryGroup`\\ s, for the dry
+    run (``launch/dryrun.py``), which lowers a step under fake tensors.
+    Its axes may lead with ``"pod"``: ``("pod", "data", "model")``.
+
 Not ported: ``ensure_host_devices`` (the port needs no forced device count
-and never re-execs itself) and ``make_production_mesh`` (the 16x16 TPU pod
-of ``dryrun.py``, ROADMAP.md queue A item 19).
+and never re-execs itself).
 """
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import sys
-from typing import Dict, Tuple, Union
+from typing import Any, Dict, Tuple, Union
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.collectives import (Group, LocalGroup,
-                                                 RankGroup, choose_backend)
+from repro_torch.distributed.collectives import (DryGroup, Group,
+                                                 LocalGroup, RankGroup,
+                                                 choose_backend)
 
 AXES = ("data", "model")
 
 
 class Mesh:
-    """Axis sizes (``shape``, keyed by ``axis_names``), the device this
-    process's shards live on, and a collective group per axis
-    (``groups["data"]``, ``groups["model"]``). ``coords`` is this rank's
-    ``(data, model)`` position, None for logical shards."""
-
-    axis_names: Tuple[str, ...] = AXES
+    """Axis sizes (``shape``, keyed by ``axis_names``: ``("data",
+    "model")``, or ``("pod", "data", "model")`` on a dry mesh), the device
+    this process's shards live on, and a collective group per axis
+    (``groups["data"]``, ``groups["model"]``; a dry mesh also keys a group
+    by each tuple of its axes). ``coords`` is this rank's position, one
+    index an axis, None for logical shards."""
 
     def __init__(self, shape: Dict[str, int], device: torch.device,
-                 groups: Dict[str, Group], coords=None, backend=None,
-                 world=None):
-        self.shape = {a: int(shape[a]) for a in AXES}
+                 groups: Dict[Any, Group], coords=None, backend=None,
+                 world=None, axis_names: Tuple[str, ...] = AXES):
+        self.axis_names = tuple(axis_names)
+        self.shape = {a: int(shape[a]) for a in self.axis_names}
         self.device = device
         self.groups = groups
         self.coords = coords
         self.backend = backend
         self.world = world
-        # every shard in row-major order (a ("data", "model") spec entry)
+        # every shard in row-major order (a spec entry naming every axis)
         self.flat = world if world is not None else LocalGroup(
-            self.shape["data"] * self.shape["model"], device)
+            self.size, device)
 
     @property
     def size(self) -> int:
         """Shards (the product of the axis sizes)."""
-        return self.shape["data"] * self.shape["model"]
+        return math.prod(self.shape.values())
+
+    @property
+    def name(self) -> str:
+        """The axis sizes joined by ``x`` ("16x16", "2x16x16")."""
+        return "x".join(str(self.shape[a]) for a in self.axis_names)
 
     @property
     def spans_ranks(self) -> bool:
         return self.coords is not None
 
     def group(self, axis) -> Group:
-        """The collective group of a spec entry: ``"data"``, ``"model"``,
-        or both in row-major order."""
+        """The collective group of a spec entry: an axis, or a tuple of
+        axes in the mesh's order (every axis: :attr:`flat`)."""
         if isinstance(axis, tuple) and len(axis) == 1:
             axis = axis[0]
         if isinstance(axis, tuple):
-            if axis != AXES:
+            if axis == self.axis_names:
+                return self.flat
+            if axis not in self.groups:
                 raise ValueError(f"no group runs over the axes {axis} in "
-                                 f"that order; the mesh's order is {AXES}")
-            return self.flat
+                                 f"that order; the mesh's order is "
+                                 f"{self.axis_names}")
         return self.groups[axis]
 
     def rank_of(self, data: int, model: int) -> int:
@@ -82,11 +98,50 @@ class Mesh:
         return data * self.shape["model"] + model
 
     def describe(self) -> str:
+        if self.backend == "dry":
+            return (f"one rank's view of {self.size} ranks ({self.name} over "
+                    f"{', '.join(self.axis_names)}), fake tensors on "
+                    f"{self.device}")
         if not self.spans_ranks:
             return f"{self.size} shards on 1 physical device, {self.device}"
         return (f"{self.size} ranks over {self.backend}, one {self.device.type}"
                 f" device each; this is rank {self.rank_of(*self.coords)} at "
                 f"data {self.coords[0]}, model {self.coords[1]}")
+
+
+def make_dry_mesh(shape: Dict[str, int], device="cuda") -> Mesh:
+    """One rank's view (the rank at every axis's 0) of a mesh of
+    ``shape`` (axis name -> size, in mesh order: ``data`` and ``model``,
+    led by ``pod`` or not), with a
+    :class:`~repro_torch.distributed.collectives.DryGroup` for each axis
+    and each tuple of axes in that order. The dry run's fake tensors
+    allocate nothing of the model and carry ``device`` as it is named
+    (indexing a fake CUDA tensor takes a CUDA device guard, so naming
+    ``cuda`` needs a torch built with CUDA and a card visible)."""
+    names = tuple(shape)
+    if names not in (AXES, ("pod",) + AXES):
+        raise ValueError(f"a dry mesh's axes are {AXES}, led by 'pod' or "
+                         f"not, not {names}")
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)   # what fake tensors on "cuda" carry
+    groups: Dict[Any, Group] = {}
+    for r in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, r):
+            size = math.prod(int(shape[a]) for a in axes)
+            groups[axes[0] if r == 1 else axes] = DryGroup(size, dev)
+    return Mesh(dict(shape), dev, groups, coords=(0,) * len(names),
+                backend="dry", world=groups[names], axis_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> Mesh:
+    """The production mesh as a dry mesh (:func:`make_dry_mesh`): 16 x 16
+    = 256 chips over ``("data", "model")``, or two pods of them, 2 x 16 x
+    16 = 512 over ``("pod", "data", "model")`` when ``multi_pod``."""
+    if multi_pod:
+        return make_dry_mesh({"pod": 2, "data": 16, "model": 16}, device)
+    return make_dry_mesh({"data": 16, "model": 16}, device)
 
 
 def make_host_mesh(data: int = 1, model: int = 1,

@@ -23,8 +23,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
-from repro_torch.models.transformer import (_layer, generator, masked_nll,
-                                            remat)
+from repro_torch.models.transformer import (_layer, _layers, generator,
+                                            masked_nll, remat)
 
 Params = Any
 
@@ -74,6 +74,15 @@ class EncDecLM:
             "dec_final_norm": layers.init_layernorm(d, **kw),
         }
 
+    @staticmethod
+    def _stack(tree: Params, n: int):
+        """The layer slices a pass loops over: unbound once while
+        gradients are recorded (``transformer._layers``), else views of
+        each layer taken as the loop reaches it."""
+        if torch.is_grad_enabled():
+            return _layers(tree, n)
+        return [_layer(tree, j) for j in range(n)]
+
     def _remat(self, fn):
         """``fn`` recomputed in the backward pass while gradients are
         recorded, unless ``parallel.remat`` is "none"."""
@@ -94,8 +103,9 @@ class EncDecLM:
             return x + layers.gelu_mlp(lp["mlp"], h)
 
         x = frames
+        lps = self._stack(params["enc_layers"], cfg.encoder_layers)
         for j in range(cfg.encoder_layers):
-            x = self._remat(body)(x, _layer(params["enc_layers"], j))
+            x = self._remat(body)(x, lps[j])
         return layers.layernorm(params["enc_final_norm"], x, cfg.norm_eps)
 
     def _dec_tail(self, lp: Params, x: torch.Tensor, ek: torch.Tensor,
@@ -130,8 +140,9 @@ class EncDecLM:
             ek, ev = layers.encode_kv(lp["cross_attn"], enc_out)
             return self._dec_tail(lp, x, ek, ev)
 
+        lps = self._stack(params["dec_layers"], cfg.decoder_layers)
         for j in range(cfg.decoder_layers):
-            x = self._remat(body)(x, _layer(params["dec_layers"], j))
+            x = self._remat(body)(x, lps[j])
         return (self._logits(params, x),
                 torch.zeros((), dtype=torch.float32, device=tokens.device))
 
@@ -167,8 +178,13 @@ class EncDecLM:
         enc_cfg = dataclasses.replace(self.enc_cfg, **tp.heads)
         dec_cfg = dataclasses.replace(self.dec_cfg, **tp.heads)
         frames, tokens = batch["frames"], batch["tokens"]
+        # heads tp does not divide: every attention runs whole, once
+        whole = "attn" in tp.replicated
 
         def attend(lps, key, acfg, h, positions):
+            if whole:
+                return layers.attention_forward(lps[0][key], acfg, h,
+                                                positions)
             return tp.psum([layers.attention_forward(lp[key], acfg, x,
                                                      positions)
                             for lp, x in zip(lps, tp.copy(h))])
@@ -185,9 +201,9 @@ class EncDecLM:
                 return x + self._mlp_shards(lps, h, tp)
 
         x = frames
+        stacks = [_layers(t["enc_layers"], cfg.encoder_layers) for t in shards]
         for j in range(cfg.encoder_layers):
-            x = self._remat(enc_body)(x, [_layer(t["enc_layers"], j)
-                                          for t in shards])
+            x = self._remat(enc_body)(x, [s[j] for s in stacks])
         enc_out = layers.layernorm(shards[0]["enc_final_norm"], x, eps)
 
         b, t = tokens.shape
@@ -198,25 +214,168 @@ class EncDecLM:
                 h = layers.layernorm(lps[0]["norm1"], x, eps)
                 x = x + attend(lps, "self_attn", dec_cfg, h, dec_pos)
                 h = layers.layernorm(lps[0]["norm2"], x, eps)
-                parts = []
-                for lp, hx, enc in zip(lps, tp.copy(h), tp.copy(enc_out)):
-                    ek, ev = layers.encode_kv(lp["cross_attn"], enc)
-                    parts.append(layers.cross_attention(
-                        lp["cross_attn"], enc_cfg, hx, ek, ev))
-                x = x + tp.psum(parts)
+                if whole:
+                    ek, ev = layers.encode_kv(lps[0]["cross_attn"], enc_out)
+                    x = x + layers.cross_attention(lps[0]["cross_attn"],
+                                                   enc_cfg, h, ek, ev)
+                else:
+                    parts = []
+                    for lp, hx, enc in zip(lps, tp.copy(h),
+                                           tp.copy(enc_out)):
+                        ek, ev = layers.encode_kv(lp["cross_attn"], enc)
+                        parts.append(layers.cross_attention(
+                            lp["cross_attn"], enc_cfg, hx, ek, ev))
+                    x = x + tp.psum(parts)
                 h = layers.layernorm(lps[0]["norm3"], x, eps)
                 return x + self._mlp_shards(lps, h, tp)
 
         x = tp.lookup(shards, tokens)
+        stacks = [_layers(t["dec_layers"], cfg.decoder_layers) for t in shards]
         for j in range(cfg.decoder_layers):
-            x = self._remat(dec_body)(x, [_layer(t["dec_layers"], j)
-                                          for t in shards])
+            x = self._remat(dec_body)(x, [s[j] for s in stacks])
         logits = tp.logits(shards, layers.layernorm(
             shards[0]["dec_final_norm"], x, eps))
         tot, cnt = masked_nll(logits, batch["labels"])
         loss = tot / cnt.clamp(min=1.0)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return loss + aux, loss, aux
+
+    # -- serving over model shards ----------------------------------------------
+    # ``tp`` is a :class:`~repro_torch.distributed.tensor_parallel.
+    # EncDecParallel`; ``cls`` holds each local model shard's cache views of
+    # one layer. With the heads split each shard attends with its heads over
+    # its heads of the cache and the partials are reduced; with the heads
+    # whole (``tp.sp``: the caches split their positions over ``model``)
+    # attention runs once on every shard, the prefill storing each shard's
+    # block of positions and a decode step merging the shards' blocks.
+
+    def _self_attend_shards(self, lps, acfg, h: torch.Tensor, tp, cls,
+                            mode: str, positions: torch.Tensor):
+        if not tp.sp:
+            attend = (layers.attention_prefill if mode == "prefill"
+                      else layers.attention_decode)
+            return tp.mg.all_reduce([
+                attend(lp["self_attn"], acfg, h,
+                       {"k": cl["self_k"], "v": cl["self_v"]}, positions)
+                for lp, cl in zip(lps, cls)])
+        p = lps[0]["self_attn"]
+        q, k, v = layers._qkv(p, acfg, h, positions)
+        if mode == "prefill":
+            for shard, cl in zip(tp.mg.local, cls):
+                tp.store_block(cl, "self_k", k, shard)
+                tp.store_block(cl, "self_v", v, shard)
+            out = layers._attend_full(acfg, q, k, v, positions)
+        else:
+            out = tp.attend_blocks(q, [(cl["self_k"], cl["self_v"])
+                                       for cl in cls], positions, (k, v))
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+    def _cross_attend_shards(self, lps, acfg, h: torch.Tensor, tp, cls,
+                             enc_out=None):
+        """Cross-attention over the encoder's rows: the prefill projects
+        ``enc_out`` and stores them, a decode step (``enc_out`` None)
+        reads the cache."""
+        if not tp.sp:
+            parts = []
+            for lp, cl in zip(lps, cls):
+                p = lp["cross_attn"]
+                if enc_out is None:
+                    ek, ev = cl["cross_k"], cl["cross_v"]
+                else:
+                    ek, ev = layers.encode_kv(p, enc_out)
+                    cl["cross_k"].copy_(ek.to(cl["cross_k"].dtype))
+                    cl["cross_v"].copy_(ev.to(cl["cross_v"].dtype))
+                parts.append(layers.cross_attention(p, acfg, h, ek, ev))
+            return tp.mg.all_reduce(parts)
+        p = lps[0]["cross_attn"]
+        q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+        if enc_out is None:
+            out = tp.attend_blocks(q, [(cl["cross_k"], cl["cross_v"])
+                                       for cl in cls])
+        else:
+            k, v = layers.encode_kv(p, enc_out)
+            for shard, cl in zip(tp.mg.local, cls):
+                tp.store_block(cl, "cross_k", k, shard)
+                tp.store_block(cl, "cross_v", v, shard)
+            out = layers.sdpa(q, k, v, causal=False)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+    def _mlp_serve(self, lps, h: torch.Tensor, tp) -> torch.Tensor:
+        """The GELU MLP over the shards' ``d_ff`` blocks, reduced, with
+        ``b_out`` added once."""
+        return tp.mg.all_reduce([layers.gelu_mlp(lp["mlp"], h,
+                                                 out_bias=False)
+                                 for lp in lps]) + lps[0]["mlp"]["b_out"]
+
+    def prefill_shards(self, shards, frames: torch.Tensor,
+                       tokens: torch.Tensor, cache: Params, tp):
+        """:meth:`prefill` over model shards: ``shards`` holds each local
+        model shard's params (its heads of every attention unless ``tp``
+        does not divide them, its ``d_ff`` block of each MLP, its
+        vocabulary block when the vocabulary splits), ``cache`` the views
+        each local shard holds (:meth:`EncDecParallel.cache_views`).
+        Returns (last-position logits, whole on every shard)."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
+        enc_cfg = dataclasses.replace(self.enc_cfg, **tp.heads)
+        dec_cfg = dataclasses.replace(self.dec_cfg, **tp.heads)
+        b, s, _ = frames.shape
+        positions = torch.arange(s, device=frames.device)[None, :].expand(b,
+                                                                          s)
+        x = frames
+        for j in range(cfg.encoder_layers):
+            lps = [_layer(t["enc_layers"], j) for t in shards]
+            h = layers.layernorm(lps[0]["pre_norm"], x, eps)
+            if tp.sp:
+                x = x + layers.attention_forward(lps[0]["attn"], enc_cfg, h,
+                                                 positions)
+            else:
+                x = x + tp.mg.all_reduce([layers.attention_forward(
+                    lp["attn"], enc_cfg, h, positions) for lp in lps])
+            h = layers.layernorm(lps[0]["post_norm"], x, eps)
+            x = x + self._mlp_serve(lps, h, tp)
+        enc_out = layers.layernorm(shards[0]["enc_final_norm"], x, eps)
+        t = tokens.shape[1]
+        dec_pos = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
+        x = tp.embed(shards, tokens)
+        for j in range(cfg.decoder_layers):
+            lps = [_layer(tr["dec_layers"], j) for tr in shards]
+            cls = [tp.layer_cache(c, j) for c in cache]
+            h = layers.layernorm(lps[0]["norm1"], x, eps)
+            x = x + self._self_attend_shards(lps, dec_cfg, h, tp, cls,
+                                             "prefill", dec_pos)
+            h = layers.layernorm(lps[0]["norm2"], x, eps)
+            x = x + self._cross_attend_shards(lps, enc_cfg, h, tp, cls,
+                                              enc_out)
+            h = layers.layernorm(lps[0]["norm3"], x, eps)
+            x = x + self._mlp_serve(lps, h, tp)
+        for c in cache:
+            c["pos"].fill_(t)
+        return tp.logits(shards, layers.layernorm(
+            shards[0]["dec_final_norm"], x[:, -1:], eps))[:, 0]
+
+    def decode_shards(self, shards, tokens: torch.Tensor, cache: Params,
+                      tp):
+        """:meth:`decode_step` over model shards (see
+        :meth:`prefill_shards`): -> logits [b, vocab] f32, whole on every
+        shard; ``pos`` advances."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
+        enc_cfg = dataclasses.replace(self.enc_cfg, **tp.heads)
+        dec_cfg = dataclasses.replace(self.dec_cfg, **tp.heads)
+        positions = cache[0]["pos"][:, None].clone()
+        x = tp.embed(shards, tokens)
+        for j in range(cfg.decoder_layers):
+            lps = [_layer(tr["dec_layers"], j) for tr in shards]
+            cls = [tp.layer_cache(c, j) for c in cache]
+            h = layers.layernorm(lps[0]["norm1"], x, eps)
+            x = x + self._self_attend_shards(lps, dec_cfg, h, tp, cls,
+                                             "decode", positions)
+            h = layers.layernorm(lps[0]["norm2"], x, eps)
+            x = x + self._cross_attend_shards(lps, enc_cfg, h, tp, cls)
+            h = layers.layernorm(lps[0]["norm3"], x, eps)
+            x = x + self._mlp_serve(lps, h, tp)
+        cache[0]["pos"] += 1
+        return tp.logits(shards, layers.layernorm(
+            shards[0]["dec_final_norm"], x, eps))[:, 0]
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, enc_len: int, device) -> Params:

@@ -30,7 +30,7 @@ or all of it but its matmul outputs (``"dots_saveable"``), as
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils import checkpoint as torch_checkpoint
@@ -163,6 +163,18 @@ def _layer(tree: Params, j: int) -> Params:
     if isinstance(tree, dict):
         return {k: _layer(v, j) for k, v in tree.items()}
     return tree[j]
+
+
+def _layers(tree: Params, n: int) -> List[Params]:
+    """The ``n`` layer slices of a layer-stacked tree, each leaf unbound
+    once along its layer axis (views). A loop that trains through them
+    hands the stacked leaf one stack of the layers' gradients; a loop over
+    ``_layer`` would hand it a zero-filled stacked-size gradient a layer,
+    summed: traffic and time quadratic in the depth."""
+    if isinstance(tree, dict):
+        subs = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: subs[k][j] for k in tree} for j in range(n)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -368,14 +380,14 @@ class DecoderLM:
         layer has one). A training pass that records gradients recomputes
         each repeat of a block (all its slots) under ``parallel.remat``,
         the unit the reference's scan body checkpoints."""
-        policy = (self.cfg.parallel.remat
-                  if mode == "train" and torch.is_grad_enabled() else "none")
+        training = mode == "train" and torch.is_grad_enabled()
+        policy = self.cfg.parallel.remat if training else "none"
         aux = None
         for name, n, slots in self.blocks:
-            bp = params[name]
+            bp = _layers(params[name], n) if training else None
             bc = cache[name] if cache is not None else None
             for j in range(n):
-                lp = _layer(bp, j)
+                lp = bp[j] if bp is not None else _layer(params[name], j)
                 cl = _layer(bc, j) if bc is not None else None
 
                 def body(x, aux, lp=lp, cl=cl, slots=slots):

@@ -21,8 +21,10 @@ ring factors:
     collective-permute  result
 
 where s = the replica-group size parsed from the op. The reference's
-``analyze`` reads XLA's compiled object; its only caller is the dry run,
-which comes with ROADMAP.md queue A item 19 part 2.
+``analyze`` reads XLA's compiled object; the port's reads the dry run's
+:class:`~repro_torch.launch.dryrun.Lowered` record (one rank's step under
+fake tensors), whose collective bytes are the dry groups' own count of
+what moves into one shard, with no ring factor applied.
 """
 
 from __future__ import annotations
@@ -180,6 +182,24 @@ class CellRoofline:
                  hbm_bytes_per_dev=self.hbm_bytes_per_dev,
                  fits_hbm=self.fits_hbm)
         return d
+
+
+def analyze(lowered, *, arch: str, shape: str, mesh_name: str, n_chips: int,
+            model_flops: float) -> CellRoofline:
+    """The roofline of a cell from the dry run's ``Lowered`` record, at the
+    H100's rates."""
+    breakdown = {k: float(v) for k, v in lowered.collectives.items()}
+    return CellRoofline(
+        arch=arch, shape=shape, mesh=mesh_name, n_chips=n_chips,
+        flops_per_dev=float(lowered.flops),
+        bytes_per_dev=float(lowered.bytes),
+        collective_bytes_per_dev=float(sum(breakdown.values())),
+        collective_breakdown=breakdown,
+        arg_bytes=int(lowered.arg_bytes),
+        temp_bytes=int(lowered.temp_bytes),
+        out_bytes=int(lowered.out_bytes),
+        model_flops=model_flops,
+    )
 
 
 def _encdec_split(cfg) -> Tuple[float, float]:

@@ -186,7 +186,7 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh,
                              and bg.size > 1 else None)
     pspecs = dict(tree_leaves_with_names(sspecs.params))
     split = {n: tp > 1 and model_dim(sp) >= 0 for n, sp in pspecs.items()}
-    groups = (mesh.groups["data"], mesh.groups["model"], mesh.flat)
+    groups = tuple(mesh.groups.values()) + (mesh.flat,)
     bl, ml = list(bg.local), list(mg.local)
 
     def blocks_of(name, x):

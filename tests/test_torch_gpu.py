@@ -1152,3 +1152,31 @@ def test_gpipe_gradient_on_card(card):
     (got,) = torch.autograd.grad((out ** 2).sum(), ws)
     (want,) = torch.autograd.grad((ref ** 2).sum(), ws)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dry_run_names_the_card_and_allocates_nothing(card, kind):
+    """The dry run's default fake device is the card: smoke deepseek-7b's
+    step on a 2 x 2 dry mesh lowers with fake CUDA tensors, allocates no
+    tensor of the model on the card (a scalar ``torch.tensor`` constant
+    under ``FakeTensorMode`` starts as a real tensor: a few 512 B blocks),
+    and counts what the same lowering naming the CPU counts."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_mesh
+    shape = {"train": ShapeConfig("t", 8, 4, "train"),
+             "prefill": ShapeConfig("p", 8, 2, "prefill"),
+             "decode": ShapeConfig("d", 8, 2, "decode")}[kind]
+    cfg = smoke_config("deepseek-7b")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_dry_mesh({"data": 2, "model": 2})
+    assert mesh.device.type == "cuda"
+    got = dryrun.lower_step(cfg, shape, mesh)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before <= 8 * 512
+    want = dryrun.lower_step(cfg, shape, make_dry_mesh(
+        {"data": 2, "model": 2}, "cpu"))
+    assert (got.flops, got.collectives) == (want.flops, want.collectives)
+    assert got.bytes == want.bytes and got.arg_bytes == want.arg_bytes

@@ -125,19 +125,34 @@ def port_runs(arch, shape, capacity_factor=None):
     batches = [batch(tcfg, s) for s in STEP_SEEDS]
     step = tloop.make_sharded_train_step(
         tm, to, mesh, sspecs, tsharding.batch_specs(tcfg, batches[0], mesh))
-    one_step = tloop.make_train_step(tm, to)
     placed = tsharding.place(state, tsharding.to_named(mesh, sspecs))
-    one = state
-    runs = {"sharded": ([], [], []), "one": ([], [], [])}
+    runs = {"sharded": ([], [], []), "one": one_device_run(arch,
+                                                         capacity_factor)}
     for b in batches:
         placed, metrics = step(placed, b)
-        one, one_m = one_step(one, b)
-        for key, st, m in (("sharded", tsharding.gather(placed), metrics),
-                           ("one", one, one_m)):
-            runs[key][0].append(float(m["loss"]))
-            runs[key][1].append([x for _, x in _leaves(st.params)])
-            runs[key][2].append(float(m["grad_norm"]))
+        runs["sharded"][0].append(float(metrics["loss"]))
+        runs["sharded"][1].append([x for _, x in _leaves(
+            tsharding.gather(placed).params)])
+        runs["sharded"][2].append(float(metrics["grad_norm"]))
     return runs, metrics, placed, sspecs, mesh
+
+
+@functools.lru_cache(maxsize=None)
+def one_device_run(arch, capacity_factor=None):
+    """The port's one-device step from the reference's converted state on
+    the same batches (shared by every mesh shape of an arch): (losses,
+    params after each step, grad norms)."""
+    jstate, _, _ = reference(arch, capacity_factor)
+    _, tcfg = cfgs(arch, capacity_factor)
+    tm = tbuild(tcfg, device="cpu")
+    one_step = tloop.make_train_step(tm, topt.AdamWConfig(**OPT))
+    one, out = _state_from_jax(jstate), ([], [], [])
+    for seed in STEP_SEEDS:
+        one, m = one_step(one, batch(tcfg, seed))
+        out[0].append(float(m["loss"]))
+        out[1].append([x for _, x in _leaves(one.params)])
+        out[2].append(float(m["grad_norm"]))
+    return out
 
 
 def assert_matches(arch, shape, capacity_factor=None):
