@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import attestation, bounce, overheads, sealing
 from repro_torch.device import resolve_device
 
@@ -70,7 +71,8 @@ class TrustDomain:
 
     # -- sealing -------------------------------------------------------------
     def seal_params(self, params: Params, prefix: str = "params") -> Dict[str, sealing.SealedTensor]:
-        sealed = sealing.seal_tree(self.sealing_key, params, prefix)
+        with tracing.span("td:seal_params"):
+            sealed = sealing.seal_tree(self.sealing_key, params, prefix)
         self._model_digest = sealing.tree_digest(sealed)
         self._log("seal", f"{len(sealed)} tensors, digest={self._model_digest[:12]}")
         return sealed
@@ -79,7 +81,9 @@ class TrustDomain:
                     treedef_like: Params, prefix: str = "params") -> Params:
         if not self.confidential:
             raise RuntimeError("load_sealed requires a confidential mode")
-        params = sealing.unseal_tree(self.sealing_key, sealed, treedef_like, prefix)
+        with tracing.span("td:load_sealed"):
+            params = sealing.unseal_tree(self.sealing_key, sealed,
+                                         treedef_like, prefix)
         self._model_digest = sealing.tree_digest(sealed)
         self._log("unseal", f"{len(sealed)} tensors")
         return params
@@ -155,8 +159,9 @@ class TrustDomain:
         toks = np.asarray(tokens, np.int32).reshape(-1)
         if not self.confidential:
             return [int(t) for t in toks]
-        frame = self.channel.device_send_frame(stream_id, toks)
-        out = self.channel.host_recv_frame(frame)
+        with tracing.span("td:frame"):
+            frame = self.channel.device_send_frame(stream_id, toks)
+            out = self.channel.host_recv_frame(frame)
         self._log("egress_frame",
                   f"stream={stream_id} seq={frame.seq} n={toks.size} "
                   f"{frame.sealed.n_bytes}B")

@@ -25,6 +25,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 
 Params = Any
@@ -115,10 +116,20 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def _mac(key: SealingKey, sealed_header: bytes, ciphertext: torch.Tensor) -> bytes:
+    """HMAC-SHA256 over the header and the ciphertext, which crosses to
+    the host for it. Traced as counters on the innermost open span, not as
+    spans (an egress frame runs two, each over its padded 64 KiB tile):
+    ``td:mac_s``, the seconds of the copy and the hash, and
+    ``td:mac_bytes``."""
+    tracer = tracing.current()
+    t0 = tracing.clock() if tracer is not None else 0.0
     h = hmac.new(key.mac_key, sealed_header, hashlib.sha256)
     flat = ciphertext.reshape(-1)
     for i in range(0, flat.numel(), _MAC_CHUNK_WORDS):
         h.update(flat[i:i + _MAC_CHUNK_WORDS].cpu().numpy())
+    if tracer is not None:
+        tracer.count("td:mac_s", tracing.clock() - t0)
+        tracer.count("td:mac_bytes", flat.numel() * flat.element_size())
     return h.digest()
 
 

@@ -81,6 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.confidential import TrustDomain
+from repro_torch import tracing
 from repro_torch.core.sealing import (IntegrityError, seal_tree,
                                       sealed_nbytes, unseal_tree)
 from repro_torch.device import resolve_device
@@ -740,21 +741,35 @@ class Engine:
         # takes the group's rows only (the plan pads a MoE model's group,
         # whose rows are coupled, as the reference does)
         rows = len(group)
-        tokens = np.zeros((rows, bucket), np.int32)
-        for i, req in enumerate(group):
-            chunk = req.prompt[:bucket]
-            tokens[i, bucket - len(chunk):] = chunk   # left-pad short prompts
-        fresh = self.kv.fresh_prefill_cache(rows)
-        logits, prefilled = self._prefill_fn(
-            self.params, host_upload(tokens, self.device), fresh)
-        first_np = self._first_tokens(logits, group, rows)
-        group_keys = None
-        if self.kv.supports_sharing:
-            group_keys = [req.page_keys for req in group]
-        self.kv.insert_prefill(prefilled, slots, bucket, page_keys=group_keys)
-        for i, req in enumerate(group):
-            self._start_decode(slots[i], req, int(first_np[i]), bucket)
+        with self._prefill_span(group, bucket):
+            tokens = np.zeros((rows, bucket), np.int32)
+            for i, req in enumerate(group):
+                chunk = req.prompt[:bucket]
+                tokens[i, bucket - len(chunk):] = chunk   # left-pad short prompts
+            fresh = self.kv.fresh_prefill_cache(rows)
+            logits, prefilled = self._prefill_fn(
+                self.params, host_upload(tokens, self.device), fresh)
+            first_np = self._first_tokens(logits, group, rows)
+            group_keys = None
+            if self.kv.supports_sharing:
+                group_keys = [req.page_keys for req in group]
+            with tracing.span("kv:insert_prefill"):
+                self.kv.insert_prefill(prefilled, slots, bucket,
+                                       page_keys=group_keys)
+            for i, req in enumerate(group):
+                self._start_decode(slots[i], req, int(first_np[i]), bucket)
         return len(group)
+
+    @staticmethod
+    def _prefill_span(group: List[Request], bucket: int):
+        """``engine:prefill`` over one admission's prefill: the token
+        upload, the prefill call, the first tokens and the KV insert."""
+        if tracing.current() is None:
+            return tracing.NOOP
+        return tracing.span(
+            "engine:prefill", rid=group[0].rid if len(group) == 1 else None,
+            rids=[req.rid for req in group], rows=len(group), bucket=bucket,
+            prompt_tokens=sum(min(len(req.prompt), bucket) for req in group))
 
     def _start_decode(self, slot: int, req: Request, first_tok: int,
                       bucket: int) -> None:
@@ -778,9 +793,10 @@ class Engine:
                       rows: int) -> np.ndarray:
         """Each group member's first token from its prefill logits, sampled
         with its own SamplingParams at token index 0 (the fold-in the decode
-        loop would use)."""
+        loop would use). The copy to the host waits for the prefill."""
         if all(req.gen.params.is_greedy for req in group):
-            return sampling.greedy(logits).cpu().numpy()
+            with tracing.span("engine:first_token"):
+                return sampling.greedy(logits).cpu().numpy()
         temp = np.zeros(rows, np.float32)
         top_k = np.zeros(rows, np.int32)
         top_p = np.ones(rows, np.float32)
@@ -803,10 +819,11 @@ class Engine:
             torch.zeros(rows, dtype=torch.int64, device=dev),
             top_p=host_upload(top_p, dev) if (top_p < 1.0).any() else None,
             bias=host_upload(bias, dev) if bias is not None else None)
-        return sampling.sample(
-            logits, state,
-            kmax=min(next_pow2(kmax), self._vocab) if kmax else 0
-        ).cpu().numpy()
+        with tracing.span("engine:first_token"):
+            return sampling.sample(
+                logits, state,
+                kmax=min(next_pow2(kmax), self._vocab) if kmax else 0
+            ).cpu().numpy()
 
     # -- two-phase admission (continuous batching / disaggregated prefill) ----
     def _admit_one(self, req: Request, bucket: int) -> None:
@@ -817,24 +834,28 @@ class Engine:
         self._charge_budget(req)
         slot = self.kv.acquire(req.rid, self._admit_need(req))
         assert slot is not None, "admission raced KV accounting"
-        tokens = np.zeros((1, bucket), np.int32)
-        chunk = req.prompt[:bucket]
-        tokens[0, bucket - len(chunk):] = chunk   # left-pad short prompts
-        if self._prefill_stream_fn is not None:
-            fresh = self.model.init_cache(1, self.max_len)
-            logits, cache, ready = self._prefill_stream_fn(
-                self.prefill_params, host_upload(tokens, self.device), fresh)
-            req.phase = "prefill"
-            self._inflight[slot] = InflightPrefill(req, slot, bucket, logits,
-                                                   cache, ready)
-            return
-        fresh = self.kv.fresh_prefill_cache(1)
-        logits, prefilled = self._prefill_fn(
-            self.params, host_upload(tokens, self.device), fresh)
-        first_np = self._first_tokens(logits, [req], 1)
-        keys = [req.page_keys] if self.kv.supports_sharing else None
-        self.kv.insert_prefill(prefilled, [slot], bucket, page_keys=keys)
-        self._start_decode(slot, req, int(first_np[0]), bucket)
+        with self._prefill_span([req], bucket):
+            tokens = np.zeros((1, bucket), np.int32)
+            chunk = req.prompt[:bucket]
+            tokens[0, bucket - len(chunk):] = chunk   # left-pad short prompts
+            if self._prefill_stream_fn is not None:
+                fresh = self.model.init_cache(1, self.max_len)
+                logits, cache, ready = self._prefill_stream_fn(
+                    self.prefill_params, host_upload(tokens, self.device),
+                    fresh)
+                req.phase = "prefill"
+                self._inflight[slot] = InflightPrefill(req, slot, bucket,
+                                                       logits, cache, ready)
+                return
+            fresh = self.kv.fresh_prefill_cache(1)
+            logits, prefilled = self._prefill_fn(
+                self.params, host_upload(tokens, self.device), fresh)
+            first_np = self._first_tokens(logits, [req], 1)
+            keys = [req.page_keys] if self.kv.supports_sharing else None
+            with tracing.span("kv:insert_prefill"):
+                self.kv.insert_prefill(prefilled, [slot], bucket,
+                                       page_keys=keys)
+            self._start_decode(slot, req, int(first_np[0]), bucket)
 
     def _admit_continuous(self) -> int:
         """Step-level admission: pop waiting requests one at a time into
@@ -1054,17 +1075,18 @@ class Engine:
         store's publish/hit/evict traffic, and re-materialization (parked
         pages brought back, ciphertext-resident pages decrypted in place),
         recorded as restores as the reference's catch-all branch does."""
-        for kind, nb, n in self.kv.drain_events():
-            if kind == "park":
-                self.td.record_seal(nb, n, "shared page parked (last ref)")
-            elif kind == "store_publish":
-                self.td.record_seal(nb, n, "page published to sealed store")
-            elif kind == "store_hit":
-                self.td.record_store_hit(nb, n)
-            elif kind == "store_evict":
-                self.td.record_store_evict(nb, n)
-            else:
-                self.td.record_restore(nb, n, "shared page rematerialized")
+        with tracing.span("engine:kv_events"):
+            for kind, nb, n in self.kv.drain_events():
+                if kind == "park":
+                    self.td.record_seal(nb, n, "shared page parked (last ref)")
+                elif kind == "store_publish":
+                    self.td.record_seal(nb, n, "page published to sealed store")
+                elif kind == "store_hit":
+                    self.td.record_store_hit(nb, n)
+                elif kind == "store_evict":
+                    self.td.record_store_evict(nb, n)
+                else:
+                    self.td.record_restore(nb, n, "shared page rematerialized")
 
     def _grant_step_pages(self, live: List[int]) -> List[int]:
         """On-demand allocation: make sure the pool can grant every live
@@ -1106,8 +1128,25 @@ class Engine:
         """One engine iteration: prefill-stream handoffs, then
         admission/restoration/preemption, then one batched decode step.
         Returns number of *output* tokens produced (prompt-chunk feeding
-        steps count zero)."""
-        t0 = time.monotonic()
+        steps count zero). Traced as ``engine:step``: its live decode
+        ``rows``, the requests that left the queue (``admitted``, deadline
+        drops included) and the tokens ``produced``."""
+        queued = len(self.scheduler.queue)
+        with tracing.span("engine:step") as sp:
+            t0 = tracing.clock()
+            rows, produced = self._step()
+            t1 = tracing.clock()
+            if sp:
+                sp.times(t0, t1)
+                sp.set(rows=rows, admitted=queued - len(self.scheduler.queue),
+                       produced=produced)
+        # feasibility floor: only steps that actually decoded count
+        if rows and (self._step_floor is None or t1 - t0 < self._step_floor):
+            self._step_floor = t1 - t0
+        return produced
+
+    def _step(self) -> Tuple[int, int]:
+        """The step's body: (live decode rows, output tokens)."""
         if self._inflight:
             self._handoff_ready()
         if self._step_tokens is not None:
@@ -1117,14 +1156,15 @@ class Engine:
             live_now = sum(1 for s in self.slots.active
                            if s not in self._paused)
             self._budget_left = max(0, self._step_tokens - live_now)
-        self._admit_ready()
+        with tracing.span("engine:admit"):
+            self._admit_ready()
         live = [s for s in self.slots.active
                 if s not in self._paused and s not in self._inflight]
         if live and self.kv.on_demand:
             live = self._grant_step_pages(live)
         if not live:
             self._drain_kv_events()
-            return 0
+            return 0, 0
         feeding_prompt = {}   # slot -> tail still pending after this step?
         steps = np.zeros(self.max_slots, np.int32)
         for slot in live:
@@ -1144,19 +1184,16 @@ class Engine:
         if n:
             self.td.record_collective(cb, cs, steps=n)
         produced = 0
-        for slot in live:
-            if not self._active_mask[slot] or slot in self._paused:
-                continue
-            if feeding_prompt.get(slot, False):
-                continue   # mid-prompt chunk: this step's output is discarded
-            self._emit_token(slot, int(next_np[slot]))
-            produced += 1
+        with tracing.span("engine:emit"):
+            for slot in live:
+                if not self._active_mask[slot] or slot in self._paused:
+                    continue
+                if feeding_prompt.get(slot, False):
+                    continue   # mid-prompt chunk: this step's output is discarded
+                self._emit_token(slot, int(next_np[slot]))
+                produced += 1
         self._drain_kv_events()
-        # feasibility floor: only steps that actually decoded count
-        dt = time.monotonic() - t0
-        if self._step_floor is None or dt < self._step_floor:
-            self._step_floor = dt
-        return produced
+        return len(live), produced
 
     @property
     def idle(self) -> bool:

@@ -78,6 +78,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.sealing import (IntegrityError, SealedTensor,
                                       SealingKey, nonce_words_for,
                                       seal_tensor, shared_page_name,
@@ -730,26 +731,35 @@ class PagedKVBackend(KVBackend):
 
     def decode(self, params, tokens, state, kmax,
                write_slots: Sequence[int]) -> np.ndarray:
+        """One decode step: the launch (``kv:decode_launch``), then the
+        sampler and the copy of its tokens to the host, where the host
+        waits for the step's device work (``kv:decode_wait``)."""
         logits = self.decode_logits(params, tokens, write_slots)
-        return sampling.pick(logits, state, kmax).cpu().numpy()
+        with tracing.span("kv:decode_wait"):
+            return sampling.pick(logits, state, kmax).cpu().numpy()
 
     def decode_logits(self, params, tokens,
                       write_slots: Sequence[int]) -> torch.Tensor:
         """One decode step over every row, as :meth:`decode`, returning the
         f32 logits ``[max_slots, vocab]`` on the device instead of tokens."""
-        write_phys = np.zeros(self.max_slots, np.int64)   # default: null page
-        write_off = np.zeros(self.max_slots, np.int64)
-        for s in write_slots:
-            write_phys[s], write_off[s] = self._prepare_write(s)
-        dev = self.device
-        args = [params, host_upload(tokens[:, None], dev),
-                host_upload(self.table, dev), host_upload(self.pos, dev),
-                host_upload(write_phys, dev), host_upload(write_off, dev)]
-        if self.decode_mode == "kernel" and self._cipher_pages:
-            args += [tuple(host_upload(self._crypt[p].view(np.int32), dev)
-                           for p in (self._k_path, self._v_path)),
-                     self._crypt_key.key_words]
-        logits = self._decode_fn(*args)
+        with tracing.span("kv:decode_launch") as sp:
+            if sp:
+                sp.set(rows=len(write_slots),
+                       max_len=max((int(self.pos[s]) + 1
+                                    for s in write_slots), default=0))
+            write_phys = np.zeros(self.max_slots, np.int64)  # default: null page
+            write_off = np.zeros(self.max_slots, np.int64)
+            for s in write_slots:
+                write_phys[s], write_off[s] = self._prepare_write(s)
+            dev = self.device
+            args = [params, host_upload(tokens[:, None], dev),
+                    host_upload(self.table, dev), host_upload(self.pos, dev),
+                    host_upload(write_phys, dev), host_upload(write_off, dev)]
+            if self.decode_mode == "kernel" and self._cipher_pages:
+                args += [tuple(host_upload(self._crypt[p].view(np.int32), dev)
+                               for p in (self._k_path, self._v_path)),
+                         self._crypt_key.key_words]
+            logits = self._decode_fn(*args)
         for s in write_slots:
             self.pos[s] += 1
         return logits
