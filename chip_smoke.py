@@ -77,14 +77,15 @@ Phases, each fatal on failure:
      tokens bit-equal to the single-device engine's and to each request's
      solo run on the mesh engine, every sealed name tagged /s0 or /s1, a
      victim restored onto the other shard, one counted gather of half the
-     non-norm weights a decode step, B1 the only kernel. Then the TP path:
+     non-norm weights a decode step, B1 the only kernel beside the
+     prefills' B2. Then the TP path:
      the same weights on a tp=2 mesh of logical shards (each shard's
      heads and d_ff block as views, every layer's attention and FFN
      partials all-reduced), the same waves on the slot backend and on
      paged-gather: each request equal to its solo run on the tp=2 engine,
      the collective bytes a step equal to tp_step_bytes' formula, one
      decode step's logits within TP_LOGITS_REL_TOL of one device's, B1 the
-     only kernel. Then, the weights freed, the ranks path: two processes
+     only kernel beside B2. Then, the weights freed, the ranks path: two processes
      on the card over gloo (file:// rendezvous under build/), each
      building the seed-0 weights in turn, checking their fingerprints
      against the parent's and keeping its tp=2 half; the slot waves on a
@@ -131,7 +132,7 @@ Phases, each fatal on failure:
      decode step's logits within FAMILY_TP's limit of one device's (jamba:
      tp_f32_witness on its served weights upcast to f32, in f32 within
      TP_F32_TOL, in bf16 within TP_BF16_RATIO x one device's own error),
-     B1 the only kernel. Then whisper-small at full size: prefill over
+     B1 the only kernel beside B2. Then whisper-small at full size: prefill over
      1,500 frames and 16 decode steps, each within a stated tolerance of
      the cache-free forward;
   7. training: Llama2-7B at full width, 2 of 32 layers, bf16, with the
@@ -330,6 +331,21 @@ FLASH_CASES = [
     ("ragged s=200 bf16, unpadded", "bfloat16", (1, 200, 32, 128), 32,
      (40, 40), (1e-2, 1e-2)),
     ("gqa f32", "float32", (2, 256, 8, 64), 2, (128, 128), (1e-5, 1e-5)),
+    # the shapes the serving paths' prefills give B2 (blocks as
+    # ops.mha_flash picks them): grouped-query bf16 at group 8, whisper's
+    # decoder, and buckets shorter than one 64-row tile
+    ("chameleon-34b 64/8 s=1024 bf16", "bfloat16", (1, 1024, 64, 128), 8,
+     (128, 128), (1e-2, 1e-2)),
+    ("mistral-nemo 32/8 s=2048 bf16", "bfloat16", (1, 2048, 32, 128), 8,
+     (128, 128), (1e-2, 1e-2)),
+    ("whisper-small decoder 12/12 hd 64 s=4 bf16", "bfloat16",
+     (1, 4, 12, 64), 12, (4, 4), (1e-2, 1e-2)),
+    ("whisper-small decoder 12/12 hd 64 s=448 bf16", "bfloat16",
+     (1, 448, 12, 64), 12, (128, 128), (1e-2, 1e-2)),
+    ("deepseek-7b bucket s=32 bf16", "bfloat16", (1, 32, 32, 128), 32,
+     (32, 32), (1e-2, 1e-2)),
+    ("mistral-nemo 32/8 bucket s=32 bf16", "bfloat16", (1, 32, 32, 128), 8,
+     (32, 32), (1e-2, 1e-2)),
 ]
 # the int8 path: ops.qmm against the bf16 product with the original weights
 # by relative error (||diff|| / ||product||), within QMM_ERR_MARGIN times
@@ -1176,10 +1192,11 @@ def phase_share(torch, np, model, params, cfg) -> dict:
     eng, reqs = waves(SHARE_KW, b"chip-smoke-3")
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"chacha20_xor_blocked": C.launches, **P.launches}
+    launches = {"chacha20_xor_blocked": C.launches, **P.launches,
+                "flash_attention": FA.launches}
     peak = torch.cuda.max_memory_allocated()
-    check(Q.launches + FA.launches == 0,
-          "the sharing path runs no int8 or flash kernel")
+    check(Q.launches == 0, "the sharing path runs no int8 kernel")
+    check(FA.launches > 0, "the sharing path prefilled through B2")
     # ---- end of the sharing path ------------------------------------------
     kv, stats = eng.kv, eng.run()
     check(all(r.finished for r in reqs), "sharing: every request finished")
@@ -1295,8 +1312,9 @@ def phase_store(torch, np, model, params, cfg) -> dict:
     launches = path_launches()
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the store path --------------------------------------------
-    check(launches["flash_attention"] + launches["qmatmul"] == 0,
-          "the store path runs no int8 or flash kernel")
+    check(launches["qmatmul"] == 0, "the store path runs no int8 kernel")
+    check(launches["flash_attention"] > 0,
+          "the store path prefilled through B2")
     cold, warm = runs
     for spec, out in zip(specs, cold["outputs"]):
         check(len(out) == spec[1] and all(0 <= t < cfg.vocab_size
@@ -1408,8 +1426,9 @@ def phase_two_phase(torch, np, model, params, cfg) -> dict:
         # ---- end of this mode ---------------------------------------------
         check(all(r.finished for r in reqs), f"{label}: every request "
               f"finished")
-        check(launches["flash_attention"] + launches["qmatmul"] == 0,
-              f"{label}: no int8 or flash kernel")
+        check(launches["qmatmul"] == 0, f"{label}: no int8 kernel")
+        check(launches["flash_attention"] > 0,
+              f"{label}: prefilled through B2")
         stats = stats_from_requests(reqs)
         check(stats.preemptions > 0, f"{label}: the high request preempted")
         results[label] = dict(
@@ -1621,8 +1640,9 @@ def phase_fleet(torch, np, model, params, cfg) -> dict:
     for name in ("chacha20_xor_blocked", "paged_attention",
                  "paged_attention_unseal"):
         check(launches[name] > 0, f"fleet: the path launched {name}")
-    check(launches["flash_attention"] + launches["qmatmul"] == 0,
-          "the fleet path runs no int8 or flash kernel")
+    check(launches["qmatmul"] == 0, "the fleet path runs no int8 kernel")
+    check(launches["flash_attention"] > 0,
+          "the fleet path prefilled through B2")
     for w in (w0, w1, respawned):
         pool_free(w)
     shared = sum(w.engine.kv.shared_page_maps for w in (w0, w1, respawned))
@@ -1691,8 +1711,9 @@ def phase_rag(torch, np, model, params, cfg) -> dict:
     # ---- end of the RAG path -----------------------------------------------
     for name in ("chacha20_xor_blocked", "paged_attention"):
         check(launches[name] > 0, f"rag: the path launched {name}")
-    check(launches["flash_attention"] + launches["qmatmul"] == 0,
-          "the RAG path runs no int8 or flash kernel")
+    check(launches["qmatmul"] == 0, "the RAG path runs no int8 kernel")
+    check(launches["flash_attention"] > 0,
+          "the RAG path prefilled through B2")
     cpu = DenseRetriever(device="cpu")
     cpu.params = tree_map(lambda t: t.cpu(), rag.dense.params)
     cpu.build(docs)
@@ -1818,8 +1839,10 @@ def phase_mesh(torch, np, model, params, specs, gen, slot_outputs) -> dict:
               f"single-device engine's ({outputs} vs {want})")
         check(launches["chacha20_xor_blocked"] > 0,
               f"mesh {label}: B1 ran under the seals and unseals")
-        check(sum(launches.values()) == launches["chacha20_xor_blocked"],
-              f"mesh {label}: no kernel but B1 ran ({launches})")
+        check(launches["flash_attention"] > 0 and sum(launches.values())
+              == launches["chacha20_xor_blocked"] + launches["flash_attention"],
+              f"mesh {label}: no kernel but B1 and the prefills' B2 ran "
+              f"({launches})")
         names = [n for kind, _, ns in events if kind == "seal" for n in ns]
         check(names and all(n.startswith("kvslot/")
                             and n.endswith(("/s0", "/s1")) for n in names),
@@ -2015,8 +2038,10 @@ def phase_tp(torch, np, model, params, specs, gen, mesh_out) -> dict:
               f"tp {label}: every request finished, after a preemption")
         check(launches["chacha20_xor_blocked"] > 0,
               f"tp {label}: B1 ran under the seals and unseals")
-        check(sum(launches.values()) == launches["chacha20_xor_blocked"],
-              f"tp {label}: no kernel but B1 ran ({launches})")
+        check(launches["flash_attention"] > 0 and sum(launches.values())
+              == launches["chacha20_xor_blocked"] + launches["flash_attention"],
+              f"tp {label}: no kernel but B1 and the prefills' B2 ran "
+              f"({launches})")
         names = [n for s_ in seals for n in s_]
         check(names and all(n.endswith("/s0") for n in names),
               f"tp {label}: every sealed name ends in /s0")
@@ -2460,8 +2485,10 @@ def phase_paged_ranks(torch, np, device="cuda", smoke=False) -> dict:
               f"paged ranks, {name} logical tp=2: every request finished, "
               f"after a preemption")
         check(sum(rec["launches"].values())
-              == rec["launches"]["chacha20_xor_blocked"],
-              f"paged ranks, {name} logical tp=2: no kernel but B1 ran")
+              == rec["launches"]["chacha20_xor_blocked"]
+              + rec["launches"]["flash_attention"],
+              f"paged ranks, {name} logical tp=2: no kernel but B1 and the "
+              f"prefills' B2 ran")
         check(all(rec["frozen"]) and (bool(rec["frozen"])
                                        or not eng.kv._dense),
               f"paged ranks, {name} logical tp=2: a row paused, and every "
@@ -2597,8 +2624,10 @@ def phase_serve(torch, np) -> dict:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = C.launches
-    check(sum(P.launches.values()) + Q.launches + FA.launches == 0,
-          "the slot path runs no paged, int8 or flash kernel")
+    slot_b2 = FA.launches
+    check(sum(P.launches.values()) + Q.launches == 0,
+          "the slot path runs no paged or int8 kernel")
+    check(FA.launches > 0, "the slot path prefilled through B2")
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the slot path ---------------------------------------------
 
@@ -2635,10 +2664,11 @@ def phase_serve(torch, np) -> dict:
     preqs, pstats = serve_waves(paged, specs, gen)
     torch.cuda.synchronize()
     paged_s = time.perf_counter() - t0
-    paged_launches = {"chacha20_xor_blocked": C.launches, **P.launches}
+    paged_launches = {"chacha20_xor_blocked": C.launches, **P.launches,
+                      "flash_attention": FA.launches}
     paged_peak = torch.cuda.max_memory_allocated()
-    check(Q.launches + FA.launches == 0,
-          "the paged path runs no int8 or flash kernel")
+    check(Q.launches == 0, "the paged path runs no int8 kernel")
+    check(FA.launches > 0, "the paged path prefilled through B2")
     # ---- end of the paged-kernel path -------------------------------------
     check(all(r.finished for r in preqs), "paged: every request finished")
     check(pstats.preemptions > 0, "paged: the high wave forced a preemption")
@@ -2807,7 +2837,7 @@ def phase_serve(torch, np) -> dict:
     sid = probe.open_stream()
     frame_s = time_host(lambda: probe.egress_tokens(sid, [1]), 20)
     return dict(stats=stats, channel=ch, seal_s=seal_s, unseal_s=unseal_s,
-                serve_s=serve_s, launches=launches,
+                serve_s=serve_s, launches=launches, slot_b2=slot_b2,
                 weight_launches=weight_launches, peak=peak,
                 weight_bytes=n_weights, n_requests=len(specs),
                 decode_s=decode_s, prefill_s=prefill_s, frame_s=frame_s,
@@ -3045,9 +3075,10 @@ def family_tp(torch, np, name, model, params, specs, gen, one, key) -> dict:
         check(frozen, f"{name} tp: the paused row's recurrent-state rows "
                       f"are bit-equal before and after the step it sat out")
     check(launches["chacha20_xor_blocked"] > 0
-          and sum(launches.values()) == launches["chacha20_xor_blocked"],
-          f"{name} tp: B1 ran under the seals, and no other kernel "
-          f"({launches})")
+          and sum(launches.values()) == launches["chacha20_xor_blocked"]
+          + launches["flash_attention"],
+          f"{name} tp: B1 ran under the seals, and no other kernel but the "
+          f"prefills' B2 ({launches})")
     outputs = [list(r.output) for r in reqs]
     ch = eng.td.channel.stats
     steps = ch.collective_steps
@@ -3135,8 +3166,11 @@ def phase_family(torch, np, name, cut, kw) -> dict:
     launches = path_launches()
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the family's path -----------------------------------------
-    check(launches["flash_attention"] + launches["qmatmul"] == 0,
-          f"{name}: the path runs no int8 or flash kernel")
+    check(launches["qmatmul"] == 0, f"{name}: the path runs no int8 kernel")
+    attends = any(m == "attn" for _, _, slots in model._impl.blocks
+                  for m, _ in slots)
+    check((launches["flash_attention"] > 0) == attends,
+          f"{name}: B2 prefilled the attention layers, and only those")
     check(launches["chacha20_xor_blocked"] > 0,
           f"{name}: the path launched chacha20_xor_blocked")
     if kw.get("kv_decode") == "kernel":
@@ -3268,9 +3302,11 @@ def phase_whisper(torch, np) -> dict:
     launches = path_launches()
     peak = torch.cuda.max_memory_allocated()
     check(launches["chacha20_xor_blocked"] > 0
-          and sum(v for k, v in launches.items()
-                  if k != "chacha20_xor_blocked") == 0,
-          "whisper: the path launched chacha20_xor_blocked only")
+          and launches["flash_attention"] == cfg.decoder_layers
+          and sum(v for k, v in launches.items() if k not in (
+              "chacha20_xor_blocked", "flash_attention")) == 0,
+          "whisper: the path launched chacha20_xor_blocked and the "
+          "decoder prefill's B2 only")
     out = dict(launches=launches, peak=peak, prefill_s=prefill_s,
                step_ms=float(np.median(step_s)) * 1e3, worst=worst,
                tokens=toks.shape[1] - WHISPER_PROMPT, **load)
@@ -5360,7 +5396,7 @@ def main() -> int:
             f"{k} {v:.1f}s" for k, v in sv["path_s"].items()))
     fam_launches = {k: sum(r["launches"][k] for r in fam.values())
                     for k in ("chacha20_xor_blocked", "paged_attention",
-                              "paged_attention_unseal")}
+                              "paged_attention_unseal", "flash_attention")}
     print(f"  launches on the families path: " + "; ".join(
         f"{n} {r['launches']}" for n, r in fam.items())
         + f"; summed {fam_launches}")
@@ -5378,11 +5414,16 @@ def main() -> int:
                    + tp_tr["launches"]["chacha20_xor_blocked"]
                    + qp["launches"]["chacha20_xor_blocked"]
                    + rk["launches"] + rkp["launches"])
+    b2_launches = (sv["slot_b2"] + pl["flash_attention"]
+                   + qp["launches"]["flash_attention"])
     print(f"  launches summed over the paths each kernel runs on: B1 "
           f"{b1_launches} (slot, paged, sharing, store, two-phase, fleet, "
           f"RAG, mesh, TP, ranks, paged ranks, families, families on tp=2, "
-          f"training, sharded and tensor-parallel training, int8), B3 {pl['paged_attention']} (paged, "
-          f"sharing, store, two-phase, fleet, RAG, chameleon) and B4 "
+          f"training, sharded and tensor-parallel training, int8), B2 "
+          f"{b2_launches} (the prefills of slot, paged, sharing, store, "
+          f"two-phase, fleet, RAG, mesh, TP, paged ranks' logical run, the "
+          f"attention families, whisper, and int8), B3 {pl['paged_attention']} "
+          f"(paged, sharing, store, two-phase, fleet, RAG, chameleon) and B4 "
           f"{pl['paged_attention_unseal']} (paged, sharing, store, "
           f"two-phase, fleet, chameleon)")
     fm, qm = ft[128], qt[QMM_MAIN]
@@ -5410,7 +5451,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": qp["launches"]["flash_attention"],
+        "launches": b2_launches,
         "max_abs_err": flash_err, "ms": fm["ms"], "plain_ms": fm["plain_ms"],
         "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
         "library_ms": fm["lib_ms"]}, {

@@ -391,7 +391,7 @@ class TensorParallel:
         q = self.mg.all_gather([t[0] for t in qkv], dim=2)   # every head
         k, v = qkv[0][1], qkv[0][2]
         if mode == "prefill":
-            out = self._sp_prefill(q, k, v, positions, cl)
+            out = self._sp_prefill(q, k, v, cl)
         else:
             out = self._sp_decode(q, k, v, positions, cl)
         hs = self.heads
@@ -400,10 +400,10 @@ class TensorParallel:
                  for lp, s in zip(lps, self.mg.local)]
         return self.mg.all_reduce(parts)
 
-    def _sp_prefill(self, q, k, v, positions, cl) -> torch.Tensor:
-        """Full causal attention over the prompt (every shard holds the
-        whole row's q, k, v); each shard keeps its block of positions, or
-        a whole cache takes every position."""
+    def _sp_prefill(self, q, k, v, cl) -> torch.Tensor:
+        """Full causal attention over the prompt from position 0 (every
+        shard holds the whole row's q, k, v); each shard keeps its block of
+        positions, or a whole cache takes every position."""
         s = q.shape[1]
         if not self.local_cache:
             cl["k"][:, :s] = k.to(cl["k"].dtype)
@@ -415,7 +415,7 @@ class TensorParallel:
             if n:
                 cl["k"][:, :n] = k[:, lo:lo + n].to(cl["k"].dtype)
                 cl["v"][:, :n] = v[:, lo:lo + n].to(cl["v"].dtype)
-        return layers._attend_full(self.impl.acfg, q, k, v, positions)
+        return layers._attend_prompt(self.impl.acfg, q, k, v)
 
     def _sp_decode(self, q, k, v, positions, cl) -> torch.Tensor:
         """Write the new row (on the shard owning its position when a rank

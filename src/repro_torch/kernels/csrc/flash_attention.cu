@@ -495,7 +495,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
 
 // out[bh, s, d] = causal attention of q[bh, s, d] over k/v[bh / group, s, d]
 // (q head i reads kv head i / group), scores scaled by `scale`. bf16
-// (is_bf16) or f32 for q, k, v and out alike; d one of 32, 64, 128.
+// (is_bf16) or f32 for q, k, v and out alike; d one of 16, 32, 64, 128.
 // Launches on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int bh,
@@ -506,6 +506,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf16 = is_bf16 != 0;
   switch (d) {
+    case 16: return launch<16>(q, k, v, out, bh, group, s, bf16, scale, st);
     case 32: return launch<32>(q, k, v, out, bh, group, s, bf16, scale, st);
     case 64: return launch<64>(q, k, v, out, bh, group, s, bf16, scale, st);
     case 128: return launch<128>(q, k, v, out, bh, group, s, bf16, scale, st);

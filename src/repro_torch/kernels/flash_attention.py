@@ -30,7 +30,7 @@ NEG_INF = -1e30
 
 DTYPES = (torch.float32, torch.bfloat16)
 # head dims the CUDA kernel is instantiated for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 # Launches of the CUDA kernel since the last reset (the plain version never
 # counts): a run reads it to show the main path went through the kernel.

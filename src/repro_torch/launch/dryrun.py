@@ -13,7 +13,8 @@ whisper) on the weights ``param_specs`` places and the dense cache
 ``cache_specs`` places -- on a dry mesh (``launch.mesh.make_dry_mesh``),
 whose groups are ``DryGroup``\\ s: one rank's view of ``n`` ranks, the
 other ranks' tensors made from the shapes. No tensor of the model is
-allocated and no kernel wrapper is reached (the dense cache's attention is plain torch).
+allocated and no kernel wrapper is reached (the dense cache's attention is plain torch,
+and a prompt's attention on fake tensors takes the plain path).
 
 Per cell (:class:`Lowered`, per device), all counted op by op by one
 dispatch mode (:class:`Counter`):

@@ -264,7 +264,8 @@ class EncDecLM:
             for shard, cl in zip(tp.mg.local, cls):
                 tp.store_block(cl, "self_k", k, shard)
                 tp.store_block(cl, "self_v", v, shard)
-            out = layers._attend_full(acfg, q, k, v, positions)
+            # the prefill's positions are 0..t-1
+            out = layers._attend_prompt(acfg, q, k, v)
         else:
             out = tp.attend_blocks(q, [(cl["self_k"], cl["self_v"])
                                        for cl in cls], positions, (k, v))

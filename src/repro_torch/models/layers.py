@@ -17,6 +17,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch import tracing
+from repro_torch.kernels import flash_attention, ops
 
 Params = Any  # nested dict of tensors
 
@@ -205,6 +209,33 @@ def _attend_full(cfg: AttentionConfig, q, k, v, positions) -> torch.Tensor:
     return sdpa(q, k, v, causal=cfg.causal, q_positions=positions)
 
 
+def _attend_prompt(cfg: AttentionConfig, q, k, v) -> torch.Tensor:
+    """A prompt's attention over itself: q, k and v [b, s, ., hd] all at
+    positions 0..s-1, which is what a prefill computes from the start of a
+    row (it writes its KV at [0, s)). A caller whose queries start
+    elsewhere attends with :func:`_attend_full` and its positions.
+
+    Causal attention of a CUDA tensor, in a dtype and head dim kernel B2
+    takes, runs through B2 (``ops.mha_flash``): the same scores on the
+    tensor cores with f32 sums, and no ``[h, s, s]`` logits in device
+    memory (``cfg.chunk`` only bounds those, so it needs nothing here). B2
+    gives each (row, head) its own CTAs, so a row's bits are the same alone
+    and in a batch. Everything else goes through :func:`_attend_full`, the
+    reference's arithmetic. Each call counts ``model:attn_b2`` or
+    ``model:attn_plain`` on the active tracer."""
+    b, s = q.shape[:2]
+    assert k.shape[1] == s, "a prompt attends over its own s positions"
+    # a fake tensor (the dry run's) has no memory for the kernel to read
+    if (q.is_cuda and not is_fake(q) and cfg.causal
+            and q.dtype in flash_attention.DTYPES
+            and q.shape[-1] in flash_attention.KERNEL_HEAD_DIMS):
+        tracing.count("model:attn_b2")
+        return ops.mha_flash(q, k, v)
+    tracing.count("model:attn_plain")
+    positions = torch.arange(s, device=q.device)[None, :].expand(b, s)
+    return _attend_full(cfg, q, k, v, positions)
+
+
 def attention_forward(params: Params, cfg: AttentionConfig, x: torch.Tensor,
                       positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence attention without a cache (training, the encoder's
@@ -226,14 +257,15 @@ def init_kv_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
 
 def attention_prefill(params: Params, cfg: AttentionConfig, x: torch.Tensor,
                       cache: Params, positions: torch.Tensor):
-    """Prefill: full causal attention, and k/v written into ``cache``
-    (``[b, max_len, hk, hd]`` views) at [0, s) in place (the reference
-    rebuilt the cache with ``dynamic_update_slice``)."""
+    """Prefill from position 0 (``positions`` are 0..s-1 in every row):
+    full causal attention (:func:`_attend_prompt`), and k/v written into
+    ``cache`` (``[b, max_len, hk, hd]`` views) at [0, s) in place (the
+    reference rebuilt the cache with ``dynamic_update_slice``)."""
     q, k, v = _qkv(params, cfg, x, positions)
     s = x.shape[1]
     cache["k"][:, :s] = k.to(cache["k"].dtype)
     cache["v"][:, :s] = v.to(cache["v"].dtype)
-    out = _attend_full(cfg, q, k, v, positions)
+    out = _attend_prompt(cfg, q, k, v)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 

@@ -38,7 +38,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import torch
 
 clock = time.perf_counter
-PREFIXES = ("engine:", "kv:", "td:")
+PREFIXES = ("engine:", "kv:", "td:", "model:")
 
 
 @dataclasses.dataclass(slots=True)
@@ -82,6 +82,13 @@ def active(tracer: Tracer) -> Iterator[Tracer]:
 
 def current() -> Optional[Tracer]:
     return _ACTIVE.get()
+
+
+def count(name: str, n: float = 1) -> None:
+    """:meth:`Tracer.count` on the active tracer; nothing while none is."""
+    tracer = _ACTIVE.get()
+    if tracer is not None:
+        tracer.count(name, n)
 
 
 class _NoSpan:

@@ -243,11 +243,12 @@ def test_engine_on_card_matches_cpu(card):
     cpu_model = build_model(cfg, device="cpu")
     params = cpu_model.init_params(seed=3)
     expect = _serve("cpu", params, cpu_model)
-    before = C.launches
+    before = C.launches, FA.launches
     got = _serve(card, tree_map(lambda t: t.to(card), params),
                  build_model(cfg, device=card))
     assert got == expect
-    assert C.launches > before
+    assert C.launches > before[0]
+    assert FA.launches > before[1]     # the prefills' attention through B2
 
 
 def test_paged_kernel_engine_on_card_matches_cpu(card):
@@ -327,6 +328,11 @@ FLASH_CASES = [  # (dtype, bh, bhk, s, d, (bq, bkv), tolerance)
     (torch.float32, 8, 2, 128, 64, (128, 128), 1e-5),    # GQA
     (torch.bfloat16, 2, 1, 200, 32, (40, 40), 1e-2),     # ragged s, GQA
     (torch.bfloat16, 2, 2, 512, 128, (128, 128), 1e-2),  # 8 q blocks
+    (torch.float32, 4, 2, 128, 16, (64, 64), 1e-5),     # the smoke head dim
+    (torch.bfloat16, 4, 2, 256, 16, (128, 128), 1e-2),
+    (torch.bfloat16, 16, 2, 256, 128, (128, 128), 1e-2),  # group 8
+    (torch.bfloat16, 32, 4, 32, 128, (32, 32), 1e-2),    # s < one tile
+    (torch.bfloat16, 12, 12, 4, 64, (4, 4), 1e-2),       # whisper's prompt
 ]
 
 
@@ -640,6 +646,88 @@ def test_batched_prefill_rows_equal_solo_on_card(card):
                                solo["layers"]["slot_0"][leaf][:, 0])
 
 
+# a bf16 prefill at deepseek-7b's attention width through B2 against the
+# same prefill through sdpa (PERF.md section 6 states the limit)
+B2_PREFILL_LOGIT_LIMIT = 0.15
+
+
+@pytest.mark.parametrize("s", [1024, 4096])
+def test_prefill_through_b2_on_card_matches_sdpa(card, monkeypatch, s):
+    """deepseek-7b's attention (32 heads of 128) in a 2-layer bf16 model:
+    the plan's one-row prefill launches B2 once a layer and counts it on
+    the tracer; its logits lie within the limit of the same prefill
+    through sdpa, and the first layer's KV, written before any attention,
+    is bit-equal."""
+    import dataclasses
+    from repro_torch import tracing
+    from repro_torch.models import layers
+    from repro_torch.runtime.plan import SingleDevicePlan
+    cfg = dataclasses.replace(smoke_config("deepseek-7b"), d_model=4096,
+                              num_heads=32, num_kv_heads=32, head_dim=128,
+                              d_ff=1024, vocab_size=32000, num_layers=2,
+                              dtype="bfloat16")
+    model = build_model(cfg, device=card)
+    params = model.init_params(seed=0)
+    prefill = SingleDevicePlan(model).compile_prefill()
+    g = torch.Generator(device="cpu").manual_seed(s)
+    tokens = torch.randint(1, cfg.vocab_size, (1, s), generator=g,
+                           dtype=torch.int32).to(card)
+    before = FA.launches
+    with tracing.active(tracing.Tracer()) as tracer:
+        got, cache = prefill(params, tokens, model.init_cache(1, s))
+    torch.cuda.synchronize()
+    assert FA.launches - before == cfg.num_layers
+    assert tracer.counters == {"model:attn_b2": cfg.num_layers}
+
+    def sdpa_route(c, q, k, v):
+        b, n = q.shape[:2]
+        positions = torch.arange(n, device=q.device)[None, :].expand(b, n)
+        return layers._attend_full(c, q, k, v, positions)
+
+    monkeypatch.setattr(layers, "_attend_prompt", sdpa_route)
+    want, ref = prefill(params, tokens, model.init_cache(1, s))
+    assert FA.launches - before == cfg.num_layers
+    gap = (got - want).abs().max().item()
+    assert gap <= B2_PREFILL_LOGIT_LIMIT, gap
+    for leaf in ("k", "v"):
+        assert torch.equal(cache["layers"]["slot_0"][leaf][0],
+                           ref["layers"]["slot_0"][leaf][0])
+
+
+@pytest.mark.parametrize("case", ["b2", "not_causal", "head_dim_96",
+                                  "float16"])
+def test_prompt_dispatch_on_card(card, case):
+    """On the card a causal prompt in f32/bf16 at a head dim B2 has a
+    kernel for launches B2 once; non-causal attention, head dim 96 and
+    float16 keep the reference's arithmetic, bit for bit, and launch
+    nothing."""
+    from repro_torch import tracing
+    from repro_torch.models import layers
+    hd = 96 if case == "head_dim_96" else 64
+    dtype = torch.float16 if case == "float16" else torch.bfloat16
+    cfg = layers.AttentionConfig(d_model=8 * hd, num_heads=8, num_kv_heads=2,
+                                 head_dim=hd, causal=case != "not_causal")
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q = torch.randn((1, 200, 8, hd), generator=g).to(dtype).to(card)
+    k, v = (torch.randn((1, 200, 2, hd), generator=g).to(dtype).to(card)
+            for _ in range(2))
+    positions = torch.arange(200, device=card)[None, :]
+    want = layers._attend_full(cfg, q, k, v, positions)
+    before = FA.launches
+    with tracing.active(tracing.Tracer()) as tracer:
+        got = layers._attend_prompt(cfg, q, k, v)
+    torch.cuda.synchronize()
+    if case == "b2":
+        assert FA.launches == before + 1
+        assert tracer.counters == {"model:attn_b2": 1}
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+    else:
+        assert FA.launches == before
+        assert tracer.counters == {"model:attn_plain": 1}
+        assert torch.equal(got, want)
+
+
 def test_fleet_kill_on_card_equals_solo(card):
     """Two workers on the card share the smoke model's weights (paged
     kernel decode); the busiest is killed mid-decode, its KV migrates
@@ -783,16 +871,21 @@ def _family_serve(device, model, params, **kv):
 @pytest.mark.parametrize("arch", sorted(FAMILY_KV))
 def test_family_engine_on_card_matches_cpu(card, arch):
     """Each decoder family's f32 smoke model serves the preempting scenario
-    on the card with the CPU run's tokens (chameleon through B3 and B4)."""
+    on the card with the CPU run's tokens (chameleon through B3 and B4);
+    the families with attention layers prefill it through B2, MLA
+    (deepseek-v3) and RWKV without."""
     cfg = smoke_config(arch)
     cpu = build_model(cfg, device="cpu")
     params = cpu.init_params(seed=3)
     expect = _family_serve("cpu", cpu, params, **FAMILY_KV[arch])
     P.reset_launches()
+    before = FA.launches
     got = _family_serve(card, build_model(cfg, device=card),
                         tree_map(lambda t: t.to(card), params),
                         **FAMILY_KV[arch])
     assert got == expect
+    assert (FA.launches > before) == (arch not in ("deepseek-v3-671b",
+                                                   "rwkv6-3b"))
     if arch == "chameleon-34b":
         assert P.launches["paged_attention"] > 0
         assert P.launches["paged_attention_unseal"] > 0

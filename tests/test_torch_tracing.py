@@ -1,8 +1,8 @@
 """repro_torch.tracing on the paged serving path (smoke deepseek-7b, sealed
 weights, kernel decode, on the CPU): a tracer changes no token and no
 audit line, its spans nest at the layer boundaries, the prefill spans
-count the prompts, each span is also a profiler range, and with no tracer
-active nothing records."""
+count the prompts and their attention layers, each span is also a profiler
+range, and with no tracer active nothing records."""
 
 import numpy as np
 import pytest
@@ -80,6 +80,10 @@ def test_a_tracer_changes_no_token_and_no_audit_line(runs):
     assert ttoks == toks and taudit == audit
     assert eng.kv.decode_mode == "kernel"
     assert tracer.spans and all(s.t1 >= s.t0 for s in tracer.spans)
+    names = {s.name for s in tracer.spans} | set(tracer.counters)
+    assert all(n.startswith(tracing.PREFIXES) for n in names)
+    assert {"engine:", "kv:", "td:", "model:"} == {
+        p for p in tracing.PREFIXES if any(n.startswith(p) for n in names)}
 
 
 @pytest.mark.parametrize("child, where", [
@@ -120,14 +124,19 @@ def test_mac_counts_land_on_the_sealing_spans(model, runs):
         s.attrs.get("td:mac_bytes", 0) for s in tracer.spans)
 
 
-def test_prefill_spans_count_the_prompts(runs):
+def test_prefill_spans_count_the_prompts(model, runs):
     spans = runs[2].spans
     pre = [s for s in spans if s.name == "engine:prefill"]
     assert sorted(r for s in pre for r in s.attrs["rids"]) == [0, 1, 2]
     assert sum(s.attrs["prompt_tokens"] for s in pre) == sum(
         len(p) for p in PROMPTS)
+    layers = model[0].cfg.num_layers
+    assert runs[2].counters["model:attn_plain"] == layers * len(PROMPTS)
     for s in pre:
         assert s.attrs["rows"] == len(s.attrs["rids"])
+        # a CPU prefill keeps the reference's attention: a layer a row
+        assert s.attrs["model:attn_plain"] == layers * s.attrs["rows"]
+        assert "model:attn_b2" not in s.attrs
         assert s.attrs["bucket"] in (4, 8)
         assert s.rid == (s.attrs["rids"][0] if s.attrs["rows"] == 1
                          else None)
