@@ -35,13 +35,11 @@ def unsealed_equal(system, cfg, seed) -> bool:
     """Every unsealed leaf against the leaf made again from the seed."""
     import torch
     from repro_torch.core.sealing import tree_leaves_with_names
-    from teebench import weights
-    from teebench.program import logical_name
+    from teebench.program import blocks_of, make_leaf
+    blocks = blocks_of(system.params)
     for path, leaf in tree_leaves_with_names(system.params):
-        name, stacked = logical_name(path)
-        want = (weights.stacked if stacked else weights.make)(
-            cfg, seed, name, device=leaf.device)
-        if not torch.equal(want.view(torch.int16), leaf.view(torch.int16)):
+        want = make_leaf(cfg, seed, path, blocks, device=leaf.device)
+        if not torch.equal(want.view(torch.uint8), leaf.view(torch.uint8)):
             return False
     return True
 

@@ -3,16 +3,17 @@ RMSNorm, rotary embeddings on the two halves of each head, grouped-query
 attention, SwiGLU, tied embeddings), in float32 with TF32 off.
 
 It serves the configurations whose file names it as ``"reference"``
-(deepseek-7b). Weights come from the benchmark's own
-generator (``teebench.weights``), made again one layer at a time, never
-from the program. It runs whole sequences with causal attention from
-position 0, so a prompt left-padded with token 0 into its prefill bucket
-is attended with its pads, as the served path attends it.
+(deepseek-7b), and declares their family and leaf table (``spec``).
+Weights come from the benchmark's own generator (``teebench.weights``),
+made again one layer at a time, never from the program. It runs whole
+sequences with causal attention from position 0, so a prompt left-padded
+with token 0 into its prefill bucket is attended with its pads, as the
+served path attends it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +21,32 @@ import torch
 from teebench import weights
 
 WeightFn = Callable[[str, torch.Tensor], torch.Tensor]
+
+FAMILY = "dense"
+LAYER_LEAVES = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "ffn.w_gate",
+                "ffn.w_up", "ffn.w_down", "pre_norm.scale", "post_norm.scale")
+
+
+def leaves(cfg: dict) -> Dict[str, weights.Leaf]:
+    """One layer's slice of each leaf: matrices by their fan-in, norm
+    scales around 1, the (tied) embedding table at 0.02."""
+    d, h, hk, hd, ff, v = (cfg["hidden_size"], cfg["num_attention_heads"],
+                           cfg["num_key_value_heads"], cfg["head_dim"],
+                           cfg["intermediate_size"], cfg["vocab_size"])
+    Leaf = weights.Leaf
+    return {
+        "attn.wq": Leaf((d, h, hd), "fan_in", (0,)),
+        "attn.wk": Leaf((d, hk, hd), "fan_in", (0,)),
+        "attn.wv": Leaf((d, hk, hd), "fan_in", (0,)),
+        "attn.wo": Leaf((h, hd, d), "fan_in", (0, 1)),
+        "ffn.w_gate": Leaf((d, ff), "fan_in", (0,)),
+        "ffn.w_up": Leaf((d, ff), "fan_in", (0,)),
+        "ffn.w_down": Leaf((ff, d), "fan_in", (0,)),
+        "pre_norm.scale": Leaf((d,), "norm"),
+        "post_norm.scale": Leaf((d,), "norm"),
+        "final_norm.scale": Leaf((d,), "norm"),
+        "embedding.table": Leaf((v, d), "embedding", (1,)),
+    }
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float):
@@ -81,7 +108,7 @@ def logits(cfg: dict, seed: int, seqs: Sequence[np.ndarray],
             for layer in range(cfg["num_hidden_layers"]):
                 w = {leaf: fn(leaf, weights.make(cfg, seed, leaf, layer,
                                                  device=device).float())
-                     for leaf in weights.LAYER_LEAVES}
+                     for leaf in LAYER_LEAVES}
                 for i, x in enumerate(xs):
                     s = x.shape[0]
                     pos = torch.arange(s, device=device)

@@ -16,25 +16,25 @@ on the way to the client gives gaps of the logits' own size.
 
 The control puts the reference in the program's place at the precision
 below the configuration's bf16: every weight matrix rounded to fp8 e4m3
-with a scale per output channel. At each position of the same sequences it
-reads the gap of the token the fp8 reference puts first; a run with
-``control`` judges that gap against the cell's limit in the served
-tokens' place.
+with a scale per output channel (over the input axes the reference's
+leaf table declares; vectors pass unchanged). At each position of the
+same sequences it reads the gap of the token the fp8 reference puts
+first; a run with ``control`` judges that gap against the cell's limit in
+the served tokens' place.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
+from teebench import weights
+
 FP8_MAX = 448.0
-# which axes of each leaf are its inputs (the scale is per output channel)
-_INPUT_AXES = {"attn.wq": (0,), "attn.wk": (0,), "attn.wv": (0,),
-               "attn.wo": (0, 1), "ffn.w_gate": (0,), "ffn.w_up": (0,),
-               "ffn.w_down": (0,), "embedding.table": (1,)}
 
 
 def sample(records, seed: int, min_tokens: int, min_requests: int,
@@ -92,11 +92,12 @@ def control_gaps(ref_logits, ctrl_logits) -> np.ndarray:
                                     for lg in ctrl_logits])
 
 
-def fp8_weights(leaf: str, w: torch.Tensor) -> torch.Tensor:
-    """``w`` rounded to fp8 e4m3 with an absmax scale per output channel
-    (norm scales pass unchanged)."""
-    axes = _INPUT_AXES.get(leaf)
-    if axes is None:
+def fp8_weights(cfg: dict, leaf: str, w: torch.Tensor) -> torch.Tensor:
+    """One layer's ``w`` rounded to fp8 e4m3 with an absmax scale per
+    output channel, over the input axes ``cfg``'s leaf table declares (a
+    leaf with none, a norm scale, passes unchanged)."""
+    axes = weights.describe(cfg, leaf).inputs
+    if not axes:
         return w
     scale = w.abs().amax(dim=axes, keepdim=True).clamp_min(1e-12) / FP8_MAX
     return (w / scale).to(torch.float8_e4m3fn).float() * scale
@@ -121,7 +122,8 @@ def compare(reference, cfg: dict, seed: int, picked, *, device,
            "positions_off_greedy": int((gaps > 0).sum())}
     if control:
         ctrl = reference.logits(cfg, seed, seqs, reads, device=device,
-                                weight_fn=fp8_weights)
+                                weight_fn=functools.partial(fp8_weights,
+                                                            cfg))
         cg = control_gaps(ref, ctrl)
         out["control_max_logit_gap"] = float(cg.max()) if cg.size else None
         out["control_positions_off"] = int((cg > 0).sum())

@@ -10,7 +10,7 @@ from typing import Dict, List, Optional
 
 from teebench import check, spec, stats, trace, traffic as traffic_mod
 from teebench.client import Client, RequestRecord, StepSpan, clock
-from teebench.program import System
+from teebench.program import System, decode_path
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 B3_KERNELS = ("split_kernel", "combine_kernel")
@@ -31,6 +31,10 @@ class Run:
     decode_calls: list            # program.DecodeCall, in order
     t_trace: Optional[float] = None   # the profiler started (host clock)
     summary: Optional[trace.TraceSummary] = None
+    # the port's spans (``repro_torch.tracing.Span``: name, t0 and t1 on
+    # the host clock, attrs) and counter totals over the traced stretch
+    spans: list = dataclasses.field(default_factory=list)
+    counters: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def window_s(self) -> float:
@@ -79,6 +83,7 @@ def serve(system, cfg: dict, cell: dict, mix: dict, seed: int,
         started["t"] = clock()
         started["step"] = len(client.steps)
         prof.start()
+        system.start_tracing()
 
     client = Client(system, specs, closed=mix["arrival"] == "closed",
                     buckets=system.buckets, t_zero=t_zero, window_s=seconds,
@@ -86,9 +91,11 @@ def serve(system, cfg: dict, cell: dict, mix: dict, seed: int,
                     start_trace=start_trace if traced else None)
     client.run()
     summary = None
+    spans, counters = [], {}
     if prof is not None and "t" in started:
         if system.device.type == "cuda":
             torch.cuda.synchronize(system.device)
+        spans, counters = system.stop_tracing()
         prof.stop()
         dev, host = trace.split_events(prof.profiler.kineto_results.events())
         steps = [s for s in host if s[2] == "bench:step"]
@@ -103,7 +110,8 @@ def serve(system, cfg: dict, cell: dict, mix: dict, seed: int,
                t_end=t_zero + seconds, setup_s=t_zero - t_process0,
                timings=dict(system.timings), records=client.records,
                steps=client.steps, decode_calls=list(system.decode_calls),
-               t_trace=started.get("t"), summary=summary)
+               t_trace=started.get("t"), summary=summary, spans=spans,
+               counters=counters)
 
 
 def info(run: Run) -> dict:
@@ -140,8 +148,11 @@ def info(run: Run) -> dict:
 
 
 def judge(cmp: dict, chk: dict, failed: int, b3_launches=None,
-          gap_key: str = "max_logit_gap") -> Dict[str, dict]:
-    """Each number compared, beside its limit, and whether it holds."""
+          gap_key: str = "max_logit_gap",
+          decode: str = "kernel") -> Dict[str, dict]:
+    """Each number compared, beside its limit, and whether it holds. B3's
+    launches (counted on the card only) are held on the kernel decode
+    path; the gather path never launches it."""
     gap = cmp[gap_key]
     checks = {
         "max_logit_gap": {"value": gap, "limit": chk["max_logit_gap"],
@@ -156,7 +167,7 @@ def judge(cmp: dict, chk: dict, failed: int, b3_launches=None,
                               >= chk["min_requests"]},
         "failed_requests": {"value": failed, "limit": 0, "ok": failed == 0},
     }
-    if b3_launches is not None:
+    if decode == "kernel" and b3_launches is not None:
         checks["b3_launches"] = {"value": b3_launches, "limit": 1,
                                  "ok": b3_launches >= 1}
     return checks
@@ -218,7 +229,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     due = [r for r in run.records if r.submitted and w0 <= r.t_due < w1]
     checks = judge(cmp, chk, sum(1 for r in run.records if r.failed),
                    extra["b3_launches"],
-                   "control_max_logit_gap" if control else "max_logit_gap")
+                   "control_max_logit_gap" if control else "max_logit_gap",
+                   decode_path(cell))
     result = {"correct": all(c["ok"] for c in checks.values()),
               "attempted": len(due),
               "failed": sum(1 for r in due if r.failed),

@@ -5,9 +5,12 @@ laid against the benchmark's host spans.
 The stretch is the span of the ``bench:`` ranges the client recorded while
 the profiler ran (every moment of the loop is inside one: a step, a
 submit, or a wait). Device time is every CUDA-side event (kernels, copies,
-sets) that is not a range's projection onto the device. An idle gap is a
-moment of the stretch with none of them running; it is charged to the
-innermost host range around its middle.
+sets) that is not a range's projection onto the device: neither the
+benchmark's ranges nor the port's (its spans, ``engine:``, ``kv:``,
+``td:``, ``model:``, are ranges of their names while the profiler
+records). An idle gap is a moment of the stretch with none of them
+running; it is charged to the innermost ``bench:`` range around its
+middle.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 Interval = Tuple[int, int, str]
+# the port's span prefixes (``repro_torch.tracing.PREFIXES``, copied: the
+# harness reads the trace without importing the program)
+PROGRAM_RANGES = ("engine:", "kv:", "td:", "model:")
 
 
 @dataclasses.dataclass
@@ -31,11 +37,12 @@ class TraceSummary:
 def split_events(kineto_events, prefix: str = "bench:"
                  ) -> Tuple[List[Interval], List[Interval]]:
     """(device intervals, host ``prefix`` ranges) from a profiler's raw
-    events."""
+    events; the port's ranges are neither."""
     dev, host = [], []
     for e in kineto_events:
         name = e.name()
-        user = name.startswith(prefix) or e.is_user_annotation()
+        user = (name.startswith((prefix,) + PROGRAM_RANGES)
+                or e.is_user_annotation())
         s = e.start_ns()
         t = s + e.duration_ns()
         if str(e.device_type()).endswith("CUDA"):

@@ -20,9 +20,10 @@ HERE = Path(__file__).resolve().parents[1]
 
 
 def _run(seed, traced=False, fault=None, device="cpu", mix=None,
-         control=False, seconds=2.5, **changes):
+         control=False, **changes):
     bench, cell, cfg, mix = smoke.setup(mix, **changes)
-    return runner.run_cell(bench, "smoke", seed, seconds, traced,
+    return runner.run_cell(bench, "smoke", seed,
+                           smoke.window_s(traced=traced), traced,
                            device=device,
                            t_process0=time.perf_counter(), cell=cell,
                            cfg=cfg, mix=mix, model_cfg=smoke.model_cfg(),
@@ -65,12 +66,24 @@ def test_a_closed_loop_run():
 
 
 def test_a_traced_run_reports_per_layer_metrics():
-    # the profiler slows the steps; a longer window still finishes the
-    # requests the check samples on a loaded CPU
-    res = _run(13, traced=True, seconds=4.0)
+    res = _run(13, traced=True)
     assert res["correct"] is True
-    assert {"weights_seal_s", "decode_step_ms.chat"} <= set(res["metrics"])
+    # the port's spans over the traced stretch reach their readers
+    assert {"weights_seal_s", "decode_step_ms.chat", "prefill_ms.chat",
+            "decode_launch_ms.chat"} <= set(res["metrics"])
     assert "breakdown" in res and res["device"]["window_s"] > 0
+
+
+@pytest.mark.parametrize("decode,held", [("kernel", True),
+                                          ("gather", False)])
+def test_b3_launches_are_held_on_the_kernel_path_only(decode, held):
+    cmp = {"max_logit_gap": 0.0, "tokens_compared": 30,
+           "requests_compared": 4}
+    chk = smoke.CELL["check"]
+    checks = runner.judge(cmp, chk, 0, 0, decode=decode)
+    assert ("b3_launches" in checks) is held
+    assert all(c["ok"] for c in checks.values()) is not held
+    assert "b3_launches" not in runner.judge(cmp, chk, 0, None, decode=decode)
 
 
 def test_the_run_command_needs_a_card(tmp_path):

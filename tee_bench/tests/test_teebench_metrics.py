@@ -1,5 +1,8 @@
 """The metric arithmetic on synthetic timelines: a stall inside the
-window moves the tails and the rate."""
+window moves the tails and the rate; the span readers on hand-made
+spans."""
+
+import types
 
 import pytest
 
@@ -73,3 +76,28 @@ def test_gaps_count_where_they_end():
     # tokens at 0.1, 1.1, 2.1, 3.1, 4.1: two gaps end inside [0, 2.5)
     assert _read("itl_p95_ms", run) == pytest.approx(1000.0)
     assert _read("output_tok_s", run) == pytest.approx(3 / 2.5)
+
+
+def _span(name, t0, t1, **attrs):
+    """A span as ``repro_torch.tracing.Span`` records one."""
+    return types.SimpleNamespace(name=name, t0=t0, t1=t1, attrs=attrs)
+
+
+def test_span_readers_take_the_ports_spans():
+    """Prefill time per row prefilled, and the mean decode launch; other
+    spans, and one still open, count for nothing."""
+    run = _timeline(n=1)
+    assert _read("prefill_ms.chat", run) is None
+    assert _read("decode_launch_ms.chat", run) is None
+    run.spans = [
+        _span("engine:step", 0.0, 1.0, rows=2),
+        _span("engine:prefill", 0.1, 0.3, rows=1, bucket=256),
+        _span("engine:first_token", 0.2, 0.3),
+        _span("engine:prefill", 0.5, 0.9, rows=2, bucket=512),
+        _span("kv:decode_launch", 1.0, 1.04, rows=3),
+        _span("kv:decode_wait", 1.04, 1.05),
+        _span("kv:decode_launch", 1.1, 1.12, rows=3),
+        _span("engine:prefill", 2.0, None, rows=4),
+        _span("kv:decode_launch", 2.1, None, rows=3)]
+    assert _read("prefill_ms.chat", run) == pytest.approx(600.0 / 3)
+    assert _read("decode_launch_ms.chat", run) == pytest.approx(30.0)

@@ -13,17 +13,11 @@ import smoke
 
 
 def _program(cfg, seed):
-    from repro_torch.core.sealing import tree_map_with_names
     from repro_torch.models import build_model
-    from teebench import weights
-    from teebench.program import logical_name
+    from teebench.program import make_params
     model = build_model(smoke.model_cfg(cfg), device="cpu")
-
-    def make(path, meta):
-        leaf, stacked = logical_name(path)
-        return (weights.stacked if stacked else weights.make)(
-            cfg, seed, leaf, device="cpu")
-    return model, tree_map_with_names(make, model.abstract_params())
+    return model, make_params(cfg, seed, model.abstract_params(),
+                              device="cpu")
 
 
 @pytest.mark.parametrize("seed", [3, 2 ** 40 + 1])

@@ -27,9 +27,12 @@ class _Ev:
         return self._u
 
 
-def test_busy_idle_and_kernel_time():
-    ms = 1_000_000
-    events = [
+MS = 1_000_000
+
+
+def _events():
+    ms = MS
+    return [
         _Ev("bench:step", "CPU", 0, 10 * ms, True),
         _Ev("bench:submit", "CPU", 2 * ms, 3 * ms, True),
         _Ev("bench:wait", "CPU", 10 * ms, 12 * ms, True),
@@ -39,7 +42,11 @@ def test_busy_idle_and_kernel_time():
         _Ev("split_kernel", "CUDA", 4 * ms, 9 * ms),
         _Ev("aten::mm", "CPU", 1 * ms, 2 * ms),
     ]
-    dev, host = trace.split_events(events)
+
+
+def test_busy_idle_and_kernel_time():
+    ms = MS
+    dev, host = trace.split_events(_events())
     assert len(dev) == 3 and len(host) == 3
     s = trace.reduce(dev, host, rename={0: "bench:step_decode"})
     assert s.window_s == pytest.approx(12e-3)
@@ -60,3 +67,24 @@ def test_busy_idle_and_kernel_time():
 
 def test_no_host_ranges_no_summary():
     assert trace.reduce([], []) is None
+
+
+def test_the_ports_ranges_move_nothing():
+    """The port's spans are ranges of their names while the profiler
+    records: on the host and as projections on the device, flagged as user
+    annotations or not. The reduction reads the same with them."""
+    ms = MS
+    ranges = [
+        _Ev("engine:step", "CPU", 0, 10 * ms, True),
+        _Ev("engine:step", "CUDA", 0, 10 * ms, True),
+        _Ev("kv:decode_launch", "CPU", 3 * ms, 9 * ms, True),
+        _Ev("kv:decode_launch", "CUDA", 2 * ms, 11 * ms),
+        _Ev("td:frame", "CUDA", 9 * ms, 12 * ms),
+        _Ev("engine:prefill", "CUDA", 0, 12 * ms)]
+    plain = trace.split_events(_events())
+    assert trace.split_events(_events() + ranges) == plain
+    a = trace.reduce(*trace.split_events(_events() + ranges),
+                     rename={0: "bench:step_decode"})
+    b = trace.reduce(*plain, rename={0: "bench:step_decode"})
+    assert a == b and a.busy_s == pytest.approx(6.5e-3)
+    assert trace.breakdown(a) == trace.breakdown(b)
